@@ -6,8 +6,8 @@ Reference usage (README.md:57-66, src/selection.cpp:86-111):
 Loads the persisted sketches, runs the CB + auxiliary-criterion cascade with
 exact HLL-union confirmation, and prints `fileA fileB jaccard` lines in the
 reference's sorted-row order. Port of cuda_selection_criteria_tpu/cli/
-selection.py: criteria smh_a, cb and baseline; hll_a, hll_an and smh_only
-are later slices (ROADMAP.md queue 1).
+selection.py: criteria smh_a, hll_a, hll_an, cb and baseline; smh_only is
+a later slice (ROADMAP.md queue 1).
 
 Defaults mirror src/selection.cpp:76-82: tau=0.9, aux=256 bytes.
 """
@@ -16,8 +16,6 @@ import argparse
 import sys
 
 NOT_PORTED = {
-    "hll_a": "ROADMAP.md queue 1, item 6 (hll-aux gate)",
-    "hll_an": "ROADMAP.md queue 1, item 6 (hll-aux gate)",
     "smh_only": "ROADMAP.md queue 1, item 8 (time_smh)",
 }
 
@@ -68,7 +66,8 @@ def main(argv=None):
     files = load_file_list(args.list_file)
     # -t is accepted for flag parity; the numpy loader reads on one thread
     bank = SketchBank.from_sketch_files(
-        files, criterion="smh_a" if args.criterion == "smh_a" else None,
+        files, criterion=(args.criterion if args.criterion in
+                          ("smh_a", "hll_a", "hll_an") else None),
         aux_bytes=args.aux_bytes)
     params = SelectionParams(
         tau=args.threshold,

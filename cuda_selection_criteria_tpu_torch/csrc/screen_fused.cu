@@ -21,6 +21,7 @@
 // Design. [max(a,b) <= v] == [a <= v] & [b <= v], so stage 1 packs every
 // bank row into K-1 bit-planes of R/32 uint32 words (bit r of plane k =
 // [reg_r <= v_k]) and stage 2 counts CDF_k = sum_w popc(A_k[w] & B_k[w]).
+// Stage 1 lives in pack_planes.cuh, shared with K2 (weighted_cdf_sum.cu).
 // Counts are exact integers whatever the summation order, and the weights
 // apply once per bin in ascending order with explicit _rn intrinsics (no
 // FMA contraction), so S - and with it the hit mask - is bit-equal to the
@@ -37,42 +38,9 @@
 // 128 rows x (K-1) x 2 KiB per CTA, mostly L2 hits. mma with .b1 operands
 // (AND + POPC on the tensor cores) and wgmma belong to later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "pack_planes.cuh"
 
 namespace {
-
-constexpr int kTile = 64;      // CTA tile edge (pairs per side)
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 pairs each
-constexpr int kChunk = 32;     // plane words per shared-memory stage
-
-// Stage 1: planes[(n * nbins + k) * W + w], bit t = [regs[n, 32w + t] <= thr[k]].
-__global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
-                                   long long n_rows, int R,
-                                   const int* __restrict__ thr, int nbins,
-                                   uint32_t* __restrict__ planes) {
-  const int W = R / 32;
-  long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rows * W) return;
-  long long n = gid / W;
-  int w = (int)(gid % W);
-  const uint4* src = reinterpret_cast<const uint4*>(regs + n * R + w * 32);
-  uint4 lo = src[0], hi = src[1];
-  uint32_t words[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  for (int k = 0; k < nbins; ++k) {
-    uint32_t t = (uint32_t)thr[k];
-    uint32_t bits = 0;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        uint32_t byte = (words[q] >> (8 * b)) & 0xFFu;
-        bits |= (uint32_t)(byte <= t) << (4 * q + b);
-      }
-    }
-    planes[(n * nbins + k) * W + w] = bits;
-  }
-}
 
 // Stage 2: grid (ti/64, ti/64, T); block (256,).
 __global__ void __launch_bounds__(kThreads)
@@ -198,12 +166,7 @@ extern "C" int csc_screen_fused(
     int use_cb, int use_smh, void* hits, void* counts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = R / 32;
-  const long long total = n_rows * W;
-  const unsigned pack_blocks = (unsigned)((total + 255) / 256);
-  pack_planes_kernel<<<pack_blocks, 256, 0, st>>>(
-      static_cast<const uint8_t*>(regs), n_rows, R,
-      static_cast<const int*>(thr), nbins, static_cast<uint32_t*>(planes));
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_pack_planes(regs, n_rows, R, thr, nbins, planes, st);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(ti / kTile, ti / kTile, n_tiles);
   screen_kernel<<<grid, kThreads, 0, st>>>(

@@ -1,13 +1,16 @@
 """Build and load the port's CUDA kernels at first use.
 
-`nvcc` compiles csrc/screen_fused.cu for sm_90a into a shared library with
-a plain C interface under cuda_selection_criteria_tpu_torch/build/ (listed
-in .gitignore), which ctypes loads. The library name carries a hash of the
-source, so an edited kernel is rebuilt and a stale one is never loaded.
+Each kernel source csrc/<name>.cu is compiled by `nvcc` for sm_90a into a
+shared library of its own with a plain C interface, under
+cuda_selection_criteria_tpu_torch/build/ (listed in .gitignore), which
+ctypes loads. A library's name carries a hash of its source and of the
+shared headers (csrc/*.cuh), so an edited kernel is rebuilt and a stale one
+is never loaded. build() starts one nvcc per missing library, all at once.
 Compiles only from the sources in this package; nothing is downloaded.
 """
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -15,7 +18,7 @@ import subprocess
 import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "screen_fused.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -23,15 +26,39 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [
-    _P, ctypes.c_longlong, _I, _P,   # regs, n_rows, R, thr
-    _P, _I, _F, _I, _F, _F,          # weights, nbins, tail, want_z, 2m, 2m^2
-    _P, _P, _P, _I, _I,              # planes, row/col tiles, n_tiles, ti
-    _P, _F, _P, _I, _I, _F,          # e, one_tau, fp, n_bands, n_real, tau_cb
-    _I, _I, _P, _P, _P,              # use_cb, use_smh, hits, counts, stream
-]
+_LL = ctypes.c_longlong
+
+# kernel name (csrc/<name>.cu) -> (C entry point, its ctypes argtypes)
+KERNELS = {
+    "screen_fused": ("csc_screen_fused", [
+        _P, _LL, _I, _P,         # regs, n_rows, R, thr
+        _P, _I, _F, _I, _F, _F,  # weights, nbins, tail, want_z, 2m, 2m^2
+        _P, _P, _P, _I, _I,      # planes, row/col tiles, n_tiles, ti
+        _P, _F, _P, _I, _I, _F,  # e, one_tau, fp, n_bands, n_real, tau_cb
+        _I, _I, _P, _P, _P,      # use_cb, use_smh, hits, counts, stream
+    ]),
+    "weighted_cdf_sum": ("csc_weighted_cdf_sum", [
+        _P, _LL, _P, _LL, _I,    # regs, n_rows, regs_cols, n_cols, R
+        _P, _P, _I, _F, _I,      # thr, weights, nbins, tail, emit_z0
+        _P, _P, _P, _P,          # planes, planes_cols, row/col tiles
+        _I, _I, _I, _P, _P, _P,  # n_tiles, ti, tj, s, z, stream
+    ]),
+}
 
 _loaded = {}
+
+
+def source(name):
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def _target(name):
+    h = hashlib.sha1()
+    for path in [source(name)] + sorted(glob.glob(os.path.join(CSRC,
+                                                               "*.cuh"))):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def _nvcc():
@@ -45,36 +72,50 @@ def _nvcc():
     return path
 
 
-def build():
-    """Compile the kernel library if this source version is not built yet.
+def build(names=None):
+    """Compile every named kernel library (default: all of KERNELS) that
+    is not built yet, one nvcc process per source, all started together.
 
-    Returns (library path, build seconds, compiler log); seconds is 0.0
-    and the log empty when the library already existed."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"libscreen_fused_{digest}.so")
-    if os.path.exists(out):
-        return out, 0.0, ""
+    Returns {name: (library path, build seconds, compiler log)}; seconds
+    is 0.0 and the log empty for a library that already existed."""
+    out, todo = {}, {}
+    for name in KERNELS if names is None else names:
+        path = _target(name)
+        if os.path.exists(path):
+            out[name] = (path, 0.0, "")
+        else:
+            todo[name] = path
+    if not todo:
+        return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
+    procs = {name: subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-o", f"{path}.tmp{os.getpid()}", source(name)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, path in todo.items()}
+    logs = {name: proc.communicate()[0] for name, proc in procs.items()}
     secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return out, secs, log
+    failed = [name for name, proc in procs.items() if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[name] for name in failed))
+    for name, path in todo.items():
+        os.replace(f"{path}.tmp{os.getpid()}", path)
+        out[name] = (path, secs, logs[name])
+    return out
 
 
-def library():
-    """The loaded kernel library (built on first call)."""
-    path, _, _ = build()
-    lib = _loaded.get(path)
+def library(name):
+    """The loaded library of kernel `name`: built if needed and loaded at
+    the first call in this process, which then keeps it (the sources are
+    hashed once, not at every launch)."""
+    lib = _loaded.get(name)
     if lib is None:
-        lib = ctypes.CDLL(path)
-        lib.csc_screen_fused.argtypes = _ARGTYPES
-        lib.csc_screen_fused.restype = ctypes.c_int
-        _loaded[path] = lib
+        lib = ctypes.CDLL(build([name])[name][0])
+        entry, argtypes = KERNELS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
     return lib

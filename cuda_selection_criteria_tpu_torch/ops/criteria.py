@@ -20,6 +20,17 @@ def z_sigma(z_score, p):
     return np.float64(np.float32(z_score) * sigma(p))
 
 
+def zs_series(zs, order_n):
+    """s = sum_{k=1..order_n} zs^k of the hll_an correction, accumulated
+    term by term as the reference does (criteria_sketch.hpp:52-58)."""
+    s = 0.0
+    num = 1.0
+    for _ in range(order_n):
+        num *= zs
+        s += num
+    return s
+
+
 def smh_band_params(m, tau):
     """Band/row split: smallest divisor band count with P_r >= 0.95.
 

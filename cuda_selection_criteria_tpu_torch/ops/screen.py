@@ -1,4 +1,4 @@
-"""Certified screen: harmonic sums of pairwise HLL unions (kernel K1).
+"""Certified screen: harmonic sums of pairwise HLL unions (kernels K1, K2).
 
 Port of cuda_selection_criteria_tpu/ops/screen.py. With
 CDF[v] = #{r : max(a_r, b_r) <= v} over the sorted present register values
@@ -9,9 +9,11 @@ b_0 < ... < b_{K-1}, the dyadic telescope gives
 
 and the screen keeps a pair when the certified MLE lower bound
 t_lb = 2m(m-Z)/(3S-Z) cannot exclude J >= tau (DESIGN.md "Screen
-certificate"). screen_hits_fused runs the hand-written CUDA kernel
-(csrc/screen_fused.cu) on CUDA tensors and its plain PyTorch version on
-CPU tensors; the plain version is also the kernel's reference on the card.
+certificate"). screen_hits_fused (K1, csrc/screen_fused.cu) and
+screen_s_z (K2, the raw S and Z; csrc/weighted_cdf_sum.cu) run their
+hand-written CUDA kernels on CUDA tensors and their plain PyTorch versions
+on CPU tensors; each plain version is also its kernel's reference on the
+card.
 """
 
 import numpy as np
@@ -92,26 +94,131 @@ def _cdf_sum(a, b, thresholds, weights, want_z):
     return s, z
 
 
-def screen_s_z(regs, row_tiles, col_tiles, p, values, ti=512, tj=512):
-    """Pairwise harmonic sums / zero counts for a list of (row, col) tiles,
-    plain PyTorch: (S, Z) float32 (T, ti, tj); Z is None when 0 is not a
-    present value. A single present value makes S and Z constants."""
+def _check(who, cond, msg):
+    if not cond:
+        raise ValueError(f"{who}: {msg}")
+
+
+def _constant_s_z(n_tiles, p, tail, want_z, ti, tj, device):
+    """S and Z of a bank with a single present value: constants."""
+    shape = (n_tiles, ti, tj)
+    s = torch.full(shape, float(tail), dtype=torch.float32, device=device)
+    z = (torch.full(shape, float(1 << p), dtype=torch.float32, device=device)
+         if want_z else None)
+    return s, z
+
+
+def _screen_s_z_plain(regs, row_tiles, col_tiles, p, values, ti, tj,
+                      regs_cols=None):
+    """Plain PyTorch version of K2 (the reference's _weighted_cdf_sum
+    behind screen_s_z): (S, Z) float32 (T, ti, tj); Z is None when 0 is not
+    a present value. Rows come from regs, columns from regs_cols (default:
+    regs)."""
+    if regs_cols is None:
+        regs_cols = regs
     values, weights, tail, want_z = telescope(p, values)
     if not weights:
-        shape = (len(row_tiles), ti, tj)
-        s = torch.full(shape, float(tail), dtype=torch.float32,
-                       device=regs.device)
-        z = (torch.full(shape, float(1 << p), dtype=torch.float32,
-                        device=regs.device) if want_z else None)
-        return s, z
+        return _constant_s_z(len(row_tiles), p, tail, want_z, ti, tj,
+                             regs.device)
     s_out, z_out = [], []
     for r, c in zip(row_tiles.tolist(), col_tiles.tolist()):
         s, z = _cdf_sum(regs[r * ti:(r + 1) * ti],
-                        regs[c * tj:(c + 1) * tj], values[:-1],
+                        regs_cols[c * tj:(c + 1) * tj], values[:-1],
                         weights, want_z)
         s_out.append(s + float(tail))
         z_out.append(z)
     return torch.stack(s_out), (torch.stack(z_out) if want_z else None)
+
+
+def _check_bank(who, regs, dev, r, rows_per_tile, name):
+    _check(who, regs.device == dev and regs.dtype == torch.uint8
+           and regs.dim() == 2 and regs.is_contiguous()
+           and regs.shape[1] == r,
+           f"{name} must be contiguous uint8 (N_pad, 2^p) on {dev}")
+    _check(who, r % 32 == 0 and regs.data_ptr() % 16 == 0,
+           f"needs p >= 5 and a 16-byte aligned {name}")
+    _check(who, rows_per_tile % 64 == 0
+           and regs.shape[0] % rows_per_tile == 0,
+           f"the tile edge of {name} must be a multiple of 64 dividing its "
+           "rows")
+
+
+def _check_tiles(who, row_tiles, col_tiles, dev):
+    n_tiles = int(row_tiles.shape[0])
+    _check(who, 0 < n_tiles <= 65535, "1..65535 tiles per launch")
+    for name, x in (("row_tiles", row_tiles), ("col_tiles", col_tiles)):
+        _check(who, x.device == dev and x.dtype == torch.int32
+               and x.shape == (n_tiles,) and x.is_contiguous(),
+               f"{name} must be contiguous int32 (T,) on {dev}")
+    return n_tiles
+
+
+def screen_s_z(regs, row_tiles, col_tiles, p, values, ti=512, tj=512,
+               regs_cols=None):
+    """Pairwise harmonic sums / zero counts for a list of (row, col) tiles:
+    (S, Z) float32 (T, ti, tj); Z is None when 0 is not a present value.
+
+    A single present value makes S and Z constants (no kernel). Otherwise
+    CPU tensors run _screen_s_z_plain, and CUDA tensors launch the
+    hand-written kernel K2 (csrc/weighted_cdf_sum.cu) on the current stream
+    or raise; there is no fallback.
+
+    Args:
+      regs: uint8 (N_pad, 2^p) row bank; row_tiles index it in units of ti.
+      row_tiles, col_tiles: int32 (T,) block indices.
+      values: sorted present register values (a truncate_values prefix
+        makes S a one-sided overestimate).
+      ti, tj: row and column tile edges (multiples of 64 on CUDA).
+      regs_cols: optional separate uint8 (M_pad, 2^p) column bank that
+        col_tiles index in units of tj; None means regs.
+    """
+    values, weights, tail, want_z = telescope(p, values)
+    if not weights:
+        return _constant_s_z(len(row_tiles), p, tail, want_z, ti, tj,
+                             regs.device)
+    if regs.device.type == "cpu":
+        return _screen_s_z_plain(regs, row_tiles, col_tiles, p, values, ti,
+                                 tj, regs_cols)
+    who = "screen_s_z"
+    dev = regs.device
+    _check(who, dev.type == "cuda", f"unsupported device {dev}")
+    _check(who, 0 <= values[0] and values[-1] <= 255, "values outside uint8")
+    r = 1 << p
+    _check_bank(who, regs, dev, r, ti, "regs")
+    if regs_cols is not None:
+        _check_bank(who, regs_cols, dev, r, tj, "regs_cols")
+    else:
+        _check(who, tj % 64 == 0 and regs.shape[0] % tj == 0,
+               "tj must be a multiple of 64 dividing N_pad")
+    n_tiles = _check_tiles(who, row_tiles, col_tiles, dev)
+
+    nbins = len(weights)
+    thr = torch.tensor(values[:-1], dtype=torch.int32, device=dev)
+    w = torch.tensor(np.asarray(weights, np.float32), device=dev)
+    planes = torch.empty((regs.shape[0], nbins, r // 32), dtype=torch.int32,
+                         device=dev)
+    planes_c = (None if regs_cols is None else
+                torch.empty((regs_cols.shape[0], nbins, r // 32),
+                            dtype=torch.int32, device=dev))
+    s = torch.empty((n_tiles, ti, tj), dtype=torch.float32, device=dev)
+    z = torch.empty_like(s) if want_z else None
+    err = _build.library("weighted_cdf_sum").csc_weighted_cdf_sum(
+        regs.data_ptr(), regs.shape[0],
+        None if regs_cols is None else regs_cols.data_ptr(),
+        0 if regs_cols is None else regs_cols.shape[0], r, thr.data_ptr(),
+        w.data_ptr(), nbins, float(tail), int(want_z), planes.data_ptr(),
+        None if planes_c is None else planes_c.data_ptr(),
+        row_tiles.data_ptr(), col_tiles.data_ptr(), n_tiles, ti, tj,
+        s.data_ptr(), None if z is None else z.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"weighted_cdf_sum kernel launch failed: "
+                           f"cudaError_t {err}")
+    screen_s_z.launches += 1
+    return s, z
+
+
+screen_s_z.launches = 0
 
 
 def tile_ids(row_tiles, col_tiles, ti):
@@ -181,11 +288,6 @@ def _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp, n_real,
     return hits, hits.sum((1, 2), dtype=torch.int32)
 
 
-def _check(cond, msg):
-    if not cond:
-        raise ValueError(f"screen_hits_fused: {msg}")
-
-
 def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
                       tau_cb, p, values, ti, n_bands, use_cb, use_smh):
     """Fused screen over a (row, col) tile list: (int8 hits (T, ti, ti),
@@ -208,29 +310,19 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
         return _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp,
                                         n_real, tau_scr, tau_cb, p, values,
                                         ti, n_bands, use_cb, use_smh)
+    who = "screen_hits_fused"
     dev = regs.device
-    _check(dev.type == "cuda", f"unsupported device {dev}")
+    _check(who, dev.type == "cuda", f"unsupported device {dev}")
     values, weights, tail, want_z = telescope(p, values)
     r = 1 << p
-    n_tiles = int(row_tiles.shape[0])
-    _check(len(values) >= 2, "needs >= 2 present values")
-    _check(0 <= values[0] and values[-1] <= 255, "values outside uint8")
-    _check(regs.dtype == torch.uint8 and regs.dim() == 2
-           and regs.is_contiguous() and regs.shape[1] == r,
-           "regs must be contiguous uint8 (N_pad, 2^p)")
-    _check(r % 32 == 0 and regs.data_ptr() % 16 == 0,
-           "needs p >= 5 and a 16-byte aligned bank")
-    _check(ti % 64 == 0 and regs.shape[0] % ti == 0,
-           "ti must be a multiple of 64 dividing N_pad")
-    _check(0 < n_tiles <= 65535, "1..65535 tiles per launch")
-    for name, x in (("row_tiles", row_tiles), ("col_tiles", col_tiles)):
-        _check(x.device == dev and x.dtype == torch.int32
-               and x.shape == (n_tiles,) and x.is_contiguous(),
-               f"{name} must be contiguous int32 (T,) on {dev}")
-    _check(e.device == dev and e.dtype == torch.float32
+    _check(who, len(values) >= 2, "needs >= 2 present values")
+    _check(who, 0 <= values[0] and values[-1] <= 255, "values outside uint8")
+    _check_bank(who, regs, dev, r, ti, "regs")
+    n_tiles = _check_tiles(who, row_tiles, col_tiles, dev)
+    _check(who, e.device == dev and e.dtype == torch.float32
            and e.shape == (regs.shape[0],) and e.is_contiguous(),
            "e must be contiguous float32 (N_pad,)")
-    _check(fp.device == dev and fp.dtype == torch.int32
+    _check(who, fp.device == dev and fp.dtype == torch.int32
            and fp.shape == (regs.shape[0], n_bands) and fp.is_contiguous(),
            "fp must be contiguous int32 (N_pad, n_bands)")
 
@@ -243,7 +335,7 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
     counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     m_f = np.float32(r)
     one_tau = np.float32(1.0) + np.float32(tau_scr)
-    err = _build.library().csc_screen_fused(
+    err = _build.library("screen_fused").csc_screen_fused(
         regs.data_ptr(), regs.shape[0], r, thr.data_ptr(), w.data_ptr(),
         nbins, float(tail), int(want_z), float(np.float32(2.0) * m_f),
         float(np.float32(2.0) * m_f * m_f), planes.data_ptr(),

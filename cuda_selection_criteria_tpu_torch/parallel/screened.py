@@ -12,7 +12,9 @@ cascade, mirroring the reference's prune-then-confirm design
      computes per-pair harmonic sums / zero counts and keeps the pairs the
      certified MLE lower bound t_lb = 2m(m-Z)/(3S-Z) cannot exclude. A
      superset of the exact cascade by theorem (DESIGN.md "Screen
-     certificate").
+     certificate"). hll_a / hll_an add the same bound on the aux sketches
+     at p_aux (kernel K2, ops/screen.screen_s_z, then the aux-threshold
+     compare).
   3. CONFIRM (host, exact): the device computes union histograms with a
      certain-reject flag (make_device_hist_fn) and the host f64 oracle
      (utils/hostref.PairOracle) decides every candidate, so emitted pairs
@@ -33,12 +35,41 @@ from . import scheduler
 # Numeric slack on the certified screen threshold: t_lb <= t_mle is a
 # theorem, so the margin covers only f32 rounding (~1e-5 budget).
 SCREEN_DELTA_DEFAULT = 1e-3
+# Same certificate, same slack, for the small aux sketches (p_aux 5..8):
+# the bound holds at every precision.
+SCREEN_DELTA_AUX = 1e-3
 
 
 def screen_tau(tau, delta=SCREEN_DELTA_DEFAULT):
     """Conservative screen threshold: t_lb <= e_sum/(1+screen_tau(tau))
     whenever t_mle <= e_sum/(1+tau), given t_lb <= (1+delta)*t_mle."""
     return (1.0 + float(tau)) / (1.0 + float(delta)) - 1.0
+
+
+def hll_aux_threshold_coef(criterion, tau, zs, order_n):
+    """Coefficient c with: the exact aux gate passes only if
+    t_aux <= c * (e1 + e2).
+
+    hll_a (criteria_sketch.hpp:60-64): K+ >= tau with t+ = t/(1+Z*sigma)
+    and (1+gamma)*e2 = e1+e2, so pass <=> t <= (1+zs)(e1+e2)/(1+tau).
+
+    hll_an (criteria_sketch.hpp:52-58): J + C >= tau with
+    C = min(1, (1+zs)e2/t) * (1+gamma) * s, s = sum_{k<=n} (zs)^k.
+      - min != 1 case: pass <=> t <= (e1+e2)(1 + (1+zs)s)/(1+tau);
+      - min == 1 case: C <= 2s (gamma <= 1 after the sort), so
+        pass => t <= (e1+e2)/(1+tau-2s)  (None = the gate cannot prune
+        when 1+tau-2s <= 0).
+    The max of the two cases is a valid one-sided bound for the screen.
+    """
+    tau = float(tau)
+    zs = float(zs)
+    if criterion == "hll_a":
+        return (1.0 + zs) / (1.0 + tau)
+    s = criteria.zs_series(zs, order_n)
+    c_b = (1.0 + (1.0 + zs) * s) / (1.0 + tau)
+    if 1.0 + tau - 2.0 * s <= 0.0:
+        return None
+    return max(c_b, 1.0 / (1.0 + tau - 2.0 * s))
 
 
 def band_fingerprints_np(aux, n_rows, n_bands):
@@ -138,6 +169,37 @@ def _screen_chunk(regs, r_tiles, c_tiles, e, fp, n_real, tau_scr, tau_cb,
     return hits, hits.sum((1, 2), dtype=torch.int32)
 
 
+def _screen_chunk_hllaux(regs, aux_regs, r_tiles, c_tiles, e, fp, n_real,
+                         tau_scr, tau_cb, coef_aux, p, values, p_aux,
+                         values_aux, ti):
+    """One chunk of the hll_a / hll_an screen: the primary screen (K1 with
+    CB, no LSH bands), then the aux-union gate, ANDed into the hits.
+
+    The exact aux gate passes only when t_aux <= coef * (e1+e2)
+    (hll_aux_threshold_coef), so the aux sketches get the certified bound
+    t_lb = 2m_a(m_a - Z_a)/(3S_a - Z_a) at p_aux through K2, compared
+    division-free with the reference's f32 operation order. S_a and Z_a
+    die with this call: only hits and counts stay pending."""
+    hits, _ = _screen_chunk(regs, r_tiles, c_tiles, e, fp, n_real, tau_scr,
+                            tau_cb, p, values, ti, 1, True, False)
+    s_a, z_a = screen.screen_s_z(aux_regs, r_tiles, c_tiles, p_aux,
+                                 values_aux, ti=ti, tj=ti)
+    m_a = float(np.float32(1 << p_aux))
+    ii, jj = screen.tile_ids(r_tiles, c_tiles, ti)
+    e_sum = e[ii][:, :, None] + e[jj][:, None, :]
+    # Absolute slack on top of the multiplicative margin: the exact hll_a
+    # gate floors t_hat (a size_t cast), which can admit up to +1 beyond
+    # the continuous bound; +(1+delta) covers that for every union size.
+    slack = float(np.float32(1.0 + SCREEN_DELTA_AUX))
+    thresh = e_sum * float(np.float32(coef_aux)) + slack
+    if z_a is None:
+        aux_pass = 2.0 * m_a * m_a <= 3.0 * s_a * thresh
+    else:
+        aux_pass = 2.0 * m_a * (m_a - z_a) <= (3.0 * s_a - z_a) * thresh
+    hits.masked_fill_(~aux_pass, 0)
+    return hits, hits.sum((1, 2), dtype=torch.int32)
+
+
 def extract_hit_coords(hits, ts):
     """[(tile_pos, rows, cols)] for the hit tiles `ts` of one chunk:
     torch.nonzero over just those tiles, one device-to-host copy."""
@@ -213,12 +275,21 @@ def make_device_hist_fn(d_regs, d_e, p, tau, delta, chunk=8192):
     return fn
 
 
+def _upload_sorted(arr, order, n_pad, device):
+    """One upload of a raw (N, R) uint8 bank, then a device-side gather of
+    its rows in `order` into a zero-padded (n_pad, R) device bank."""
+    raw = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+    out = torch.zeros((n_pad, arr.shape[1]), dtype=torch.uint8, device=device)
+    out[:len(order)] = raw[torch.from_numpy(order).to(device)]
+    return out
+
+
 class ScreenPlan:
     """Everything the screen cascade needs, prepared once per bank/params:
     the sorted+padded arrays, the device-resident bank, and the
     conservative thresholds."""
 
-    VALID = ("smh_a", "cb", "baseline")
+    VALID = ("smh_a", "cb", "baseline", "hll_a", "hll_an")
 
     def __init__(self, bank, params, ti, device=None):
         crit = params.criterion
@@ -262,13 +333,7 @@ class ScreenPlan:
             self.d_fp = torch.zeros((n_pad, 1), dtype=torch.int32,
                                     device=self.device)
 
-        # One upload of the raw bank, then a device-side gather of the
-        # sorted rows into the zero-padded (n_pad, R) bank.
-        raw = torch.from_numpy(bank.regs).to(self.device)
-        self.d_regs = torch.zeros((n_pad, bank.regs.shape[1]),
-                                  dtype=torch.uint8, device=self.device)
-        self.d_regs[:n] = raw[torch.from_numpy(order).to(self.device)]
-        del raw
+        self.d_regs = _upload_sorted(bank.regs, order, n_pad, self.device)
 
         # Truncated telescope: a one-sided (overestimating) harmonic sum
         # with fewer bins (ops/screen.truncate_values).
@@ -276,6 +341,25 @@ class ScreenPlan:
         self.values = screen.truncate_values(
             screen.bank_values(self.d_regs[:n]), max_card, bank.p)
         self.tau_scr = np.float32(screen_tau(self.tau, params.screen_delta))
+
+        # Device aux-union gate of the hll-aux criteria: the exact gate
+        # passes only when t_aux <= coef * (e1+e2), so the aux sketches get
+        # the same harmonic-sum screen at p_aux. None when the gate cannot
+        # prune at this tau (the plain K1 chunk then runs alone).
+        self.coef_aux = self.values_aux = self.d_aux_regs = None
+        if crit in ("hll_a", "hll_an"):
+            zs = criteria.z_sigma(params.z_score, bank.aux_param)
+            coef = hll_aux_threshold_coef(crit, self.tau, zs, params.order_n)
+            if coef is not None:
+                self.coef_aux = np.float32(coef * (1.0 + SCREEN_DELTA_AUX))
+                self.d_aux_regs = _upload_sorted(bank.aux, order, n_pad,
+                                                 self.device)
+                # present values are permutation-invariant: the sorted
+                # real rows hold those of the unsorted aux bank
+                self.values_aux = screen.truncate_values(
+                    screen.bank_values(self.d_aux_regs[:n]),
+                    float(np.trunc(bank.cards).max(initial=1.0)),
+                    bank.aux_param)
         # CB margin: the screen divides in f32; relax by 1e-5 relative and
         # let the oracle apply the exact f64 comparison.
         self.tau_cb = np.float32(self.tau * (1.0 - 1e-5))
@@ -316,6 +400,12 @@ class ScreenPlan:
     def screen_chunk(self, r_chunk, c_chunk):
         """One fused screen launch over a chunk of tiles:
         (hits (T, ti, ti), per-tile counts (T,))."""
+        if self.coef_aux is not None:
+            return _screen_chunk_hllaux(
+                self.d_regs, self.d_aux_regs, self._tiles(r_chunk),
+                self._tiles(c_chunk), self.d_e, self.d_fp, self.n,
+                self.tau_scr, self.tau_cb, self.coef_aux, self.bank.p,
+                self.values, self.bank.aux_param, self.values_aux, self.ti)
         return _screen_chunk(
             self.d_regs, self._tiles(r_chunk), self._tiles(c_chunk),
             self.d_e, self.d_fp, self.n, self.tau_scr, self.tau_cb,
@@ -384,7 +474,9 @@ class ScreenPlan:
         oracle = PairOracle(
             self.bank.p, (lambda: self.regs_s), self.e_s, aux=self.aux_s,
             aux_param=self.bank.aux_param, criterion=self.crit,
-            tau=self.params.tau, apply_cb=self.use_cb, hist_fn=hist_fn,
+            tau=self.params.tau, z_score=self.params.z_score,
+            order_n=self.params.order_n, apply_cb=self.use_cb,
+            hist_fn=hist_fn,
         )
         return oracle.confirm_pairs(cand)
 

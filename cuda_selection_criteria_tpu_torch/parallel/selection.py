@@ -17,10 +17,10 @@ ENGINES = ("auto", "screened")
 class SelectionParams:
     """Same fields as the reference package's SelectionParams, so a
     parameter set carries across unchanged. The screened engine reads
-    tau, criterion and screen_delta; z_score and order_n belong to the
-    hll-aux criteria, and block, precision, confirm, screen_margin,
-    adjudicate and screen_dtype to the dense engine, none of which is
-    ported yet (ROADMAP.md queue 1)."""
+    tau, criterion and screen_delta, and for hll_a / hll_an also z_score
+    and order_n; block, precision, confirm, screen_margin, adjudicate and
+    screen_dtype belong to the dense engine, which is not ported yet
+    (ROADMAP.md queue 1)."""
 
     tau: float  # raw user threshold; effective f32->f64 applied internally
     criterion: str = "smh_a"

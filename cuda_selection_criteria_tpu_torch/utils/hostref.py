@@ -3,15 +3,16 @@
 Copied from cuda_selection_criteria_tpu/utils/hostref.py: the exact
 confirmation every engine ends in. Both packages confirm through the same
 f64 operation sequence, so emitted pair sets and Jaccard strings are
-identical. The port keeps the smh_a / cb / baseline cascade; hll_a and
-hll_an wait for the hll-aux slice (ROADMAP.md queue 1).
+identical. The port keeps the smh_a / cb / baseline / hll_a / hll_an
+cascade; smh_only waits for the time_smh slice (ROADMAP.md queue 1).
 """
 
 import math
 
 import numpy as np
 
-from ..ops.criteria import smh_band_params
+from ..ops.criteria import smh_band_params, zs_series
+from ..ops.estimators import sigma
 
 
 def histogram(regs):
@@ -202,10 +203,11 @@ class PairOracle:
     raises: there is no host fallback.
     """
 
-    SUPPORTED = (None, "smh_a", "cb", "baseline")
+    SUPPORTED = (None, "smh_a", "cb", "baseline", "hll_a", "hll_an")
 
     def __init__(self, p, regs, e, aux=None, aux_param=None, criterion=None,
-                 tau=0.9, apply_cb=True, hist_fn=None):
+                 tau=0.9, z_score=1.96, order_n=1, apply_cb=True,
+                 hist_fn=None):
         if criterion not in self.SUPPORTED:
             raise NotImplementedError(
                 f"criterion {criterion!r} is not ported yet "
@@ -219,6 +221,7 @@ class PairOracle:
         self.aux_param = aux_param
         self.criterion = criterion
         self.tau = np.float64(np.float32(tau))
+        self.order_n = order_n
         self.apply_cb = apply_cb
         if hist_fn is not None and hasattr(hist_fn, "tau"):
             # a histogram provider with a certain-reject bound above this
@@ -233,6 +236,9 @@ class PairOracle:
         )
         if criterion == "smh_a":
             self.n_rows, self.n_bands = smh_band_params(aux_param, float(tau))
+        elif criterion in ("hll_a", "hll_an"):
+            self.zs = np.float64(np.float32(z_score)
+                                 * np.float32(sigma(aux_param)))
 
     @property
     def regs(self):
@@ -247,8 +253,22 @@ class PairOracle:
             return False
         if self.apply_cb and not (e1 / e2 >= self.tau):
             return False
-        if self.criterion == "smh_a":
+        crit = self.criterion
+        if crit == "smh_a":
             if not smh_a(self.aux[i], self.aux[k], self.n_rows, self.n_bands):
+                return False
+        elif crit == "hll_a":
+            t_hat = int(union_size(self.aux[i], self.aux[k], self.aux_param))
+            t_hat_mas = t_hat / (1.0 + self.zs)
+            k_mas = ((1.0 + e1 / e2) * e2 - t_hat_mas) / t_hat_mas
+            if not (k_mas >= self.tau):
+                return False
+        elif crit == "hll_an":
+            t_hat = union_size(self.aux[i], self.aux[k], self.aux_param)
+            j_hat = (e1 + e2 - t_hat) / t_hat
+            c_corr = (min(1.0, (1.0 + self.zs) * e2 / t_hat)
+                      * (1.0 + e1 / e2) * zs_series(self.zs, self.order_n))
+            if not (j_hat + c_corr >= self.tau):
                 return False
         return True
 
@@ -276,12 +296,37 @@ class PairOracle:
         sel = np.nonzero(e2 != 0)[0]
         if self.apply_cb and sel.size:
             sel = sel[e1[sel] / e2[sel] >= self.tau]
-        if self.criterion == "smh_a" and sel.size:
+        crit = self.criterion
+        if crit == "smh_a" and sel.size:
             va = self.aux[ii[sel]].reshape(sel.size, self.n_bands,
                                            self.n_rows)
             vb = self.aux[kk[sel]].reshape(sel.size, self.n_bands,
                                            self.n_rows)
             sel = sel[(va == vb).all(axis=2).any(axis=1)]
+        elif crit in ("hll_a", "hll_an") and sel.size:
+            # batched like the primary union below: at low tau the CB
+            # survivors can number in the millions
+            keep = []
+            for c0 in range(0, sel.size, batch):
+                sub = sel[c0:c0 + batch]
+                t_hat = ertl_mle_batch(pair_union_histograms_np(
+                    self.aux, ii[sub], kk[sub]), self.aux_param)
+                with np.errstate(invalid="ignore"):
+                    if crit == "hll_a":
+                        # int() of the positive estimate == floor (the
+                        # reference's size_t cast)
+                        t_hat_mas = np.floor(t_hat) / (1.0 + self.zs)
+                        k_mas = ((1.0 + e1[sub] / e2[sub]) * e2[sub]
+                                 - t_hat_mas) / t_hat_mas
+                        keep.append(sub[k_mas >= self.tau])
+                    else:
+                        j_hat = (e1[sub] + e2[sub] - t_hat) / t_hat
+                        c_corr = (np.minimum(
+                            1.0, (1.0 + self.zs) * e2[sub] / t_hat)
+                            * (1.0 + e1[sub] / e2[sub])
+                            * zs_series(self.zs, self.order_n))
+                        keep.append(sub[j_hat + c_corr >= self.tau])
+            sel = np.concatenate(keep)
 
         out = []
 
@@ -316,7 +361,8 @@ class PairOracle:
         return out
 
 
-def select_pairs_host(bank, tau, criterion, apply_cb=True):
+def select_pairs_host(bank, tau, criterion, z_score=1.96, order_n=1,
+                      apply_cb=True):
     """Sequential scalar selection: the control-flow twin of the reference's
     OpenMP loops (sorted rows, CB break, criterion gate, union confirm -
     src/selection.cpp:152-291). Returns [(name_i, name_j, jacc)] in row
@@ -330,7 +376,8 @@ def select_pairs_host(bank, tau, criterion, apply_cb=True):
 
     oracle = PairOracle(
         bank.p, regs, e, aux=aux, aux_param=bank.aux_param,
-        criterion=criterion, tau=tau, apply_cb=apply_cb,
+        criterion=criterion, tau=tau, z_score=z_score, order_n=order_n,
+        apply_cb=apply_cb,
     )
     out = []
     n = bank.n

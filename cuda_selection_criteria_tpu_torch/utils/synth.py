@@ -14,29 +14,47 @@ import numpy as np
 def synthetic_regs(n, items, p, rng, chunk=1024):
     """uint8 (n, 2^p) registers of n genomes; `items` is the number of
     distinct hashes per genome, one int or an (n,) array."""
+    return synthetic_hll_banks(n, items, (p,), rng, chunk)[0]
+
+
+def synthetic_hll_banks(n, items, ps, rng, chunk=1024):
+    """One uint8 (n, 2^p) register bank per precision p in `ps`, all
+    reduced from the same hashes of each genome, as the reference builds
+    .hll and .hll_{p_aux} from one k-mer stream. The draws are those of
+    synthetic_regs, whatever `ps` holds."""
     counts = np.broadcast_to(np.asarray(items, np.int64), (n,))
-    regs = np.zeros((n, 1 << p), np.uint8)
+    banks = [np.zeros((n, 1 << p), np.uint8) for p in ps]
     for g0 in range(0, n, chunk):
         g = min(chunk, n - g0)
         cnt = counts[g0:g0 + g]
         h = rng.integers(0, 1 << 64, size=(g, int(cnt.max())),
                          dtype=np.uint64)
-        idx = (h >> np.uint64(64 - p)).astype(np.int64)
-        v = ((h << np.uint64(1)) | np.uint64(1)) << np.uint64(p - 1)
-        # bit length by shift halving (exact, no float rounding)
-        bl = np.zeros(v.shape, np.uint8)
-        for sh in (32, 16, 8, 4, 2, 1):
-            big = v >> np.uint64(sh)
-            take = big != 0
-            bl[take] += np.uint8(sh)
-            v = np.where(take, big, v)
-        rank = np.uint8(64) - bl  # clz + 1, since v > 0
-        rank[np.arange(h.shape[1])[None, :] >= cnt[:, None]] = 0
-        flat = np.arange(g)[:, None] * (1 << p) + idx
-        sub = np.zeros(g * (1 << p), np.uint8)
-        np.maximum.at(sub, flat.ravel(), rank.ravel())
-        regs[g0:g0 + g] = sub.reshape(g, 1 << p)
-    return regs
+        valid = np.arange(h.shape[1])[None, :] < cnt[:, None]
+        for p, regs in zip(ps, banks):
+            regs[g0:g0 + g] = _reduce_hashes(h, valid, p)
+    return banks
+
+
+def _reduce_hashes(h, valid, p):
+    """uint8 (g, 2^p) registers of the hash rows h (g, c), where `valid`
+    marks each row's hashes: index = top p bits, rank = clz of
+    ((h << 1) | 1) << (p - 1), plus one, max-reduced per register."""
+    g = h.shape[0]
+    idx = (h >> np.uint64(64 - p)).astype(np.int64)
+    v = ((h << np.uint64(1)) | np.uint64(1)) << np.uint64(p - 1)
+    # bit length by shift halving (exact, no float rounding)
+    bl = np.zeros(v.shape, np.uint8)
+    for sh in (32, 16, 8, 4, 2, 1):
+        big = v >> np.uint64(sh)
+        take = big != 0
+        bl[take] += np.uint8(sh)
+        v = np.where(take, big, v)
+    rank = np.uint8(64) - bl  # clz + 1, since v > 0
+    rank[~valid] = 0
+    flat = np.arange(g)[:, None] * (1 << p) + idx
+    sub = np.zeros(g * (1 << p), np.uint8)
+    np.maximum.at(sub, flat.ravel(), rank.ravel())
+    return sub.reshape(g, 1 << p)
 
 
 def synthetic_aux(n, m, rng):
@@ -46,8 +64,9 @@ def synthetic_aux(n, m, rng):
 
 def plant_near_duplicates(regs, aux, rng, n_pairs, bumps=4):
     """Make n_pairs genomes near-duplicates of their predecessor, in place:
-    row i+1 = row i with `bumps` registers raised by one, and identical
-    SMH buckets, so the banding gate passes them like true near-duplicates
+    row i+1 = row i with `bumps` registers raised by one, and an identical
+    aux row (SMH buckets or aux HLL registers), so the aux gate passes them
+    like true near-duplicates
     (the reference package's planted-pair harness,
     experiments/validate_131k_scale.py:36-58). Returns the sorted pair
     indices i (pairs (i, i+1))."""

@@ -63,7 +63,8 @@ def test_hll_histogram_matches_jax(p):
         jhostref.pair_union_histograms_np(regs, ii, kk))
 
 
-@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline"])
+@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline", "hll_a",
+                                  "hll_an"])
 def test_confirm_pairs_matches_jax(crit):
     """tests/test_hostref_batch.py's confirm_pairs case on both oracles:
     identical pair sets and f64 Jaccard values, equal to evaluate()."""
@@ -73,9 +74,14 @@ def test_confirm_pairs_matches_jax(crit):
     regs[1::3] = regs[0]  # planted near-duplicates
     regs[1::3, :4] += 1
     e = np.trunc(host_cards(regs, p))
-    aux = rng.integers(0, 1 << 40, size=(n, 16), dtype=np.uint64)
+    if crit.startswith("hll"):  # aux HLL registers at p_aux = 6
+        aux = rng.integers(0, 25, size=(n, 64), dtype=np.uint8)
+        aux_param = 6
+    else:  # SMH buckets
+        aux = rng.integers(0, 1 << 40, size=(n, 16), dtype=np.uint64)
+        aux_param = 16
     aux[1::3] = aux[0]
-    kw = dict(aux=aux, aux_param=16, criterion=crit, tau=0.3,
+    kw = dict(aux=aux, aux_param=aux_param, criterion=crit, tau=0.3,
               apply_cb=(crit != "baseline"))
     pairs = [(i, k) for i in range(n - 1) for k in range(i + 1, n)]
     oracle = hostref.PairOracle(p, regs, e, **kw)
@@ -89,7 +95,7 @@ def test_confirm_pairs_matches_jax(crit):
 def test_oracle_rejects_unported_criteria():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         hostref.PairOracle(10, np.zeros((2, 1024), np.uint8), np.ones(2),
-                           criterion="hll_a")
+                           criterion="smh_only")
 
 
 def test_criteria_constants_match_jax():

@@ -1,6 +1,8 @@
-"""The port's CUDA kernel and its card path against their plain versions.
+"""The port's CUDA kernels (K1 screen_fused, K2 weighted_cdf_sum) and their
+card paths against their plain versions, bit-equal (TF32 off for the plain
+versions' f32 matmuls, which then sum exact integers).
 
-Needs an NVIDIA card: every test skips without one (the kernel has no CPU
+Needs an NVIDIA card: every test skips without one (the kernels have no CPU
 mode). Imports neither JAX nor the reference package, so it also runs on
 the machine with the card, which has no JAX:
 
@@ -25,6 +27,7 @@ from cuda_selection_criteria_tpu_torch.utils import synth
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -132,3 +135,103 @@ def test_wrapper_rejects_bad_inputs_on_cuda(cuda):
             regs, tiles, tiles, torch.zeros(128, device=cuda),
             torch.zeros((128, 1), dtype=torch.int32, device=cuda), 128, 0.1,
             0.1, 8, (0, 1), 64, 1, True, False)
+
+
+def _k2_compare(dev, regs, rows, cols, vals, p, ti, tj, regs_cols=None):
+    t = [torch.from_numpy(np.asarray(x)).to(dev) for x in (regs, rows, cols)]
+    kw = dict(ti=ti, tj=tj, regs_cols=None if regs_cols is None else
+              torch.from_numpy(regs_cols).to(dev))
+    before = screen.screen_s_z.launches
+    s, z = screen.screen_s_z(*t, p, vals, **kw)
+    ws, wz = screen._screen_s_z_plain(*t, p, vals, **kw)
+    torch.cuda.synchronize()
+    assert screen.screen_s_z.launches == before + 1
+    assert s.shape == (len(rows), ti, tj) and s.dtype == torch.float32
+    assert torch.equal(s, ws)
+    assert (z is None) == (wz is None) == (vals[0] != 0)
+    if z is not None:
+        assert torch.equal(z, wz)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 6, 8, 14])
+@pytest.mark.parametrize("case", ["zeros", "no_zeros", "truncated",
+                                  "regs_cols"])
+def test_k2_matches_plain(cuda, p, case):
+    """K2 against its plain version at ti=64, tj=128: zeros present and
+    absent, a truncated value list, a separate column bank."""
+    lo, hi = {"zeros": (0, 13), "no_zeros": (3, 15), "truncated": (0, 26),
+              "regs_cols": (0, 13)}[case]
+    rng = np.random.default_rng(17 * p + lo + hi)
+    regs = rng.integers(lo, hi, size=(256, 1 << p), dtype=np.uint8)
+    regs_cols = (rng.integers(lo, hi, size=(384, 1 << p), dtype=np.uint8)
+                 if case == "regs_cols" else None)
+    vals = screen.bank_values(regs if regs_cols is None
+                              else np.concatenate([regs, regs_cols]))
+    if case == "truncated":
+        vals = screen.truncate_values(vals, 40.0 * (1 << p) / 64, p)
+        assert len(vals) < hi - lo
+    _k2_compare(cuda, regs, np.array([0, 2, 1, 3, 2], np.int32),
+                np.array([0, 1, 0, 2 if regs_cols is not None else 1, 0],
+                         np.int32), vals, p, 64, 128, regs_cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ti,tj", [(256, 256), (128, 512)])
+def test_k2_matches_plain_aux_bank(cuda, ti, tj):
+    """K2 on an aux bank of the real register distribution (p_aux=8,
+    built from the same hashes as its p=12 primary), truncated as the
+    hll-aux screen truncates it."""
+    rng = np.random.default_rng(ti + tj)
+    regs, aux = synth.synthetic_hll_banks(1024, rng.integers(500, 3000, 1024),
+                                          (12, 8), rng)
+    synth.plant_near_duplicates(regs, aux, rng, 30)
+    vals = screen.truncate_values(screen.bank_values(aux),
+                                  host_cards(regs, 12).max(), 8)
+    rows, cols = np.triu_indices(1024 // max(ti, tj))
+    scale_r, scale_c = max(ti, tj) // ti, max(ti, tj) // tj
+    _k2_compare(cuda, aux, (rows * scale_r).astype(np.int32),
+                (cols * scale_c).astype(np.int32), vals, 8, ti, tj)
+
+
+@pytest.mark.cuda
+def test_k2_wrapper_rejects_bad_inputs_on_cuda(cuda):
+    regs = torch.zeros((128, 256), dtype=torch.uint8, device=cuda)
+    tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
+    vals = (0, 1, 3)
+    with pytest.raises(ValueError, match="uint8"):
+        screen.screen_s_z(regs.to(torch.int32), tiles, tiles, 8, vals,
+                          ti=64, tj=64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        screen.screen_s_z(regs, tiles, tiles, 8, vals, ti=32, tj=64)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        screen.screen_s_z(regs, tiles, tiles, 8, vals, ti=64, tj=96)
+    with pytest.raises(ValueError, match="regs_cols"):
+        screen.screen_s_z(regs, tiles, tiles, 8, vals, ti=64, tj=64,
+                          regs_cols=torch.zeros((128, 128), dtype=torch.uint8,
+                                                device=cuda))
+    with pytest.raises(ValueError, match="int32"):
+        screen.screen_s_z(regs, tiles.to(torch.int64), tiles, 8, vals,
+                          ti=64, tj=64)
+    with pytest.raises(ValueError, match="uint8"):
+        screen.screen_s_z(regs, tiles, tiles, 8, (0, 300), ti=64, tj=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crit", ["hll_a", "hll_an"])
+def test_hll_engine_on_cuda_matches_cpu(cuda, crit):
+    rng = np.random.default_rng(6)
+    regs, aux = synth.synthetic_hll_banks(300, rng.integers(400, 900, 300),
+                                          (10, 6), rng)
+    synth.plant_near_duplicates(regs, aux, rng, 12)
+    bank = SketchBank(names=[f"g{i}" for i in range(300)], regs=regs, p=10,
+                      aux_kind="hll", aux=aux, aux_param=6)
+    params = SelectionParams(tau=0.5, criterion=crit)
+    k1, k2 = screen.screen_hits_fused.launches, screen.screen_s_z.launches
+    got = screened.select_pairs_screened(bank, params, ti=128, chunk=4,
+                                         device=cuda)
+    assert screen.screen_hits_fused.launches > k1
+    assert screen.screen_s_z.launches > k2
+    want = screened.select_pairs_screened(bank, params, ti=128, chunk=4,
+                                          device="cpu")
+    assert got == want and len(got) >= 12

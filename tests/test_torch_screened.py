@@ -214,7 +214,8 @@ def test_select_pairs_screened_edge_cases():
 def test_unported_criteria_and_engines_raise():
     bank = port_bank(jax_bank(4, 10, 16, 5))
     with pytest.raises(ValueError, match="does not support"):
-        screened.ScreenPlan(bank, SelectionParams(tau=0.2, criterion="hll_a"),
+        screened.ScreenPlan(bank, SelectionParams(tau=0.2,
+                                                  criterion="smh_only"),
                             64, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         select_pairs(bank, SelectionParams(tau=0.2, engine="dense"),

@@ -3,7 +3,7 @@ package: banks made once from a numpy seed, handed to both packages."""
 
 import numpy as np
 
-from test_screen import _make_bank
+from test_screen import _make_bank, _make_bank_hll_aux
 
 from cuda_selection_criteria_tpu_torch.models import SketchBank
 
@@ -12,6 +12,12 @@ def jax_bank(n, p, m, seed):
     """A planted reference-package SketchBank (built through its own
     HLL/SMH build ops, cards from its jitted MLE)."""
     return _make_bank(n, p, m, np.random.default_rng(seed))
+
+
+def jax_bank_hll(n, p, p_aux, seed):
+    """A planted reference-package SketchBank with an aux HLL bank at
+    p_aux, both built from the same items by its own HLL build op."""
+    return _make_bank_hll_aux(n, p, p_aux, np.random.default_rng(seed))
 
 
 def port_bank(bank, cards=True):
