@@ -4,7 +4,7 @@ kernels from this checkout, holds each against its plain PyTorch version,
 runs the selection CLI end to end and drives the main paths at the
 reference bench's bank size.
 
-    python3 chip_smoke.py            # needs one CUDA card; about 6 minutes
+    python3 chip_smoke.py            # needs one CUDA card; under 10 minutes
 
 Phases (any failure exits non-zero, without the final result line):
   1. device   - card name and power limit, torch / CUDA / nvcc versions
@@ -33,12 +33,26 @@ Phases (any failure exits non-zero, without the final result line):
                 and K2 launched; stage walls, peak device memory and the
                 hll screen's (K1 + K2 + aux compare) pairs/s over the full
                 triangle
+  7. fasta    - a synthetic bacterial corpus (96 gzipped FASTA genomes of
+                0.5-6 Mbp with plasmids, 16 copies at SNP rate 0.001, 8 at
+                0.02, 4 tiny FASTQ): build_bank_from_files on the card
+                bit-equal to the CPU build on a subset (smh_a -a 256,
+                hll_a -a 256, smh_a -a 4096; written files byte-identical);
+                the build_sketch CLI on the whole corpus (-c smh_a and
+                hll_a, wall and stage split) and a profiler trace of one
+                warm pack; the selection CLI on the files it wrote for
+                smh_a, smh_only, cb, hll_a and hll_an against the host
+                reference (every 0.001 copy the exact oracle passes
+                emitted, no 0.02 copy emitted, K1 and K2 launched);
+                time_smh -m 32 rows well-formed, K1 launched in its
+                smh_a_kernel row
 
 The last two lines are a JSON record of the kernels and the result line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 import contextlib
+import filecmp
 import io
 import json
 import os
@@ -46,6 +60,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -200,17 +216,18 @@ def hll_bench_bank(models, synth, n, rng, n_dups):
     return bank, picks
 
 
-def verify_pairs(hostref, bank, picks, out, crit):
+def verify_pairs(hostref, bank, pairs, out, crit):
     """Every emitted pair is oracle-confirmed with the identical Jaccard;
-    every planted pair the exact oracle passes is emitted. Returns the
-    number of planted pairs the oracle passes."""
+    every planted pair (i, j) (bank indices) that the exact oracle passes
+    is emitted. Returns the number of planted pairs the oracle passes."""
     order = bank.sorted_by_cardinality()
     pos = np.empty_like(order)
     pos[order] = np.arange(len(order))
     oracle = hostref.PairOracle(
         bank.p, bank.regs[order], np.trunc(bank.cards[order]),
-        aux=bank.aux[order], aux_param=bank.aux_param, criterion=crit,
-        tau=0.9)
+        aux=None if bank.aux is None else bank.aux[order],
+        aux_param=bank.aux_param, criterion=crit, tau=0.9,
+        apply_cb=crit not in ("baseline", "smh_only"))
     name_pos = {name: pos[i] for i, name in enumerate(bank.names)}
     emitted = {}
     for a, b, j in out:
@@ -218,14 +235,15 @@ def verify_pairs(hostref, bank, picks, out, crit):
         check(sel and j == j_exact, f"emitted pair {a} {b} not confirmed")
         emitted[(a, b)] = j
     planted_pass = 0
-    for i in picks:
-        lo, hi = sorted((pos[i], pos[i + 1]))
+    for i, k in pairs:
+        lo, hi = sorted((pos[i], pos[k]))
         if oracle.evaluate(lo, hi)[0]:
             planted_pass += 1
             check((bank.names[order[lo]], bank.names[order[hi]]) in emitted,
-                  f"planted pair {i} passes the oracle but was not emitted")
+                  f"planted pair {i} {k} passes the oracle but was not "
+                  "emitted")
     print(f"  planted pairs passing the exact oracle: {planted_pass} of "
-          f"{len(picks)}, all emitted; {len(out)} emitted, all confirmed")
+          f"{len(pairs)}, all emitted; {len(out)} emitted, all confirmed")
     check(planted_pass > 0, "no planted pair passes the oracle")
     return planted_pass
 
@@ -254,6 +272,314 @@ def run_main_path(torch, screen, select_pairs, bank, params, dev, card):
           f"{launches['weighted_cdf_sum']}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return out, launches
+
+
+BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _fasta_gz(records, rng):
+    """gzip (level 1) FASTA bytes of [(name, codes 0..3)]: 80-column lines,
+    a lowercase run per ~50 kbp and an N run per ~100 kbp."""
+    out = []
+    for name, codes in records:
+        seq = BASES[codes]
+        n = seq.size
+        for _ in range(n // 50_000 + 1):
+            s0 = int(rng.integers(0, n))
+            seq[s0:s0 + int(rng.integers(100, 5000))] |= 0x20
+        for _ in range(max(1, n // 100_000)):
+            s0 = int(rng.integers(0, n))
+            seq[s0:s0 + int(rng.integers(1, 100))] = ord("N")
+        full = n // 80
+        body = np.empty((full, 81), np.uint8)
+        body[:, :80] = seq[:full * 80].reshape(full, 80)
+        body[:, 80] = ord("\n")
+        out += [b">" + name + b"\n", body.tobytes()]
+        if n % 80:
+            out += [seq[full * 80:].tobytes(), b"\n"]
+    co = zlib.compressobj(1, zlib.DEFLATED, 31)
+    return co.compress(b"".join(out)) + co.flush()
+
+
+def write_corpus(d, seed, n_base=96, len_range=(5e5, 6e6)):
+    """A bacterial-scale corpus under d, made from `seed`: n_base genomes
+    of log-uniform chromosome length in len_range plus 0-3 plasmids of
+    20-200 kbp; 16 copies of random base genomes at SNP rate 0.001
+    (J ~ 0.94 at k=31) and 8 at 0.02 (J ~ 0.37); 4 FASTQ files of one
+    40-60 base read (fewer k-mers than 32 SMH buckets). Returns (files,
+    near pairs, far pairs, bases), pairs as (base, copy) file indices."""
+    rng = np.random.default_rng(seed)
+    lens = np.exp(rng.uniform(*np.log(len_range), n_base)).astype(np.int64)
+    genomes = []
+    for n in lens:
+        recs = [rng.integers(0, 4, int(n), dtype=np.uint8)]
+        recs += [rng.integers(0, 4, int(rng.integers(20_000, 200_001)),
+                              dtype=np.uint8)
+                 for _ in range(int(rng.integers(0, 4)))]
+        genomes.append(recs)
+    near, far = [], []
+    for j, b in enumerate(rng.choice(n_base, 24, replace=False)):
+        rate = 0.001 if j < 16 else 0.02
+        recs = []
+        for r in genomes[b]:
+            r = r.copy()
+            hit = np.nonzero(rng.random(r.size) < rate)[0]
+            r[hit] = (r[hit] + rng.integers(1, 4, hit.size,
+                                            dtype=np.uint8)) % 4
+            recs.append(r)
+        (near if j < 16 else far).append((int(b), len(genomes)))
+        genomes.append(recs)
+    files = [os.path.join(d, f"g{i:03d}.fna.gz") for i in range(len(genomes))]
+
+    def write(i):
+        recs = [(b"chr%d" % i, genomes[i][0])] + [
+            (b"plasmid%d_%d" % (i, k), r)
+            for k, r in enumerate(genomes[i][1:], 1)]
+        with open(files[i], "wb") as fh:
+            fh.write(_fasta_gz(recs, np.random.default_rng([seed, i])))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(len(genomes))))
+    for q in range(4):
+        read = BASES[rng.integers(0, 4, int(rng.integers(40, 61)))]
+        path = os.path.join(d, f"reads{q}.fq")
+        with open(path, "wb") as fh:
+            fh.write(b"@read%d\n%s\n+\n%s\n" % (q, read.tobytes(),
+                                                 b"@" * read.size))
+        files.append(path)
+    bases = sum(r.size for recs in genomes for r in recs)
+    return files, near, far, bases
+
+
+def max_abs_diff(a, b):
+    """Largest |a - b| over two equal-shape integer arrays, exact for
+    uint64 (0 when bit-equal)."""
+    a, b = a.reshape(-1), b.reshape(-1)
+    return max((abs(int(a[i]) - int(b[i])) for i in np.nonzero(a != b)[0]),
+               default=0)
+
+
+def build_card_vs_cpu(torch, bank_mod, files, tmp, dev, card):
+    """build_bank_from_files on the card against the same call on the CPU
+    for the subset `files`: bank arrays bit-equal, written sketch files
+    byte-identical. Returns the largest |difference| (must be 0)."""
+    worst = fallbacks = 0
+    for crit, aux_bytes in (("smh_a", 256), ("hll_a", 256), ("smh_a", 4096)):
+        kind, param = bank_mod.aux_spec(crit, aux_bytes)
+        out = {}
+        for where in ("cuda", "cpu"):
+            d = os.path.join(tmp, f"cmp_{crit}_{aux_bytes}_{where}")
+            os.makedirs(d)
+            linked = [os.path.join(d, os.path.basename(f)) for f in files]
+            for f, g in zip(files, linked):
+                os.link(f, g)
+            st = {}
+            t0 = time.perf_counter()
+            bank = bank_mod.build_bank_from_files(
+                linked, crit, aux_bytes, device=dev if where == "cuda"
+                else "cpu", stats=st)
+            secs = time.perf_counter() - t0
+            bank.write_sketch_files()
+            out[where] = (bank, linked, st, secs)
+        (cb, cf, cst, csecs), (pb, pf, _, psecs) = out["cuda"], out["cpu"]
+        err = max(max_abs_diff(cb.regs, pb.regs), max_abs_diff(cb.aux, pb.aux))
+        sfx = [".hll", f".hll_{param}" if kind == "hll" else f".smh{param}"]
+        same = all(filecmp.cmp(a + x, b + x, shallow=False)
+                   for a, b in zip(cf, pf) for x in sfx)
+        print(f"  [{card}] build -c {crit} -a {aux_bytes} ({kind} {param}), "
+              f"{len(files)} files, {cst['codes']} codes: card "
+              f"{csecs:.2f} s, cpu {psecs:.2f} s; {cst['packs']} packs, "
+              f"{cst['chunked_genomes']} chunked, {cst['smh_fallbacks']} "
+              f"SMH fallbacks; max_abs_err={err}; files identical: {same}")
+        check(err == 0, f"build -c {crit} -a {aux_bytes}: card != cpu")
+        check(same, f"build -c {crit} -a {aux_bytes}: file bytes differ")
+        worst = max(worst, err)
+        fallbacks += cst["smh_fallbacks"]
+    check(fallbacks > 0, "the subset never took the SMH full fallback")
+    return worst
+
+
+def profile_pack(torch, bank_mod, fasta, files, dev, card):
+    """One torch.profiler trace of one warm pack of the smallest genomes
+    (-c smh_a -a 256: k-mers, hashes, both scatters, the SMH j=0 pass and
+    the fetch): top device ops and the device's idle share."""
+    sizes = sorted((os.path.getsize(f), f) for f in files
+                   if f.endswith(".gz"))
+    budget = bank_mod.SMH_CANDIDATES // 32
+    pack, used = [], 0
+    for _, f in sizes:
+        codes = fasta.fasta_codes(f)
+        if used + codes.size > budget or len(pack) == bank_mod.PACK_GENOMES:
+            break
+        pack.append((len(pack), codes))
+        used += codes.size
+
+    def one():
+        regs, aux = bank_mod._sketch_pack_device(pack, 31, 14, "smh", 32,
+                                                 dev)
+        return regs.cpu(), aux.cpu()
+
+    one()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side entries only (kernels, copies, fills): a CPU op's
+    # device time repeats that of the kernels it launched
+    cpu = torch.autograd.DeviceType.CPU
+    rows = sorted(((e.self_device_time_total, e.key, e.count)
+                   for e in prof.key_averages() if e.device_type != cpu
+                   and not getattr(e, "is_user_annotation", False)),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    print(f"  [{card}] profiled warm pack: {len(pack)} genomes, {used} "
+          f"codes; wall {wall_us / 1e3:.3f} ms (profiler on), device busy "
+          f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}")
+    for us, key, count in rows[:10]:
+        print(f"    {us / 1e3:9.3f} ms  {count:5d}x  {key[:90]}")
+    if not busy:
+        print("  the profiler recorded no device time")
+    print(f"  [{card}] the same pack, profiler off: "
+          f"{cuda_ms(torch, one, 5):.3f} ms per pack (CUDA events)")
+
+
+class LineLog(io.TextIOBase):
+    """A stdout that records, for each line written, the value of
+    `probe()` when the line ended."""
+
+    def __init__(self, probe):
+        self.probe, self.buf, self.lines = probe, "", []
+
+    def write(self, s):
+        self.buf += s
+        while "\n" in self.buf:
+            line, self.buf = self.buf.split("\n", 1)
+            self.lines.append((line, self.probe()))
+        return len(s)
+
+
+def phase_fasta(torch, dev, card, corpus_kw):
+    """Phase 7: FASTA -> build_sketch -> selection and time_smh on a
+    synthetic bacterial corpus. Returns ({kernel: launches on the
+    selection runs}, max |card - cpu| of the build)."""
+    from cuda_selection_criteria_tpu_torch import models
+    from cuda_selection_criteria_tpu_torch.cli import build_sketch
+    from cuda_selection_criteria_tpu_torch.cli import selection as cli
+    from cuda_selection_criteria_tpu_torch.cli import time_smh
+    from cuda_selection_criteria_tpu_torch.models import bank as bank_mod
+    from cuda_selection_criteria_tpu_torch.ops import screen
+    from cuda_selection_criteria_tpu_torch.parallel.selection import (
+        format_results)
+    from cuda_selection_criteria_tpu_torch.utils import fasta, hostref
+
+    launches = {"screen_fused": 0, "weighted_cdf_sum": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files, near, far, bases = write_corpus(tmp, **corpus_kw)
+        print(f"  corpus: {len(files)} files ({len(files) - 28} genomes, 16 "
+              f"copies at SNP rate 0.001, 8 at 0.02, 4 tiny FASTQ), {bases} "
+              f"bases, {sum(map(os.path.getsize, files)) / 2**20:.1f} MiB "
+              f"gz, written in {time.perf_counter() - t0:.1f} s (host)")
+        lst = os.path.join(tmp, "list.txt")
+        with open(lst, "w") as fh:
+            fh.write("\n".join(files) + "\n")
+
+        # the first files are the base genomes; 24 copies and 4 FASTQs follow
+        by_size = sorted(range(len(files) - 28),
+                         key=lambda i: -os.path.getsize(files[i]))
+        subset = ([files[i] for i in by_size[:2]]
+                  + [files[c] for _, c in near[:2]] + files[-4:])
+        build_err = build_card_vs_cpu(torch, bank_mod, subset, tmp, dev, card)
+
+        walls = {}
+        for crit in ("smh_a", "hll_a"):
+            st = {}
+            t0 = time.perf_counter()
+            check(build_sketch.main(["-l", lst, "-a", "256", "-c", crit,
+                                     "--device", str(dev)],
+                                    stats=st) == 0,
+                  f"build_sketch -c {crit} failed")
+            walls[crit] = wall = time.perf_counter() - t0
+            print(f"  [{card}] build_sketch -c {crit} -a 256: {st['genomes']} "
+                  f"files, {st['codes']} codes in {wall:.2f} s = "
+                  f"{st['codes'] / wall:.4g} codes/s; decode wait "
+                  f"{st['decode_secs']:.2f} s (decode thread busy "
+                  f"{st['decode_busy_secs']:.2f} s), "
+                  f"pack {st['pack_secs']:.2f} s ({st['packs']} packs), "
+                  f"chunked {st['chunked_secs']:.2f} s "
+                  f"({st['chunked_genomes']} genomes), fetch "
+                  f"{st['fetch_secs']:.3f} s, {st['smh_fallbacks']} SMH "
+                  f"fallbacks")
+        profile_pack(torch, bank_mod, fasta, files, dev, card)
+
+        pair_names = [{files[b], files[c]} for b, c in far]
+        for crit in ("smh_a", "smh_only", "cb", "hll_a", "hll_an"):
+            screen.screen_hits_fused.launches = 0
+            screen.screen_s_z.launches = 0
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(["-l", lst, "-a", "256", "-h", "0.9", "-c",
+                               crit, "--device", str(dev)])
+            t_cli = time.perf_counter() - t0
+            got = {"screen_fused": screen.screen_hits_fused.launches,
+                   "weighted_cdf_sum": screen.screen_s_z.launches}
+            check(rc == 0, f"selection -c {crit} exit {rc}")
+            fbank = models.SketchBank.from_sketch_files(
+                files, criterion={"smh_only": "smh_a", "cb": None}.get(
+                    crit, crit))
+            host = hostref.select_pairs_host(
+                fbank, 0.9, crit, apply_cb=crit not in ("baseline",
+                                                        "smh_only"))
+            lines = buf.getvalue().splitlines()
+            print(f"  [{card}] FASTA -> pairs -c {crit}: {len(lines)} lines "
+                  f"in {t_cli:.2f} s (selection CLI; the build above took "
+                  f"{walls['hll_a' if crit.startswith('hll') else 'smh_a']:.2f}"
+                  f" s), K1 launches {got['screen_fused']}, K2 launches "
+                  f"{got['weighted_cdf_sum']}")
+            check(lines == format_results(host),
+                  f"-c {crit} differs from select_pairs_host")
+            passed = verify_pairs(hostref, fbank, near, host, crit)
+            if crit == "smh_a":
+                check(passed >= 12, f"only {passed} of 16 SNP-0.001 pairs "
+                      "pass the exact smh_a oracle")
+            check(not any({a, b} in pair_names for a, b, _ in host),
+                  f"-c {crit} emitted a SNP-0.02 copy")
+            check(got["screen_fused"] > 0, f"-c {crit} never launched K1")
+            if crit.startswith("hll"):
+                check(got["weighted_cdf_sum"] > 0,
+                      f"-c {crit} never launched K2")
+            for name in launches:
+                launches[name] += got[name]
+
+        log = LineLog(lambda: screen.screen_hits_fused.launches)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            rc = time_smh.main(["-l", lst, "-m", "32", "-R", "1",
+                                "--device", str(dev)])
+        check(rc == 0, f"time_smh exit {rc}")
+        rows = [line.split(";") for line, _ in log.lines]
+        kinds = [r[1] for r in rows]
+        print(f"  [{card}] time_smh -m 32 -R 1 in "
+              f"{time.perf_counter() - t0:.2f} s:")
+        for line, _ in log.lines:
+            print("    " + line.replace(tmp, "<tmp>"))
+        check(kinds == ["build_smh", "smh_a", "CB+smh_a", "smh_a_kernel",
+                        "CB+smh_a_kernel"], f"time_smh rows {kinds}")
+        for r in rows:
+            check(len(r) == 5 and r[0] == lst and r[2] == "0.9"
+                  and float(r[3]) >= 0.0, f"malformed time_smh row {r}")
+        check(rows[0][4] == "m:32" and all(
+            r[4].startswith("r:") and "_b:" in r[4] for r in rows[1:]),
+            "time_smh row tails")
+        k1_row = log.lines[3][1] - log.lines[2][1]
+        print(f"  K1 launches in the smh_a_kernel row: {k1_row}")
+        check(k1_row > 0, "time_smh's smh_a_kernel row never launched K1")
+    return launches, build_err
 
 
 def main():
@@ -386,7 +712,7 @@ def main():
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["-l", lst, "-a", "256", "-h", "0.9", "-c",
-                               crit])
+                               crit, "--device", str(dev)])
             t_cli = time.perf_counter() - t0
             check(rc == 0, f"cli exit {rc}")
             got = buf.getvalue().splitlines()
@@ -421,7 +747,7 @@ def main():
     out, launches = run_main_path(torch, screen, select_pairs, bank, params,
                                   dev, card)
     check(launches["screen_fused"] > 0, "main path never launched K1")
-    verify_pairs(hostref, bank, picks, out, "smh_a")
+    verify_pairs(hostref, bank, [(i, i + 1) for i in picks], out, "smh_a")
 
     # screen throughput over the full i<j triangle (all 136 tiles)
     spans = [(c0, min(chunk, len(tri_r) - c0))
@@ -450,7 +776,8 @@ def main():
                                 dev, card)
         check(hl["screen_fused"] > 0 and hl["weighted_cdf_sum"] > 0,
               f"-c {crit} never launched K1 and K2")
-        verify_pairs(hostref, hbank, hpicks, out, crit)
+        verify_pairs(hostref, hbank, [(i, i + 1) for i in hpicks], out,
+                     crit)
         for name in launches:
             launches[name] += hl[name]
 
@@ -468,6 +795,14 @@ def main():
     print(f"  [{card}] full-triangle hll screen (K1 + K2 + aux compare): "
           f"{len(hr)} tiles, {htri_pairs} pairs in {hll_ms:.3f} ms = "
           f"{htri_pairs / hll_ms * 1e3:.6g} pairs/s")
+
+    print("== phase 7: FASTA -> build_sketch -> selection, time_smh",
+          flush=True)
+    t7 = time.perf_counter()
+    fl, build_err = phase_fasta(torch, dev, card, {"seed": 0xFA57A})
+    for name in launches:
+        launches[name] += fl[name]
+    print(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())

@@ -6,18 +6,14 @@ Reference usage (README.md:57-66, src/selection.cpp:86-111):
 Loads the persisted sketches, runs the CB + auxiliary-criterion cascade with
 exact HLL-union confirmation, and prints `fileA fileB jaccard` lines in the
 reference's sorted-row order. Port of cuda_selection_criteria_tpu/cli/
-selection.py: criteria smh_a, hll_a, hll_an, cb and baseline; smh_only is
-a later slice (ROADMAP.md queue 1).
+selection.py, for every criterion: smh_a, smh_only (the smh_a band gate
+without CB, loading the same .smh files), hll_a, hll_an, cb and baseline.
 
 Defaults mirror src/selection.cpp:76-82: tau=0.9, aux=256 bytes.
 """
 
 import argparse
 import sys
-
-NOT_PORTED = {
-    "smh_only": "ROADMAP.md queue 1, item 8 (time_smh)",
-}
 
 
 def main(argv=None):
@@ -52,10 +48,6 @@ def main(argv=None):
     if args.criterion not in valid:
         print("Option -c invalid. The accepted criteria are hll_a, hll_an and smh_a.")
         return 0
-    if args.criterion in NOT_PORTED:
-        raise NotImplementedError(
-            f"-c {args.criterion} is not ported to the torch package yet: "
-            f"{NOT_PORTED[args.criterion]}")
 
     from ..models import SketchBank
     from ..parallel.screened import select_pairs_screened
@@ -65,10 +57,10 @@ def main(argv=None):
 
     files = load_file_list(args.list_file)
     # -t is accepted for flag parity; the numpy loader reads on one thread
-    bank = SketchBank.from_sketch_files(
-        files, criterion=(args.criterion if args.criterion in
-                          ("smh_a", "hll_a", "hll_an") else None),
-        aux_bytes=args.aux_bytes)
+    load_crit = {"hll_a": "hll_a", "hll_an": "hll_an", "smh_a": "smh_a",
+                 "smh_only": "smh_a"}.get(args.criterion)
+    bank = SketchBank.from_sketch_files(files, criterion=load_crit,
+                                        aux_bytes=args.aux_bytes)
     params = SelectionParams(
         tau=args.threshold,
         criterion=args.criterion,

@@ -1,19 +1,41 @@
-"""SketchBank: stacked sketch arrays for the all-pairs selection engine.
+"""SketchBank: stacked sketch arrays for the all-pairs selection engine,
+and the build path that makes them from FASTA/FASTQ files.
 
 Host numpy, like cuda_selection_criteria_tpu/models/bank.py: registers
 (N, 2^p) uint8, aux sketches stacked, cardinalities from the host f64
 ERTL-MLE. The screened engine uploads the registers to the device itself
-(parallel/screened.ScreenPlan).
+(parallel/screened.ScreenPlan). build_bank_from_files decodes the files on
+a host thread and builds the sketches on the device with torch ops
+(ops/kmers, ops/hll_build, ops/smh_build).
 """
 
+import glob
+import os
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
-from ..utils import formats
+from ..ops import hll_build, smh_build
+from ..ops.hashes import umin, wang_hash64
+from ..ops.kmers import canonical_kmers
+from ..utils import fasta, formats
+from ..utils.device import resolve
 from ..utils.hostref import ertl_mle_batch
+from .smh import vecsize
 
 PRIMARY_P = 14  # reference hardcodes p=14 for the primary sketch
+DEFAULT_K = 31  # reference hardcodes k=31 (src/build_sketch.cpp:190)
+
+PACK_GENOMES = 64  # genomes per packed device pass
+PACK_CODES = 1 << 22  # code budget of one pack
+MAX_CHUNK = 1 << 24  # piece budget of the per-genome chunked path
+# SuperMinHash candidates materialize (codes, m) int64 values on the
+# device: cap codes * m near 2^26 (512 MiB per candidate array).
+SMH_CANDIDATES = 1 << 26
 
 
 def _ctz(x):
@@ -90,12 +112,11 @@ class SketchBank:
             raise NotImplementedError(
                 f"loading aux sketches for {criterion!r} is not ported yet "
                 "(ROADMAP.md queue 1)")
-        regs = np.stack([formats.read_hll(f + ".hll")[1] for f in files])
+        regs = load_hll_bank([f + ".hll" for f in files])
         aux_kind = aux = aux_param = None
         if criterion in ("hll_a", "hll_an"):
             p_aux = _ctz(aux_bytes)
-            aux = np.stack([formats.read_hll(f + f".hll_{p_aux}")[1]
-                            for f in files])
+            aux = load_hll_bank([f + f".hll_{p_aux}" for f in files])
             aux_kind, aux_param = "hll", p_aux
         elif criterion == "smh_a":
             m = aux_bytes // 8
@@ -108,3 +129,355 @@ class SketchBank:
         """Ascending-cardinality order used by the selection engine;
         mirrors src/selection.cpp:144-149."""
         return np.argsort(self.cards, kind="stable")
+
+    def write_sketch_files(self):
+        """Persist next to the FASTA files, reference formats/suffixes."""
+        for i, name in enumerate(self.names):
+            formats.write_hll(name + ".hll", self.p, self.regs[i])
+            if self.aux_kind == "hll":
+                formats.write_hll(name + f".hll_{self.aux_param}",
+                                  self.aux_param, self.aux[i])
+            elif self.aux_kind == "smh":
+                formats.write_smh(name + f".smh{self.aux_param}",
+                                  self.aux[i])
+
+    def save(self, path, shards=1):
+        """Write the whole bank as `shards` row-partitioned npz files, the
+        JAX package's bank checkpoint (one or a few flat arrays instead of
+        one gz file per genome per sketch)."""
+        bounds = np.linspace(0, self.n, shards + 1, dtype=np.int64)
+        for s in range(shards):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            fn = (_norm_npz(path) if shards == 1
+                  else f"{path}.shard{s:04d}-of-{shards:04d}.npz")
+            payload = {
+                "names": np.array(self.names[lo:hi]),
+                "regs": self.regs[lo:hi],
+                "p": np.int64(self.p),
+                "cards": self.cards[lo:hi],
+                "aux_kind": np.array(self.aux_kind or ""),
+                "aux_param": np.int64(self.aux_param or 0),
+                "n_shards": np.int64(shards),
+                "shard": np.int64(s),
+            }
+            if self.aux is not None:
+                payload["aux"] = self.aux[lo:hi]
+            np.savez_compressed(fn, **payload)
+
+    @classmethod
+    def load(cls, path):
+        """Load a bank written by save(); accepts the base path of a
+        sharded set and reassembles every shard in order. A shard set must
+        agree on n_shards and hold each index 0..n_shards-1 exactly once,
+        so stale shards of an earlier save raise instead of silently
+        joining the bank."""
+        paths = [path]
+        if not os.path.exists(path):
+            if os.path.exists(_norm_npz(path)):
+                paths = [_norm_npz(path)]
+            else:
+                paths = sorted(glob.glob(path + ".shard*-of-*"))
+                if not paths:
+                    raise FileNotFoundError(path)
+        parts = [np.load(f, allow_pickle=False) for f in paths]
+        if len(parts) > 1 or int(parts[0]["n_shards"]) > 1:
+            n_shards = int(parts[0]["n_shards"])
+            seen = {}
+            for f, z in zip(paths, parts):
+                if int(z["n_shards"]) != n_shards:
+                    raise ValueError(
+                        f"inconsistent shard set at {path!r}: {f} has "
+                        f"n_shards={int(z['n_shards'])}, expected {n_shards} "
+                        "(stale shards from an earlier save?)")
+                s = int(z["shard"])
+                if s in seen:
+                    raise ValueError(
+                        f"duplicate shard {s} at {path!r}: {seen[s]} and {f}")
+                seen[s] = f
+            if sorted(seen) != list(range(n_shards)):
+                raise ValueError(
+                    f"incomplete shard set at {path!r}: have {sorted(seen)}, "
+                    f"expected 0..{n_shards - 1}")
+            parts = sorted(parts, key=lambda z: int(z["shard"]))
+        return cls(
+            names=[str(x) for z in parts for x in z["names"]],
+            regs=np.concatenate([z["regs"] for z in parts]),
+            p=int(parts[0]["p"]),
+            cards=np.concatenate([z["cards"] for z in parts]),
+            aux_kind=str(parts[0]["aux_kind"]) or None,
+            aux=(np.concatenate([z["aux"] for z in parts])
+                 if "aux" in parts[0] else None),
+            aux_param=int(parts[0]["aux_param"]) or None,
+        )
+
+
+def load_hll_bank(paths):
+    """Stacked uint8 (N, 2^p) registers from .hll files (the numpy reader;
+    the JAX package's threaded native loader is ROADMAP.md queue 1,
+    item 11)."""
+    return np.stack([formats.read_hll(f)[1] for f in paths])
+
+
+def _norm_npz(path):
+    """np.savez appends .npz when missing; normalize so save(p)/load(p)
+    agree for any p."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def aux_spec(criterion, aux_bytes):
+    """(aux_kind, aux_param) that build_sketch -c/-a give: the aux HLL at
+    p_aux = ctz(bytes) for hll_a / hll_an, SuperMinHash with
+    vecsize(bytes / 8) buckets for smh_a (src/build_sketch.cpp:242-274)."""
+    if criterion in ("hll_a", "hll_an"):
+        return "hll", _ctz(aux_bytes)
+    if criterion == "smh_a":
+        return "smh", vecsize(aux_bytes // 8)
+    return None, None
+
+
+def sketch_codes_device(codes, k, p, aux_kind=None, aux_param=None,
+                        device=None, max_chunk=None):
+    """(primary regs, aux sketch) of one genome from its code stream, as
+    device tensors (uint8 registers; int64 SuperMinHash buckets).
+
+    One upload, then pieces of at most `max_chunk` codes with k-1 overlap,
+    so windows spanning piece boundaries are computed exactly once; the
+    per-piece sketches merge by max (HLL) and unsigned min (SMH). Each SMH
+    piece takes the j=0 pass and falls back to the full Fisher-Yates pass
+    only when that piece leaves a bucket unhit: j=0 candidates always beat
+    j>0 ones, so a complete piece's minima are its exact minima, and
+    minima compose across pieces. The pieces are not padded (the JAX
+    package pads them to bound recompiles; sentinel padding cannot change
+    a sketch)."""
+    dev = resolve(device)
+    codes = np.asarray(codes, np.uint8)
+    if max_chunk is None:
+        max_chunk = MAX_CHUNK
+        if aux_kind == "smh":
+            max_chunk = min(max_chunk, max(1 << 12,
+                                           SMH_CANDIDATES // aux_param))
+    n = codes.size
+    d_codes = torch.from_numpy(codes).to(dev)
+    regs = aux = None
+    pos = 0
+    while pos == 0 or pos < n:
+        piece = d_codes[max(0, pos - (k - 1)):pos + max_chunk]
+        pos += max_chunk
+        kms, valid = canonical_kmers(piece, k, dev)
+        hashed = wang_hash64(kms, dev)
+        zeros = torch.zeros(kms.shape, dtype=torch.int64, device=dev)
+        r = hll_build.hll_build_hashed(hashed, valid, zeros, p, 1)[0]
+        regs = r if regs is None else torch.maximum(regs, r)
+        if aux_kind == "hll":
+            a = hll_build.hll_build_hashed(hashed, valid, zeros, aux_param,
+                                           1)[0]
+            aux = a if aux is None else torch.maximum(aux, a)
+        elif aux_kind == "smh":
+            a, complete = smh_build.smh_build_batch_j0(
+                kms, valid, zeros, aux_param, 1, dev)
+            if not bool(complete):
+                a = smh_build.smh_build_batch_full(kms, valid, zeros,
+                                                   aux_param, 1, dev)
+            aux = a[0] if aux is None else umin(aux, a[0])
+        if n == 0:
+            break
+    return regs, aux
+
+
+def _expand_gids(offsets, n):
+    """Per-position genome ids (int64 (n,)) from a pack's (PACK_GENOMES+1,)
+    cumulative start offsets, on their device. Positions past the last
+    genome clip to the last id."""
+    pos = torch.arange(n, dtype=torch.int64, device=offsets.device)
+    gids = torch.searchsorted(offsets[1:], pos, right=True)
+    return gids.clamp_(0, PACK_GENOMES - 1)
+
+
+def _pack_pipeline(codes, offsets, k, p, aux_kind, aux_param):
+    """One device pass over a pack: (regs uint8 (PACK_GENOMES, 2^p), aux,
+    smh_complete), all left on the device; smh_complete is None unless
+    aux_kind is "smh" (then the j=0 pass's flag, not yet fetched)."""
+    dev = codes.device
+    gids = _expand_gids(offsets, codes.shape[0])
+    kms, valid = canonical_kmers(codes, k, dev)
+    hashed = wang_hash64(kms, dev)
+    regs = hll_build.hll_build_hashed(hashed, valid, gids, p, PACK_GENOMES)
+    aux = complete = None
+    if aux_kind == "hll":
+        aux = hll_build.hll_build_hashed(hashed, valid, gids, aux_param,
+                                         PACK_GENOMES)
+    elif aux_kind == "smh":
+        aux, complete = smh_build.smh_build_batch_j0(
+            kms, valid, gids, aux_param, PACK_GENOMES, dev)
+    return regs, aux, complete
+
+
+def _pack_smh_full(codes, offsets, k, m):
+    """The exact full SuperMinHash pass over a pack whose j=0 pass left a
+    bucket unhit."""
+    kms, valid = canonical_kmers(codes, k, codes.device)
+    return smh_build.smh_build_batch_full(
+        kms, valid, _expand_gids(offsets, codes.shape[0]), m, PACK_GENOMES,
+        codes.device)
+
+
+def _pack_arrays(pack):
+    """A pack's code streams concatenated, and its (PACK_GENOMES + 1,)
+    int64 offsets (offsets[g] = first position of genome g; the empty
+    tail slots share the final boundary). Every stream begins with a reset
+    sentinel (the FASTA reader emits a leading boundary), so no k-mer
+    window spans two genomes."""
+    codes = np.concatenate([c for _, c in pack])
+    offsets = np.zeros(PACK_GENOMES + 1, np.int64)
+    offsets[1:len(pack) + 1] = np.cumsum([len(c) for _, c in pack])
+    offsets[len(pack) + 1:] = offsets[len(pack)]
+    return codes, offsets
+
+
+def _launch_pack(pack, k, p, aux_kind, aux_param, dev):
+    """Upload a pack and enqueue its device pass: (codes, offsets, regs,
+    aux, smh_complete) device tensors."""
+    codes, offsets = _pack_arrays(pack)
+    d_codes = torch.from_numpy(codes).to(dev)
+    d_off = torch.from_numpy(offsets).to(dev)
+    return (d_codes, d_off) + _pack_pipeline(d_codes, d_off, k, p, aux_kind,
+                                             aux_param)
+
+
+def _sketch_pack_device(pack, k, p, aux_kind, aux_param, device=None):
+    """Sketch up to PACK_GENOMES genomes [(file index, codes)] in one
+    device pass (k-mers, hashes, both scatters and the SMH j=0 pass), the
+    rare j=0-incomplete pack through the exact full pass: (regs, aux)
+    device tensors with one row per pack slot."""
+    d_codes, d_off, regs, aux, complete = _launch_pack(
+        pack, k, p, aux_kind, aux_param, resolve(device))
+    if complete is not None and not bool(complete):
+        aux = _pack_smh_full(d_codes, d_off, k, aux_param)
+    return regs, aux
+
+
+def _decode(path):
+    t0 = time.perf_counter()
+    codes = fasta.fasta_codes(path)
+    return codes, time.perf_counter() - t0
+
+
+def build_bank_from_files(files, criterion=None, aux_bytes=256, k=DEFAULT_K,
+                          backend="auto", device=None, stats=None):
+    """Build a SketchBank from FASTA/FASTQ files (parity: build_sketch).
+
+    Host FASTA decode runs on one background thread while the device
+    builds the sketches: genomes up to the pack budget go PACK_GENOMES to
+    a device pass, at most two passes in flight before the oldest is
+    fetched; larger genomes stream through sketch_codes_device. The bank's
+    bytes equal the JAX package's build_bank_from_files(..., backend=
+    "device").
+
+    One decode thread, not a pool: the pure-Python reader holds the
+    interpreter lock for each line, so more threads only contend for it
+    and starve the thread that drives the device (on the H100 machine's
+    8-core host a pool of 8 built a 0.31 Gbp corpus 4.4x slower than one
+    thread; PERF.md). The JAX package's io_threads serves its native
+    reader, which is not ported (ROADMAP.md queue 1, item 11).
+
+    backend: "device" (or "auto", which resolves to it) is this path.
+    "native" (the JAX package's C++ single-pass builder) is not ported:
+    it raises NotImplementedError.
+    device: torch device of the sketch builds; None means CUDA.
+    stats: optional dict, filled with the build's stage seconds:
+      decode_secs   main-thread wait for decoded files (host decode the
+                    device work did not hide)
+      decode_busy_secs  per-file decode walls summed (the decode thread)
+      pack_secs     pack assembly, upload, launches and the fetch of
+                    finished packs (includes their device time)
+      chunked_secs  the per-genome chunked path, device time included
+      fetch_secs    stacking the fetched rows into the bank arrays
+      smh_fallbacks packs that took the full SuperMinHash pass
+    and counts: genomes, codes (decoded stream length: bases plus one
+    reset per record), packs, chunked_genomes.
+    """
+    if backend == "native":
+        raise NotImplementedError(
+            "backend='native' (the C++ single-pass builder) is not ported "
+            "to the torch package yet: ROADMAP.md queue 1, item 11")
+    if backend not in ("auto", "device"):
+        raise ValueError(f"unknown backend {backend!r}")
+    dev = resolve(device)
+    torch.empty(0, device=dev)  # a missing card raises here, not mid-build
+    aux_kind, aux_param = aux_spec(criterion, aux_bytes)
+    pack_codes = PACK_CODES
+    if aux_kind == "smh":
+        pack_codes = min(PACK_CODES, SMH_CANDIDATES // aux_param)
+
+    st = {} if stats is None else stats
+    st.update(decode_secs=0.0, decode_busy_secs=0.0, pack_secs=0.0,
+              chunked_secs=0.0, fetch_secs=0.0, smh_fallbacks=0,
+              genomes=len(files), codes=0, packs=0, chunked_genomes=0)
+    regs_list = [None] * len(files)
+    aux_list = [None] * len(files)
+    as_np = ((lambda t: t.cpu().numpy().view(np.uint64))
+             if aux_kind == "smh" else (lambda t: t.cpu().numpy()))
+    inflight = deque()
+    pack, pack_size = [], 0
+
+    def retire(drain=False):
+        """Fetch finished packs, one device-to-host copy per array, keeping
+        two packs in flight so the device queue never drains while the
+        host assembles the next pack."""
+        while inflight and (drain or len(inflight) > 2):
+            pk, d_codes, d_off, regs, aux, complete = inflight.popleft()
+            if complete is not None and not bool(complete):
+                st["smh_fallbacks"] += 1
+                aux = _pack_smh_full(d_codes, d_off, k, aux_param)
+            regs_np = regs.cpu().numpy()
+            aux_np = as_np(aux) if aux is not None else None
+            for slot, (i, _) in enumerate(pk):
+                regs_list[i] = regs_np[slot]
+                if aux_np is not None:
+                    aux_list[i] = aux_np[slot]
+
+    def flush():
+        nonlocal pack, pack_size
+        if not pack:
+            return
+        t0 = time.perf_counter()
+        inflight.append((pack,) + _launch_pack(pack, k, PRIMARY_P, aux_kind,
+                                               aux_param, dev))
+        retire()
+        st["pack_secs"] += time.perf_counter() - t0
+        st["packs"] += 1
+        pack, pack_size = [], 0
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        decoded = pool.map(_decode, files)
+        t_wait = time.perf_counter()
+        for i, (codes, busy) in enumerate(decoded):
+            st["decode_secs"] += time.perf_counter() - t_wait
+            st["decode_busy_secs"] += busy
+            st["codes"] += int(codes.size)
+            if codes.size > pack_codes:
+                t0 = time.perf_counter()
+                regs, aux = sketch_codes_device(codes, k, PRIMARY_P, aux_kind,
+                                                aux_param, dev)
+                regs_list[i] = regs.cpu().numpy()
+                aux_list[i] = as_np(aux) if aux is not None else None
+                st["chunked_secs"] += time.perf_counter() - t0
+                st["chunked_genomes"] += 1
+            else:
+                if (pack_size + codes.size > pack_codes
+                        or len(pack) == PACK_GENOMES):
+                    flush()
+                pack.append((i, codes))
+                pack_size += codes.size
+            t_wait = time.perf_counter()
+        flush()
+        t0 = time.perf_counter()
+        retire(drain=True)
+        st["pack_secs"] += time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    regs = np.stack(regs_list)
+    aux = np.stack(aux_list) if aux_kind is not None else None
+    st["fetch_secs"] = time.perf_counter() - t0
+    return SketchBank(names=list(files), regs=regs, aux_kind=aux_kind,
+                      aux=aux, aux_param=aux_param)

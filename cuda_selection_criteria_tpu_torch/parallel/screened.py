@@ -289,7 +289,7 @@ class ScreenPlan:
     the sorted+padded arrays, the device-resident bank, and the
     conservative thresholds."""
 
-    VALID = ("smh_a", "cb", "baseline", "hll_a", "hll_an")
+    VALID = ("smh_a", "smh_only", "cb", "baseline", "hll_a", "hll_an")
 
     def __init__(self, bank, params, ti, device=None):
         crit = params.criterion
@@ -303,8 +303,8 @@ class ScreenPlan:
         self.crit = crit
         self.n = bank.n
         self.tau = params.tau_eff
-        self.use_cb = crit != "baseline"
-        self.use_smh = crit == "smh_a"
+        self.use_cb = crit not in ("baseline", "smh_only")
+        self.use_smh = crit in ("smh_a", "smh_only")
 
         order = bank.sorted_by_cardinality()
         self.order = order

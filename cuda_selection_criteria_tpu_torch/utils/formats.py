@@ -8,6 +8,8 @@ with cuda_selection_criteria_tpu/utils/formats.py:
 
   * .smh{m}: gzip stream of uint32 size + size x uint64 raw h_ buckets
     (reference: src/build_sketch.cpp:9-20 write, src/selection.cpp:12-33 read)
+
+  * .npz: a whole stacked sketch bank (save_bank / load_bank).
 """
 
 import gzip
@@ -83,3 +85,25 @@ def write_smh(path, h):
     h = np.ascontiguousarray(h, dtype=np.uint64)
     payload = struct.pack("<I", h.size) + h.tobytes()
     _gz_write(path, payload)
+
+
+def save_bank(path, names, regs, cards=None, aux=None, aux_kind=None):
+    """Save a stacked sketch bank as .npz (the JAX package's bulk format,
+    cuda_selection_criteria_tpu/utils/formats.py:save_bank, without its
+    meta_* entries, which no caller writes)."""
+    arrays = {
+        "names": np.asarray(names, dtype=object).astype(str),
+        "regs": np.asarray(regs, dtype=np.uint8),
+    }
+    if cards is not None:
+        arrays["cards"] = np.asarray(cards, dtype=np.float64)
+    if aux is not None:
+        arrays["aux"] = np.asarray(aux)
+        arrays["aux_kind"] = np.asarray(aux_kind or "")
+    np.savez_compressed(path, **arrays)
+
+
+def load_bank(path):
+    """Load a .npz sketch bank -> dict of arrays."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}

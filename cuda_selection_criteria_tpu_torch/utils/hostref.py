@@ -3,8 +3,8 @@
 Copied from cuda_selection_criteria_tpu/utils/hostref.py: the exact
 confirmation every engine ends in. Both packages confirm through the same
 f64 operation sequence, so emitted pair sets and Jaccard strings are
-identical. The port keeps the smh_a / cb / baseline / hll_a / hll_an
-cascade; smh_only waits for the time_smh slice (ROADMAP.md queue 1).
+identical. The port keeps every criterion's cascade: smh_a, smh_only
+(the smh_a band gate without CB), cb, baseline, hll_a and hll_an.
 """
 
 import math
@@ -203,15 +203,14 @@ class PairOracle:
     raises: there is no host fallback.
     """
 
-    SUPPORTED = (None, "smh_a", "cb", "baseline", "hll_a", "hll_an")
+    SUPPORTED = (None, "smh_a", "smh_only", "cb", "baseline", "hll_a",
+                 "hll_an")
 
     def __init__(self, p, regs, e, aux=None, aux_param=None, criterion=None,
                  tau=0.9, z_score=1.96, order_n=1, apply_cb=True,
                  hist_fn=None):
         if criterion not in self.SUPPORTED:
-            raise NotImplementedError(
-                f"criterion {criterion!r} is not ported yet "
-                "(ROADMAP.md queue 1)")
+            raise ValueError(f"unknown criterion {criterion!r}")
         self.p = p
         # regs may be a zero-arg callable resolved on first primary-union
         # touch: with a device-backed hist_fn the host copy is never read
@@ -234,7 +233,7 @@ class PairOracle:
         self.hist_fn = hist_fn or (
             lambda ii, kk: pair_union_histograms_np(self.regs, ii, kk)
         )
-        if criterion == "smh_a":
+        if criterion in ("smh_a", "smh_only"):
             self.n_rows, self.n_bands = smh_band_params(aux_param, float(tau))
         elif criterion in ("hll_a", "hll_an"):
             self.zs = np.float64(np.float32(z_score)
@@ -254,7 +253,7 @@ class PairOracle:
         if self.apply_cb and not (e1 / e2 >= self.tau):
             return False
         crit = self.criterion
-        if crit == "smh_a":
+        if crit in ("smh_a", "smh_only"):
             if not smh_a(self.aux[i], self.aux[k], self.n_rows, self.n_bands):
                 return False
         elif crit == "hll_a":
@@ -297,7 +296,7 @@ class PairOracle:
         if self.apply_cb and sel.size:
             sel = sel[e1[sel] / e2[sel] >= self.tau]
         crit = self.criterion
-        if crit == "smh_a" and sel.size:
+        if crit in ("smh_a", "smh_only") and sel.size:
             va = self.aux[ii[sel]].reshape(sel.size, self.n_bands,
                                            self.n_rows)
             vb = self.aux[kk[sel]].reshape(sel.size, self.n_bands,

@@ -44,7 +44,7 @@ def _stdout(main, argv, capsys):
     return capsys.readouterr().out
 
 
-@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline"])
+@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline", "smh_only"])
 def test_cli_output_matches_jax_and_host(sketch_list, crit, capsys):
     argv = ["-l", sketch_list, "-a", "256", "-h", "0.9", "-c", crit]
     got = _stdout(cli.main, argv + ["--device", "cpu"], capsys)
@@ -52,8 +52,9 @@ def test_cli_output_matches_jax_and_host(sketch_list, crit, capsys):
     assert got == want
     files = [ln.strip() for ln in open(sketch_list) if ln.strip()]
     bank = SketchBank.from_sketch_files(
-        files, criterion="smh_a" if crit == "smh_a" else None)
-    host = select_pairs_host(bank, 0.9, crit, apply_cb=(crit != "baseline"))
+        files, criterion="smh_a" if crit.startswith("smh") else None)
+    host = select_pairs_host(bank, 0.9, crit,
+                             apply_cb=crit not in ("baseline", "smh_only"))
     assert got.splitlines() == format_results(host)
     assert len(host) >= 3
     # the screened engine with an explicit tile prints the same lines
@@ -65,8 +66,9 @@ def test_cli_messages_match_jax(capsys):
     for argv in (["-x"], ["-c", "nope"], ["-b", "0", "-c", "smh_a"]):
         assert _stdout(cli.main, argv, capsys) == \
             _stdout(jcli.main, argv, capsys)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["-l", "unused", "-c", "smh_only"])
+    for main in (cli.main, jcli.main):
+        with pytest.raises(FileNotFoundError, match="No valid input file"):
+            main(["-l", "unused", "-c", "smh_only"])
 
 
 def test_import_leaves_jax_out():
@@ -74,11 +76,13 @@ def test_import_leaves_jax_out():
     checked in a fresh interpreter, since this one already imported it."""
     mods = ["cuda_selection_criteria_tpu_torch"] + [
         f"cuda_selection_criteria_tpu_torch.{m}" for m in (
-            "cli.selection", "models.bank", "ops._build", "ops.criteria",
-            "ops.estimators", "ops.screen", "parallel.scheduler",
+            "cli.build_sketch", "cli.selection", "cli.time_smh",
+            "models.bank", "models.hll", "models.smh", "ops._build",
+            "ops.criteria", "ops.estimators", "ops.hashes", "ops.hll_build",
+            "ops.kmers", "ops.screen", "ops.smh_build", "parallel.scheduler",
             "parallel.screened", "parallel.selection", "utils.device",
-            "utils.filelist", "utils.formats", "utils.hostref",
-            "utils.synth")]
+            "utils.fasta", "utils.filelist", "utils.formats",
+            "utils.hostref", "utils.synth")]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' "

@@ -63,8 +63,8 @@ def test_hll_histogram_matches_jax(p):
         jhostref.pair_union_histograms_np(regs, ii, kk))
 
 
-@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline", "hll_a",
-                                  "hll_an"])
+@pytest.mark.parametrize("crit", ["smh_a", "smh_only", "cb", "baseline",
+                                  "hll_a", "hll_an"])
 def test_confirm_pairs_matches_jax(crit):
     """tests/test_hostref_batch.py's confirm_pairs case on both oracles:
     identical pair sets and f64 Jaccard values, equal to evaluate()."""
@@ -82,7 +82,7 @@ def test_confirm_pairs_matches_jax(crit):
         aux_param = 16
     aux[1::3] = aux[0]
     kw = dict(aux=aux, aux_param=aux_param, criterion=crit, tau=0.3,
-              apply_cb=(crit != "baseline"))
+              apply_cb=crit not in ("baseline", "smh_only"))
     pairs = [(i, k) for i in range(n - 1) for k in range(i + 1, n)]
     oracle = hostref.PairOracle(p, regs, e, **kw)
     got = oracle.confirm_pairs(pairs, batch=64)
@@ -93,9 +93,9 @@ def test_confirm_pairs_matches_jax(crit):
 
 
 def test_oracle_rejects_unported_criteria():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown criterion"):
         hostref.PairOracle(10, np.zeros((2, 1024), np.uint8), np.ones(2),
-                           criterion="smh_only")
+                           criterion="nope")
 
 
 def test_criteria_constants_match_jax():

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 screen_fused, K2 weighted_cdf_sum) and their
 card paths against their plain versions, bit-equal (TF32 off for the plain
-versions' f32 matmuls, which then sum exact integers).
+versions' f32 matmuls, which then sum exact integers); the sketch build's
+torch ops on the card against the same ops on the CPU.
 
 Needs an NVIDIA card: every test skips without one (the kernels have no CPU
 mode). Imports neither JAX nor the reference package, so it also runs on
@@ -10,11 +11,16 @@ the machine with the card, which has no JAX:
         tests/test_torch_kernels_cuda.py
 """
 
+import filecmp
+import gzip
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from cuda_selection_criteria_tpu_torch.models import SketchBank
+from cuda_selection_criteria_tpu_torch.models import bank as tbank
 from cuda_selection_criteria_tpu_torch.models.bank import host_cards
 from cuda_selection_criteria_tpu_torch.ops import screen
 from cuda_selection_criteria_tpu_torch.parallel import screened
@@ -94,7 +100,7 @@ def test_kernel_matches_plain_multi_cta_truncated(cuda, ti):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline"])
+@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline", "smh_only"])
 def test_engine_on_cuda_matches_cpu(cuda, crit):
     rng = np.random.default_rng(5)
     regs = synth.synthetic_regs(300, rng.integers(400, 900, 300), 10, rng)
@@ -235,3 +241,79 @@ def test_hll_engine_on_cuda_matches_cpu(cuda, crit):
     want = screened.select_pairs_screened(bank, params, ti=128, chunk=4,
                                           device="cpu")
     assert got == want and len(got) >= 12
+
+
+def _fasta_corpus(d, rng):
+    """Gzipped FASTA files of 20 kbp to 300 kbp with N runs, a near-copy,
+    and two FASTQ files of 40-base reads (fewer k-mers than 32 buckets)."""
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    files = []
+    seqs = [bases[rng.integers(0, 4, int(n))]
+            for n in (300_000, 150_000, 20_000, 60_000)]
+    seqs.append(seqs[1].copy())
+    seqs[-1][rng.integers(0, seqs[-1].size, 100)] = ord("G")
+    for i, seq in enumerate(seqs):
+        seq[rng.integers(0, seq.size, 10)] = ord("N")
+        path = os.path.join(d, f"g{i}.fna.gz")
+        with gzip.open(path, "wb", compresslevel=1) as fh:
+            fh.write(b">chr\n" + b"\n".join(
+                seq[j:j + 80].tobytes() for j in range(0, seq.size, 80))
+                + b"\n")
+        files.append(path)
+    for q in range(2):
+        path = os.path.join(d, f"r{q}.fq")
+        read = bases[rng.integers(0, 4, 40)].tobytes()
+        with open(path, "wb") as fh:
+            fh.write(b"@r\n" + read + b"\n+\n" + b"I" * 40 + b"\n")
+        files.append(path)
+    return files
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crit,aux_bytes", [
+    ("hll_a", 256), ("hll_an", 32), ("smh_a", 256), ("smh_a", 4096)])
+def test_build_on_cuda_matches_cpu(cuda, tmp_path, crit, aux_bytes):
+    """build_bank_from_files on the card bit-equal to the CPU build, and
+    the written sketch files byte-identical: HLL at p = 14 with aux p = 8
+    and 2, SMH at m = 32 and 512, packed and chunked genomes, and packs
+    whose j=0 pass is incomplete (the full fallback)."""
+    files = {}
+    for dev in ("cpu", "cuda"):
+        os.makedirs(tmp_path / dev)
+        files[dev] = _fasta_corpus(str(tmp_path / dev),
+                                   np.random.default_rng(aux_bytes))
+    stats = {}
+    banks = {dev: tbank.build_bank_from_files(
+        files[dev], crit, aux_bytes, device=dev if dev == "cpu" else cuda,
+        stats=stats if dev == "cuda" else None) for dev in ("cpu", "cuda")}
+    np.testing.assert_array_equal(banks["cuda"].regs, banks["cpu"].regs)
+    np.testing.assert_array_equal(banks["cuda"].aux, banks["cpu"].aux)
+    if crit == "smh_a":
+        assert stats["smh_fallbacks"] >= 1
+    if aux_bytes == 4096:
+        assert stats["chunked_genomes"] == 3
+    for dev in banks:
+        banks[dev].write_sketch_files()
+    kind, param = tbank.aux_spec(crit, aux_bytes)
+    for a, b in zip(files["cuda"], files["cpu"]):
+        for sfx in (".hll", f".hll_{param}" if kind == "hll"
+                    else f".smh{param}"):
+            assert filecmp.cmp(a + sfx, b + sfx, shallow=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aux_kind,aux_param", [("smh", 32), ("smh", 512),
+                                                ("hll", 8)])
+def test_chunked_sketch_on_cuda_matches_cpu(cuda, aux_kind, aux_param):
+    """sketch_codes_device in pieces on the card (k-1 overlap, per-piece
+    j=0 pass, unsigned-min merge) equals the CPU result."""
+    rng = np.random.default_rng(aux_param)
+    codes = np.concatenate([[4], rng.integers(0, 4, 400_000)]).astype(
+        np.uint8)
+    codes[rng.integers(0, codes.size, 50)] = 4
+    got = tbank.sketch_codes_device(codes, 31, 14, aux_kind, aux_param,
+                                    device=cuda, max_chunk=100_000)
+    want = tbank.sketch_codes_device(codes, 31, 14, aux_kind, aux_param,
+                                     device="cpu")
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

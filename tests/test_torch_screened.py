@@ -165,15 +165,15 @@ def test_device_hist_fn_negative_tau_never_rejects():
 
 
 @pytest.mark.parametrize("crit,tau", [
-    ("smh_a", 0.2), ("cb", 0.2), ("baseline", 0.3), ("smh_a", 0.02),
+    ("smh_a", 0.2), ("cb", 0.2), ("baseline", 0.3), ("smh_only", 0.2),
+    ("smh_a", 0.02),
 ])
 def test_select_pairs_screened_matches_jax_and_host(crit, tau):
-    """The cases of tests/test_screen.py::test_screened_engine_matches_host
-    (smh_only is not ported)."""
+    """The cases of tests/test_screen.py::test_screened_engine_matches_host."""
     jb = jax_bank(20, 10, 16, 17)
     bank = port_bank(jb)
-    host = jhostref.select_pairs_host(jb, tau, crit,
-                                      apply_cb=(crit != "baseline"))
+    apply_cb = crit not in ("baseline", "smh_only")
+    host = jhostref.select_pairs_host(jb, tau, crit, apply_cb=apply_cb)
     want = jscreened.select_pairs_screened(
         jb, JParams(tau=tau, criterion=crit, block=64), ti=256, chunk=4)
     stats = {}
@@ -182,8 +182,7 @@ def test_select_pairs_screened_matches_jax_and_host(crit, tau):
         device="cpu", stats=stats)
     assert got == want
     assert rounded(got) == rounded(host)
-    assert got == select_pairs_host(bank, tau, crit,
-                                    apply_cb=(crit != "baseline"))
+    assert got == select_pairs_host(bank, tau, crit, apply_cb=apply_cb)
     assert stats["confirmed"] == len(got) and stats["candidates"] >= len(got)
     assert select_pairs(bank, SelectionParams(tau=tau, criterion=crit),
                         device="cpu") == got
@@ -214,8 +213,7 @@ def test_select_pairs_screened_edge_cases():
 def test_unported_criteria_and_engines_raise():
     bank = port_bank(jax_bank(4, 10, 16, 5))
     with pytest.raises(ValueError, match="does not support"):
-        screened.ScreenPlan(bank, SelectionParams(tau=0.2,
-                                                  criterion="smh_only"),
+        screened.ScreenPlan(bank, SelectionParams(tau=0.2, criterion="nope"),
                             64, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         select_pairs(bank, SelectionParams(tau=0.2, engine="dense"),
