@@ -3,11 +3,12 @@
 //
 // [max(a, b) <= v] == [a <= v] & [b <= v], so the pack stage turns every
 // bank row into K-1 bit-planes of R/32 uint32 words (bit r of plane k =
-// [reg_r <= v_k]), and each kernel's count stage gets CDF_k of a pair as
-// sum_w popc(A_k[w] & B_k[w]): an exact integer whatever the summation
-// order. In both kernels one CTA of kThreads threads owns a kTile x kTile
-// block of pairs, 4 x 4 pairs per thread, and streams the planes of its
-// rows and columns through shared memory kChunk words at a time.
+// [reg_r <= v_k]), and each kernel's count stage gets CDF_k of a pair from
+// AND + POPC of the two rows' planes: an exact integer whatever the
+// summation order. K2 counts with __popc on the CUDA cores; K1 with the
+// tensor cores' 1-bit wgmma, 32 plane words a pipeline stage, so its planes
+// are stored in Wp >= R/32 words, the words past R/32 zero (zero words AND
+// to nothing).
 
 #pragma once
 
@@ -16,47 +17,56 @@
 
 namespace {
 
-constexpr int kTile = 64;      // CTA tile edge (pairs per side)
-constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 pairs each
-constexpr int kChunk = 32;     // plane words per shared-memory stage
-
-// planes[(n * nbins + k) * W + w], bit t = [regs[n, 32w + t] <= thr[k]].
+// planes[(n * nbins + k) * Wp + w], bit t = [regs[n, 32w + t] <= thr[k]]
+// for w < R/32, and 0 for R/32 <= w < Wp.
 __global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
-                                   long long n_rows, int R,
+                                   long long n_rows, int R, int Wp,
                                    const int* __restrict__ thr, int nbins,
                                    uint32_t* __restrict__ planes) {
   const int W = R / 32;
   long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rows * W) return;
-  long long n = gid / W;
-  int w = (int)(gid % W);
+  if (gid >= n_rows * Wp) return;
+  long long n = gid / Wp;
+  int w = (int)(gid % Wp);
+  if (w >= W) {
+    for (int k = 0; k < nbins; ++k) planes[(n * nbins + k) * Wp + w] = 0u;
+    return;
+  }
   const uint4* src = reinterpret_cast<const uint4*>(regs + n * R + w * 32);
   uint4 lo = src[0], hi = src[1];
   uint32_t words[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
   for (int k = 0; k < nbins; ++k) {
-    uint32_t t = (uint32_t)thr[k];
+    // SWAR [byte <= t] on 4 bytes at once, t = thr[k] <= 254, c = t + 1:
+    // byte < c is the borrow out of bit 7 of byte - c, MAJ(~x, c7, ~d)
+    // with d = (x | 0x80) - (c & 0x7f) (no borrow crosses a byte)
+    const uint32_t c = (uint32_t)thr[k] + 1u;
+    const uint32_t c_lo = (c & 0x7Fu) * 0x01010101u;
+    const uint32_t c_hi = (c & 0x80u) ? 0x80808080u : 0u;
     uint32_t bits = 0;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        uint32_t byte = (words[q] >> (8 * b)) & 0xFFu;
-        bits |= (uint32_t)(byte <= t) << (4 * q + b);
-      }
+      const uint32_t x = words[q];
+      const uint32_t d = (x | 0x80808080u) - c_lo;
+      const uint32_t lt = (~x & c_hi) | (~x & ~d) | (c_hi & ~d);
+      // bit 7 of byte b -> bit b: bits 0, 8, 16, 24 times 0x01020408
+      const uint32_t y = (lt >> 7) & 0x01010101u;
+      bits |= ((y * 0x01020408u) >> 24) << (4 * q);
     }
-    planes[(n * nbins + k) * W + w] = bits;
+    planes[(n * nbins + k) * Wp + w] = bits;
   }
 }
 
 // Packs the nbins bit-planes of an (n_rows, R) uint8 bank (16-byte
-// aligned, R a multiple of 32) into caller-allocated `planes`.
+// aligned, R a multiple of 32) into caller-allocated `planes` of
+// n_rows * nbins * Wp words, Wp >= R/32.
 inline cudaError_t launch_pack_planes(const void* regs, long long n_rows,
-                                      int R, const void* thr, int nbins,
-                                      void* planes, cudaStream_t st) {
-  const long long total = n_rows * (R / 32);
+                                      int R, int Wp, const void* thr,
+                                      int nbins, void* planes,
+                                      cudaStream_t st) {
+  const long long total = n_rows * Wp;
   const unsigned blocks = (unsigned)((total + 255) / 256);
   pack_planes_kernel<<<blocks, 256, 0, st>>>(
-      static_cast<const uint8_t*>(regs), n_rows, R,
+      static_cast<const uint8_t*>(regs), n_rows, R, Wp,
       static_cast<const int*>(thr), nbins, static_cast<uint32_t*>(planes));
   return cudaGetLastError();
 }

@@ -18,33 +18,175 @@
 //           (smh) some equal LSH band fingerprint.
 // Outputs int8 hits (T, ti, ti) and int32 per-tile hit counts (T,).
 //
-// Design. [max(a,b) <= v] == [a <= v] & [b <= v], so stage 1 packs every
-// bank row into K-1 bit-planes of R/32 uint32 words (bit r of plane k =
-// [reg_r <= v_k]) and stage 2 counts CDF_k = sum_w popc(A_k[w] & B_k[w]).
-// Stage 1 lives in pack_planes.cuh, shared with K2 (weighted_cdf_sum.cu).
-// Counts are exact integers whatever the summation order, and the weights
-// apply once per bin in ascending order with explicit _rn intrinsics (no
-// FMA contraction), so S - and with it the hit mask - is bit-equal to the
-// plain version. One CTA owns a 64 x 64 block of one schedule tile (256
-// threads, 4 x 4 pairs each), streams the planes of its 64 rows and 64
-// columns through shared memory 32 words at a time, and keeps the counts
-// and S/Z in registers; gates are evaluated in the epilogue from e and the
-// fingerprints, so no ti^2 gate operand exists. Per-tile counts use
-// integer atomicAdd (exact in any order).
+// Bound on the card. The counts are (K-1) * R register comparisons a pair
+// that passes the gates: 7.4e12 for the first 64 tiles of the bench
+// triangle at ti = 1024, p = 14, 7 bins, where 96% of the pairs pass. As
+// int8 indicator products (the TPU's route) that is 1.5e13 ops, 7.5 ms at
+// the H100's 1,979 TOP/s. The probe experiments/hopper_mma_probe.py
+// measured, on an H100 80GB HBM3 at 700 W, mma.sync m16n8k256 .b1 .and.popc
+// at the issue rate of m16n8k32 .s8 (1.6e11 a second): a b1 mma compares
+// 32768 registers where an int8 one compares 4096, so b1 is 8x the int8
+// route, which would also spend ALU work making its indicators. The b1
+// wgmma.mma_async m64n128k256 from shared memory reaches 7.9e15
+// comparisons a second, 1.5x the b1 mma.sync. The counts therefore run on
+// b1 wgmma, and at that rate the bound is 0.94 ms (the bank read once and
+// the hits written once take 0.1 ms; chip_smoke.py computes both).
 //
-// Bound on the card: integer throughput - per pair (K-1) * R/32
-// AND + POPC + IADD (about 8 * 512 * 3 = 12k ops at p=14 with 8 bins);
-// POPC issues at a quarter of the INT32 rate. Plane traffic is
-// 128 rows x (K-1) x 2 KiB per CTA, mostly L2 hits. mma with .b1 operands
-// (AND + POPC on the tensor cores) and wgmma belong to later work.
+// Design. [max(a,b) <= v] == [a <= v] & [b <= v], so the pack stage
+// (pack_planes.cuh, shared with K2) turns every bank row into K-1 bit-planes
+// of Wp words, Wp = max(R/32, 32) (ops/screen.plane_words: zero words pad a
+// plane to one pipeline stage), and CDF_k is the b1 wgmma (AND + POPC) of
+// the row's and column's plane k. One CTA of two warpgroups owns a
+// 128 x 128 block of pairs, each warpgroup an m64n128 accumulator tile
+// (64 pairs a thread); ti = 64 (or any odd multiple of 64) masks the part
+// of the block outside the tile.
+//  1. Gates first. e' of the block's rows and columns is divided once into
+//     shared memory; each thread evaluates the gates of its 64 pairs
+//     exactly as the plain version does (the same f32 _rn operations) into
+//     a 64-bit mask. If no pair of the block passes (__syncthreads_or), the
+//     whole CTA writes zero hits and returns: hit = h AND g, so nothing else
+//     is needed. A live block counts in full: ptxas serializes wgmma on any
+//     path it cannot prove uniform, so no finer skip guards the mma.
+//  2. Counts. Bins run in groups of kGroup, each group one pass over the
+//     register axis: cp.async copies the group's planes of the block's 128
+//     rows and 128 columns, 32 words (1024 registers) a row and stage, into
+//     a kStages-deep ring in shared memory, kAhead stages ahead, laid out
+//     K-major with the 128-byte swizzle that the wgmma descriptors name.
+//     Each warpgroup issues 4 wgmma a stage into one int32 accumulator tile
+//     per bin and keeps one stage's group in flight. Counts are exact
+//     integers whatever the order.
+//  3. After a group, each bin's counts fold into S in registers, ascending
+//     k, as s = s + w_k * CDF_k with _rn intrinsics (no FMA contraction);
+//     Z = CDF_0 waits in shared memory.
+//  4. Epilogue: the certificate and the gates as before; the int8 hits are
+//     staged in shared memory and written as 16-byte stores, and per-tile
+//     counts use one integer atomicAdd a warp.
 
 #include "pack_planes.cuh"
 
 namespace {
 
-// Stage 2: grid (ti/64, ti/64, T); block (256,).
-__global__ void __launch_bounds__(kThreads)
-screen_kernel(const uint32_t* __restrict__ planes, int nbins, int W,
+constexpr int kEdge = 128;                // CTA block edge (pairs per side)
+constexpr int kThreads = 256;             // 2 warpgroups, 64 x 128 pairs each
+constexpr int kPairs = 64;                // pairs a thread: m64n128 / 128
+// Bins a pass over the register axis. Each bin has planes of its own, so
+// a group shares no loads on this route; a larger group only costs shared
+// memory (its stages) and registers (its accumulators).
+constexpr int kGroup = 1;
+constexpr int kStages = 4;                // cp.async ring depth
+constexpr int kAhead = 2;                 // stages in flight ahead of the mma
+constexpr int kStepWords = 8;             // 256 registers: one b1 mma depth
+constexpr int kStageWords = 32;           // plane words a row and stage
+constexpr int kSteps = kStageWords / kStepWords;       // mma depths a stage
+constexpr int kRowBytes = kStageWords * 4;             // 8 slots of 16 B
+constexpr int kSideBytes = kEdge * kRowBytes;          // 16 KiB
+constexpr int kStageBytes = kGroup * 2 * kSideBytes;
+constexpr int kRingBytes = kStages * kStageBytes;
+constexpr int kSlotBytes = kPairs * kThreads * 4;      // Z: 64 KiB
+constexpr int kAtom = 1024;  // 128-byte swizzle atom: 8 rows of 128 bytes
+constexpr int kHitStride = kEdge + 16;    // staged hit row (bytes)
+static_assert(kEdge * kHitStride <= kRingBytes, "hit staging fits the ring");
+static_assert(kAtom + kRingBytes + kSlotBytes <= 232448, "shared memory");
+static_assert(kAhead < kStages - 1, "a stage is refilled after its mma");
+
+// D (64 x 128 int32, this thread's 64) += popc(A & B) over 256 registers:
+// A the warpgroup's 64 rows, B the block's 128 columns, both K-major in
+// shared memory with the 128-byte swizzle (descriptors da, db). No branch
+// may guard it: ptxas serializes wgmma on a path it cannot prove uniform.
+__device__ __forceinline__ void wgmma_b1(int (&d)[kPairs], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k256.s32.b1.b1.and.popc {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, %64, %65, 1;\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Orders this thread's completed shared-memory writes (cp.async) before
+// the async proxy's reads (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving accumulator accesses into the window in
+// which a wgmma owns the registers.
+__device__ __forceinline__ void fence_acc(int (&d)[kPairs]) {
+#pragma unroll
+  for (int i = 0; i < kPairs; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, K-major with the 128-byte swizzle: rows
+// of 128 bytes, 8-row atoms kAtom bytes apart, leading offset unused.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | (1ull << 16) |
+         ((uint64_t)(kAtom >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Byte offset of 16-byte slot `c` of block row `row` inside one side of a
+// stage: slot c of row r sits at c ^ (r mod 8), the 128-byte swizzle the
+// wgmma descriptors name (the side buffers are kAtom-aligned).
+__device__ __forceinline__ int swz(int row, int c) {
+  return row * kRowBytes + ((c ^ (row & 7)) << 4);
+}
+
+// Pair p (0..63) of a thread is accumulator element p of its warpgroup's
+// m64n128 tile: one of the thread's 2 rows, ri = (p / 2) % 2, and of its 32
+// columns, ci = 2 (p / 4) + p % 2.
+__device__ __forceinline__ int pair_ri(int p) { return (p >> 1) & 1; }
+__device__ __forceinline__ int pair_ci(int p) {
+  return (p >> 2) * 2 + (p & 1);
+}
+__device__ __forceinline__ int thread_row(int tid, int ri) {
+  return (tid >> 7) * 64 + ((tid >> 5) & 3) * 16 + ((tid & 31) >> 2) +
+         ri * 8;
+}
+__device__ __forceinline__ int thread_col(int tid, int ci) {
+  return (ci >> 1) * 8 + (tid & 3) * 2 + (ci & 1);
+}
+
+// grid (ceil(ti/128), ceil(ti/128), T); block (256,); dynamic shared
+// memory kAtom + kRingBytes (+ kSlotBytes with want_z).
+__global__ void __launch_bounds__(kThreads, 1)
+screen_kernel(const uint32_t* __restrict__ planes, int nbins, int Wp,
               const float* __restrict__ weights, float tail, int want_z,
               float two_m, float two_m2,
               const int* __restrict__ row_tiles,
@@ -53,124 +195,234 @@ screen_kernel(const uint32_t* __restrict__ planes, int nbins, int W,
               const int* __restrict__ fp, int n_bands, int n_real,
               float tau_cb, int use_cb, int use_smh,
               int8_t* __restrict__ hits, int* __restrict__ counts) {
-  __shared__ uint32_t As[kChunk][kTile + 1];
-  __shared__ uint32_t Bs[kChunk][kTile + 1];
+  extern __shared__ uint8_t smem[];
+  // e' = e / (1 + tau_scr) of the block's rows, then its columns (0 past
+  // the tile edge), IEEE-rounded as the plain version's tensor division
+  __shared__ float e_s[2 * kEdge];
+  const uint32_t smem_s = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t pad = (kAtom - (smem_s & (kAtom - 1))) & (kAtom - 1);
+  uint8_t* ring = smem + pad;
+  const uint32_t ring_s = smem_s + pad;
+  float* z_slot = reinterpret_cast<float*>(ring + kRingBytes);
 
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;
   const int t = blockIdx.z;
-  const int lr0 = blockIdx.y * kTile;  // CTA offset inside the schedule tile
-  const int lc0 = blockIdx.x * kTile;
-  const long long row0 = (long long)row_tiles[t] * ti + lr0;
-  const long long col0 = (long long)col_tiles[t] * ti + lc0;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int cw = W < kChunk ? W : kChunk;
+  const int lr0 = blockIdx.y * kEdge;  // block offset inside the tile
+  const int lc0 = blockIdx.x * kEdge;
+  const long long rbase = (long long)row_tiles[t] * ti + lr0;
+  const long long cbase = (long long)col_tiles[t] * ti + lc0;
+  const int n_rows = min(kEdge, ti - lr0);  // rows and columns of the block
+  const int n_cols = min(kEdge, ti - lc0);  // that lie inside the tile
 
-  float s[4][4], z[4][4];
+  // ---- 1. gates (the plain version's comparisons, operation for operation)
+  {
+    const int l = tid & (kEdge - 1);
+    const bool col = tid >= kEdge;
+    e_s[tid] = l < (col ? n_cols : n_rows)
+                   ? __fdiv_rn(e[(col ? cbase : rbase) + l], one_tau)
+                   : 0.0f;
+  }
+  __syncthreads();
+  uint64_t gm = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int p = 0; p < kPairs; ++p) {
+    const int lr = thread_row(tid, pair_ri(p));
+    const int lc = thread_col(tid, pair_ci(p));
+    const long long gi = rbase + lr, gj = cbase + lc;
+    const float r = e_s[lr], c = e_s[kEdge + lc];
+    bool g = lr < n_rows && lc < n_cols && gi < gj && gj < n_real && c > 0.0f;
+    if (use_cb) g = g && r >= __fmul_rn(tau_cb, c);
+    if (g) gm |= 1ull << p;
+  }
+  if (use_smh && gm) {
+    uint64_t band = 0;
+    for (int b = 0; b < n_bands; ++b) {
+      int fr[2], fc[32];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[i][j] = 0.0f;
-      z[i][j] = 0.0f;
+      for (int k = 0; k < 2; ++k) {
+        const int lr = thread_row(tid, k);
+        fr[k] = lr < n_rows ? fp[(rbase + lr) * n_bands + b] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        const int lc = thread_col(tid, k);
+        fc[k] = lc < n_cols ? fp[(cbase + lc) * n_bands + b] : 0;
+      }
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p)
+        if (fr[pair_ri(p)] == fc[pair_ci(p)]) band |= 1ull << p;
     }
-
-  for (int k = 0; k < nbins; ++k) {
-    int cnt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) cnt[i][j] = 0;
-
-    for (int w0 = 0; w0 < W; w0 += cw) {
-      for (int idx = threadIdx.x; idx < kTile * cw; idx += kThreads) {
-        const int r = idx / cw;
-        const int w = idx % cw;
-        As[w][r] = planes[((row0 + r) * nbins + k) * W + w0 + w];
-        Bs[w][r] = planes[((col0 + r) * nbins + k) * W + w0 + w];
-      }
-      __syncthreads();
-      for (int w = 0; w < cw; ++w) {
-        uint32_t a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i] = As[w][ty + 16 * i];
-          b[i] = Bs[w][tx + 16 * i];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) cnt[i][j] += __popc(a[i] & b[j]);
-      }
-      __syncthreads();
-    }
-
-    const float wk = weights[k];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = __fadd_rn(s[i][j], __fmul_rn(wk, (float)cnt[i][j]));
-        if (k == 0 && want_z) z[i][j] = (float)cnt[i][j];
-      }
+    gm &= band;
   }
 
-  int local = 0;
+  if (!__syncthreads_or(gm != 0)) {
+    // no pair of the block passes its gates: zero hits, nothing to count
+    const int chunks = n_cols / 16;
+    for (int c = tid; c < n_rows * chunks; c += kThreads) {
+      const int r = c / chunks;
+      *reinterpret_cast<uint4*>(
+          hits + ((long long)t * ti + lr0 + r) * ti + lc0 + (c % chunks) * 16) =
+          make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+  // ---- 2. counts: bins in groups of kGroup, kStageWords words a stage
+  const int stages_per_group = Wp / kStageWords;
+  const int n_steps = ((nbins + kGroup - 1) / kGroup) * stages_per_group;
+
+  // This thread's cp.async pieces, for each bin of a group: 16-byte slot
+  // `slot` of (side, row) = (i / 4, tid / 8 + 32 (i % 4)), i < 8.
+  const int slot = tid & 7;
+  const uint32_t* src[8];
+  uint32_t dst[8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int li = lr0 + ty + 16 * i;
-    const long long gi = (long long)row_tiles[t] * ti + li;
-    const float er = __fdiv_rn(e[gi], one_tau);
+  for (int i = 0; i < 8; ++i) {
+    const int side = i >> 2, row = (tid >> 3) + 32 * (i & 3);
+    // rows past the tile edge read the block's first row: dead pairs
+    const int l = row < (side ? n_cols : n_rows) ? row : 0;
+    src[i] = planes + ((side ? cbase : rbase) + l) * nbins * Wp + slot * 4;
+    dst[i] = side * kSideBytes + swz(row, slot);
+  }
+  auto load_stage = [&](int s) {
+    const int grp = s / stages_per_group;
+    const uint32_t st = ring_s + (s % kStages) * kStageBytes;
+    const long long off = (long long)grp * kGroup * Wp +
+                          (s % stages_per_group) * kStageWords;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int lj = lc0 + tx + 16 * j;
-      const long long gj = (long long)col_tiles[t] * ti + lj;
-      const float ec = __fdiv_rn(e[gj], one_tau);
-      const float sv = __fadd_rn(s[i][j], tail);
-      const float esum = __fadd_rn(er, ec);
+    for (int b = 0; b < kGroup; ++b)
+      if (grp * kGroup + b < nbins)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          cp_async16(st + b * 2 * kSideBytes + dst[i], src[i] + off + b * Wp);
+  };
+
+#pragma unroll 1
+  for (int s = 0; s < kAhead; ++s) {
+    if (s < n_steps) load_stage(s);
+    cp_async_commit();
+  }
+  float sv[kPairs];  // S of this thread's pairs, folded bin by bin
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) sv[p] = 0.0f;
+  int s = 0;         // the ring's stage counter, across groups
+#pragma unroll 1
+  for (int grp = 0; grp * kGroup < nbins; ++grp) {
+    int acc[kGroup][kPairs];
+#pragma unroll
+    for (int b = 0; b < kGroup; ++b)
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p) acc[b][p] = 0;
+
+#pragma unroll 1
+    for (int k = 0; k < stages_per_group; ++k, ++s) {
+      cp_async_wait<kAhead - 1>();
+      fence_proxy_async();
+      // After the barrier stage s is in shared memory for every thread, and
+      // every warpgroup has waited for the mma of stage s + kAhead - kStages
+      // (its last wait left only stage s - 1 in flight), whose slot is
+      // refilled here.
+      __syncthreads();
+      if (s + kAhead < n_steps) load_stage(s + kAhead);
+      cp_async_commit();
+      const uint32_t st = ring_s + (s % kStages) * kStageBytes;
+#pragma unroll
+      for (int b = 0; b < kGroup; ++b) {
+        const uint32_t sa = st + (b * 2) * kSideBytes + wg * 64 * kRowBytes;
+        const uint32_t sb = st + (b * 2 + 1) * kSideBytes;
+        fence_acc(acc[b]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSteps; ++kk)
+          wgmma_b1(acc[b], smem_desc(sa + kk * 32), smem_desc(sb + kk * 32));
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the mma of stage s - 1 has read its slot
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int b = 0; b < kGroup; ++b) fence_acc(acc[b]);
+
+    // ---- 3. fold the group's counts into S (and Z), ascending bins
+#pragma unroll
+    for (int b = 0; b < kGroup; ++b) {
+      const int bin = grp * kGroup + b;
+      if (bin >= nbins) continue;
+      const float wk = weights[bin];
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p)
+        sv[p] = __fadd_rn(sv[p], __fmul_rn(wk, (float)acc[b][p]));
+      if (bin == 0 && want_z)
+#pragma unroll
+        for (int p = 0; p < kPairs; ++p)
+          z_slot[p * kThreads + tid] = (float)acc[b][p];
+    }
+  }
+
+  // ---- 4. epilogue: certificate AND gates, staged int8 hits, counts
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: it stages the hits
+  int8_t* hit_tile = reinterpret_cast<int8_t*>(ring);
+  uint64_t hm = 0;
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    const int lr = thread_row(tid, pair_ri(p));
+    const int lc = thread_col(tid, pair_ci(p));
+    if ((gm >> p) & 1) {
+      const float st = __fadd_rn(sv[p], tail);
+      const float esum = __fadd_rn(e_s[lr], e_s[kEdge + lc]);
       bool h;
       if (want_z) {
-        const float zz = z[i][j];
-        h = __fmul_rn(__fsub_rn(__fmul_rn(3.0f, sv), zz), esum) >=
+        const float zz = z_slot[p * kThreads + tid];
+        h = __fmul_rn(__fsub_rn(__fmul_rn(3.0f, st), zz), esum) >=
             __fsub_rn(two_m2, __fmul_rn(two_m, zz));
       } else {
-        h = __fmul_rn(__fmul_rn(3.0f, sv), esum) >= two_m2;
+        h = __fmul_rn(__fmul_rn(3.0f, st), esum) >= two_m2;
       }
-      bool g = (gi < gj) && (gj < n_real) && (ec > 0.0f);
-      if (use_cb) g = g && (er >= __fmul_rn(tau_cb, ec));
-      if (use_smh && g) {
-        bool band = false;
-        for (int b = 0; b < n_bands; ++b)
-          band |= fp[gi * n_bands + b] == fp[gj * n_bands + b];
-        g = band;
-      }
-      const int hit = (h && g) ? 1 : 0;
-      hits[((long long)t * ti + li) * ti + lj] = (int8_t)hit;
-      local += hit;
+      if (h) hm |= 1ull << p;
     }
+    hit_tile[lr * kHitStride + lc] = (int8_t)((hm >> p) & 1);
   }
+  __syncthreads();
+  const int chunks = n_cols / 16;
+  for (int c = tid; c < n_rows * chunks; c += kThreads) {
+    const int r = c / chunks, c16 = (c % chunks) * 16;
+    *reinterpret_cast<uint4*>(hits + ((long long)t * ti + lr0 + r) * ti +
+                              lc0 + c16) =
+        *reinterpret_cast<const uint4*>(hit_tile + r * kHitStride + c16);
+  }
+  int local = __popcll(hm);
   local = __reduce_add_sync(0xffffffffu, local);
-  if ((threadIdx.x & 31) == 0 && local) atomicAdd(&counts[t], local);
+  if (lane == 0 && local) atomicAdd(&counts[t], local);
 }
 
 }  // namespace
 
-// Launches both stages on `stream`; returns the cudaError_t of the launches.
-// `planes` is caller-allocated scratch of n_rows * nbins * (R/32) uint32 and
-// `counts` must be zeroed by the caller. Nothing is allocated here.
+// Launches the pack stage and the screen on `stream`; returns the
+// cudaError_t of the launches. `planes` is caller-allocated scratch of
+// n_rows * nbins * Wp uint32, Wp = max(R/32, 32) (ops/screen.plane_words),
+// and `counts` must be zeroed by the caller. Nothing is allocated here.
 extern "C" int csc_screen_fused(
     const void* regs, long long n_rows, int R, const void* thr,
     const void* weights, int nbins, float tail, int want_z, float two_m,
-    float two_m2, void* planes, const void* row_tiles,
+    float two_m2, void* planes, int Wp, const void* row_tiles,
     const void* col_tiles, int n_tiles, int ti, const void* e,
     float one_tau, const void* fp, int n_bands, int n_real, float tau_cb,
     int use_cb, int use_smh, void* hits, void* counts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int W = R / 32;
-  cudaError_t err = launch_pack_planes(regs, n_rows, R, thr, nbins, planes, st);
+  cudaError_t err =
+      launch_pack_planes(regs, n_rows, R, Wp, thr, nbins, planes, st);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(ti / kTile, ti / kTile, n_tiles);
-  screen_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const uint32_t*>(planes), nbins, W,
+  const int smem = kAtom + kRingBytes + (want_z ? kSlotBytes : 0);
+  err = cudaFuncSetAttribute(screen_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kAtom + kRingBytes + kSlotBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int nb = (ti + kEdge - 1) / kEdge;
+  dim3 grid(nb, nb, n_tiles);
+  screen_kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const uint32_t*>(planes), nbins, Wp,
       static_cast<const float*>(weights), tail, want_z, two_m, two_m2,
       static_cast<const int*>(row_tiles), static_cast<const int*>(col_tiles),
       ti, static_cast<const float*>(e), one_tau,

@@ -15,9 +15,9 @@
 //   Z     = CDF_0 (only with emit_z0, which the caller sets when v_0 == 0)
 // Outputs f32 S (T, ti, tj) and, with emit_z0, f32 Z (T, ti, tj).
 //
-// Design: K1's bit-plane pack stage (pack_planes.cuh) and POPC count
-// stage, with a raw S/Z epilogue instead of the certificate. A separate
-// column bank is packed into its own plane scratch. Counts are exact
+// Design: the bit-plane pack stage (pack_planes.cuh, shared with K1) and a
+// POPC count stage, with a raw S/Z epilogue instead of the certificate. A
+// separate column bank is packed into its own plane scratch. Counts are exact
 // integers, and the weights apply once per bin in ascending order with
 // _rn intrinsics (no FMA contraction), so S is bit-equal to the plain
 // version. The Pallas
@@ -36,7 +36,11 @@
 
 namespace {
 
-// K1's count stage. CDF_k of this thread's 4 x 4 pairs: cnt[i][j] =
+constexpr int kTile = 64;      // CTA tile edge (pairs per side)
+constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 pairs each
+constexpr int kChunk = 32;     // plane words per shared-memory stage
+
+// The POPC count stage. CDF_k of this thread's 4 x 4 pairs: cnt[i][j] =
 // sum_w popc(A & B) over the plane-k words of row row0 + ty + 16i (of
 // planes_a) and column col0 + tx + 16j (of planes_b). Every thread of the
 // CTA must call it.
@@ -146,12 +150,13 @@ extern "C" int csc_weighted_cdf_sum(
     int tj, void* s_out, void* z_out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int W = R / 32;
-  cudaError_t err = launch_pack_planes(regs, n_rows, R, thr, nbins, planes, st);
+  cudaError_t err =
+      launch_pack_planes(regs, n_rows, R, W, thr, nbins, planes, st);
   if (err != cudaSuccess) return (int)err;
   const void* pc = planes;
   if (regs_cols != nullptr) {
-    err = launch_pack_planes(regs_cols, n_cols, R, thr, nbins, planes_cols,
-                             st);
+    err = launch_pack_planes(regs_cols, n_cols, R, W, thr, nbins,
+                             planes_cols, st);
     if (err != cudaSuccess) return (int)err;
     pc = planes_cols;
   }

@@ -33,7 +33,7 @@ KERNELS = {
     "screen_fused": ("csc_screen_fused", [
         _P, _LL, _I, _P,         # regs, n_rows, R, thr
         _P, _I, _F, _I, _F, _F,  # weights, nbins, tail, want_z, 2m, 2m^2
-        _P, _P, _P, _I, _I,      # planes, row/col tiles, n_tiles, ti
+        _P, _I, _P, _P, _I, _I,  # planes, Wp, row/col tiles, n_tiles, ti
         _P, _F, _P, _I, _I, _F,  # e, one_tau, fp, n_bands, n_real, tau_cb
         _I, _I, _P, _P, _P,      # use_cb, use_smh, hits, counts, stream
     ]),

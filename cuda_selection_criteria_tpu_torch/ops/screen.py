@@ -288,14 +288,26 @@ def _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp, n_real,
     return hits, hits.sum((1, 2), dtype=torch.int32)
 
 
+K1_STAGE_WORDS = 32  # plane words of a row that one K1 pipeline stage holds
+
+
+def plane_words(p):
+    """uint32 words of one bit-plane of a row in K1's plane scratch: 2^p/32,
+    padded with zero words to one pipeline stage (1024 registers, four
+    256-register depths of its 1-bit mma) when p < 10."""
+    return max((1 << p) // 32, K1_STAGE_WORDS)
+
+
 def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
                       tau_cb, p, values, ti, n_bands, use_cb, use_smh):
     """Fused screen over a (row, col) tile list: (int8 hits (T, ti, ti),
     int32 counts (T,)).
 
     CPU tensors run _screen_hits_fused_plain. CUDA tensors launch the
-    hand-written kernel (csrc/screen_fused.cu) on the current stream or
-    raise; there is no fallback. Needs >= 2 present values.
+    hand-written kernel (csrc/screen_fused.cu: gates first, blocks with no
+    live pair skipped, CDF counts as 1-bit tensor-core mma over bit-planes
+    of plane_words(p) words) on the current stream or raise; there is no
+    fallback. Needs >= 2 present values.
 
     Args:
       regs: uint8 (N_pad, 2^p) sorted, padded register bank.
@@ -312,7 +324,6 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
                                         ti, n_bands, use_cb, use_smh)
     who = "screen_hits_fused"
     dev = regs.device
-    _check(who, dev.type == "cuda", f"unsupported device {dev}")
     values, weights, tail, want_z = telescope(p, values)
     r = 1 << p
     _check(who, len(values) >= 2, "needs >= 2 present values")
@@ -325,11 +336,13 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
     _check(who, fp.device == dev and fp.dtype == torch.int32
            and fp.shape == (regs.shape[0], n_bands) and fp.is_contiguous(),
            "fp must be contiguous int32 (N_pad, n_bands)")
+    _check(who, dev.type == "cuda", f"unsupported device {dev}")
 
     nbins = len(weights)
     thr = torch.tensor(values[:-1], dtype=torch.int32, device=dev)
     w = torch.tensor(np.asarray(weights, np.float32), device=dev)
-    planes = torch.empty((regs.shape[0], nbins, r // 32), dtype=torch.int32,
+    wp = plane_words(p)
+    planes = torch.empty((regs.shape[0], nbins, wp), dtype=torch.int32,
                          device=dev)
     hits = torch.empty((n_tiles, ti, ti), dtype=torch.int8, device=dev)
     counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
@@ -338,7 +351,7 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
     err = _build.library("screen_fused").csc_screen_fused(
         regs.data_ptr(), regs.shape[0], r, thr.data_ptr(), w.data_ptr(),
         nbins, float(tail), int(want_z), float(np.float32(2.0) * m_f),
-        float(np.float32(2.0) * m_f * m_f), planes.data_ptr(),
+        float(np.float32(2.0) * m_f * m_f), planes.data_ptr(), wp,
         row_tiles.data_ptr(), col_tiles.data_ptr(), n_tiles, ti,
         e.data_ptr(), float(one_tau), fp.data_ptr(), n_bands, int(n_real),
         float(np.float32(tau_cb)), int(use_cb), int(use_smh),

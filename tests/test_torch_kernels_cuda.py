@@ -49,10 +49,11 @@ def _inputs(seed, lo, hi, n, p, n_bands=4):
 
 
 def _compare(dev, regs, e, fp, rows, cols, vals, p, ti, use_cb, use_smh,
-             tau_scr=0.4, tau_cb=0.35):
+             tau_scr=0.4, tau_cb=0.35, n_real=None):
     args = [torch.from_numpy(np.asarray(x)).to(dev)
             for x in (regs, rows, cols, e, fp)]
-    kw = dict(n_real=regs.shape[0] - 5, tau_scr=tau_scr, tau_cb=tau_cb, p=p,
+    n_real = regs.shape[0] - 5 if n_real is None else n_real
+    kw = dict(n_real=n_real, tau_scr=tau_scr, tau_cb=tau_cb, p=p,
               values=vals, ti=ti, n_bands=fp.shape[1], use_cb=use_cb,
               use_smh=use_smh)
     before = screen.screen_hits_fused.launches
@@ -96,6 +97,83 @@ def test_kernel_matches_plain_multi_cta_truncated(cuda, ti):
     hits = _compare(cuda, regs, e, fp, rows.astype(np.int32),
                     cols.astype(np.int32), vals, 10, ti, True, False,
                     tau_scr=0.1, tau_cb=0.05)
+    assert hits > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 6, 14, 16])
+@pytest.mark.parametrize("use_smh", [True, False])
+def test_kernel_matches_plain_p(cuda, p, use_smh):
+    """Register counts below one pipeline stage of 1024 (p = 5, 6: planes
+    padded with zero words) and above it (p = 14, 16), 11 bins (more than
+    one group), ti = 64 and 128."""
+    regs, e, fp = _inputs(40 + p, 0, 12, 256, p)
+    vals = screen.bank_values(regs)
+    assert len(vals) - 1 > 2
+    for ti, rows, cols in ((64, [0, 0, 1, 3], [0, 2, 1, 3]),
+                           (128, [0, 0, 1], [0, 1, 1])):
+        _compare(cuda, regs, e, fp, np.array(rows, np.int32),
+                 np.array(cols, np.int32), vals, p, ti, True, use_smh,
+                 tau_scr=0.9, tau_cb=0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nbins", [1, 2, 3, 5, 8])
+def test_kernel_matches_plain_bin_groups(cuda, nbins):
+    """1 to 8 bins, odd and even, with and without zero registers: the
+    bin loop, the S folds and the Z of bin 0."""
+    for lo in (0, 1):
+        regs, e, fp = _inputs(60 + nbins + lo, lo, lo + nbins + 1, 256, 9)
+        vals = screen.bank_values(regs)
+        assert len(vals) - 1 == nbins
+        _compare(cuda, regs, e, fp, np.array([0, 0, 1, 1], np.int32),
+                 np.array([0, 1, 1, 3], np.int32), vals, 9, 64, False, False,
+                 tau_scr=0.9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["below_diagonal", "n_real_0", "cb"])
+def test_kernel_all_blocks_skipped(cuda, case):
+    """A launch in which no pair passes its gates: every block takes the
+    skip, hits all zero, counts zero, equal to the plain version."""
+    regs, e, fp = _inputs(71, 0, 12, 512, 8)
+    if case == "cb":
+        e = np.where(np.arange(512) < 128, 1.0, 4000.0).astype(np.float32)
+    rows, cols = {"below_diagonal": ([1, 3, 2], [0, 1, 0]),
+                  "n_real_0": ([0, 0, 1], [0, 1, 1]),
+                  "cb": ([0], [1])}[case]
+    hits = _compare(cuda, regs, e, fp, np.array(rows, np.int32),
+                    np.array(cols, np.int32), screen.bank_values(regs), 8,
+                    128, True, False, tau_scr=0.9, tau_cb=0.5,
+                    n_real=0 if case == "n_real_0" else None)
+    assert hits == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ti,rows,cols", [(64, [0], [1]), (128, [0], [0]),
+                                          (64, [0, 1], [1, 0])])
+def test_kernel_one_live_pair_at_block_corner(cuda, ti, rows, cols):
+    """Gates that pass in exactly one pair, (i, j) = (63, 64): the corner
+    of a 64-edge block, and inside one 128-edge block."""
+    regs, e, fp = _inputs(83, 0, 12, 256, 8)
+    e[:] = 1.0e6
+    fp = np.arange(256 * 4, dtype=np.int32).reshape(256, 4)
+    fp[64, 2] = fp[63, 2]
+    regs[64] = regs[63]
+    hits = _compare(cuda, regs, e, fp, np.array(rows, np.int32),
+                    np.array(cols, np.int32), screen.bank_values(regs), 8, ti,
+                    False, True, tau_scr=0.9)
+    assert hits == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_real", [37, 100, 130, 200])
+def test_kernel_n_real_inside_a_block(cuda, n_real):
+    regs, e, fp = _inputs(90 + n_real, 0, 12, 256, 8)
+    e[:] = 1.0e6
+    hits = _compare(cuda, regs, e, fp, np.array([0, 0, 1], np.int32),
+                    np.array([0, 1, 1], np.int32), screen.bank_values(regs), 8,
+                    128, True, False, tau_scr=0.9, n_real=n_real)
     assert hits > 0
 
 

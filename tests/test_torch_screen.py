@@ -174,6 +174,16 @@ def test_wrapper_rejects_unsupported_inputs():
     a meta tensor reaches them on a machine without a card."""
     regs = torch.zeros((128, 256), dtype=torch.uint8, device="meta")
     tiles = torch.zeros(1, dtype=torch.int32, device="meta")
+    e = torch.zeros(128, device="meta")
+    fp = torch.zeros((128, 1), dtype=torch.int32, device="meta")
+    # argument checks come before the device check (all of them:
+    # tests/test_torch_k1_skip.py)
+    with pytest.raises(ValueError, match="uint8"):
+        screen.screen_hits_fused(regs.to(torch.int32), tiles, tiles, e, fp,
+                                 128, 0.1, 0.1, 8, (0, 1), 64, 1, True, False)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        screen.screen_hits_fused(regs, tiles, tiles, e, fp, 128, 0.1, 0.1, 8,
+                                 (0, 1), 96, 1, True, False)
     with pytest.raises(ValueError, match="unsupported device"):
         screen.screen_hits_fused(
             regs, tiles, tiles, torch.zeros(128, device="meta"),
