@@ -8,7 +8,8 @@ reference bench's bank size.
 
 Phases (any failure exits non-zero, without the final result line):
   1. device   - card name and power limit, torch / CUDA / nvcc versions
-  2. build    - nvcc builds every csrc/*.cu for sm_90a, all at once
+  2. build    - nvcc builds every csrc/*.cu for sm_90a, all at once; the
+                ptxas log must show no spill and no serialized wgmma
   3. kernel   - K1 vs its plain version, bit-equal hits and counts: p=8
                 (ti=64, every gate combination, with and without zero
                 registers, n_real < n, a truncated value list); planes
@@ -22,8 +23,12 @@ Phases (any failure exits non-zero, without the final result line):
                 counting the same CDFs. K2 vs its plain version, bit-equal
                 S and Z: p_aux = 5, 6, 8 (ti=64, tj=64 and 128, a separate
                 column bank, with and without zeros, a truncated value
-                list) and p_aux=8, ti=1024 on the first 64 tiles of the
-                hll bench bank; K2, plain, bound and torch._int_mm there
+                list); p = 5, 7, 8, 9, 10, 14 with 1, 2, 3, 5 and 13 bins
+                at ti=192, tj=64 (one, two, four and many mma depths a bin,
+                a part-filled last stage, blocks past the tile edge), with
+                a column bank of another row count and without zeros; and
+                p_aux=8, ti=1024 on the first 64 tiles of the hll bench
+                bank; K2, plain, bound and torch._int_mm there
   4. cli      - planted .hll/.smh32/.hll_8 files for N=2048 genomes; the
                 selection CLI's lines for smh_a, cb, baseline, hll_a and
                 hll_an must equal the exact host reference's
@@ -81,7 +86,8 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
                      "b1 wgmma.mma_async m64n128k256 .and.popc"),
     "weighted_cdf_sum": (f"{PKG}/csrc/weighted_cdf_sum.cu",
                          "cuda_selection_criteria_tpu/ops/screen.py:99",
-                         "popc on the CUDA cores"),
+                         "b1 wgmma.mma_async m64n128k256 .and.popc, the "
+                         "bins' mma depths four a pipeline stage"),
 }
 # Rates for the bounds. Register comparisons (one bin of one register of one
 # pair) a second of wgmma.mma_async m64n128k256 .b1 .and.popc, the fastest
@@ -340,6 +346,40 @@ def phase_k2_small(torch, screen, dev):
                   f"max_abs_err={err}")
             check(err == 0, f"K2 p={p} kernel != plain")
             worst = max(worst, err)
+    return worst
+
+
+def phase_k2_edges(torch, screen, dev):
+    """K2 against its plain version where its walk over the mma depths has
+    edges: a plane padded to one depth (p < 8), one, two and four depths a
+    bin (p = 8, 9, 10), a bin of many stages (p = 14); bin counts that
+    leave the last stage part-filled; ti = 192 and tj = 64 (odd multiples
+    of 64: blocks reach past the tile edge); a column bank with another row
+    count; 0 absent (no Z); a tile listed twice."""
+    worst = 0.0
+    rows = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=dev)
+    ctl = torch.tensor([0, 4, 4, 3], dtype=torch.int32, device=dev)
+    for p in (5, 7, 8, 9, 10, 14):
+        for nbins in (1, 2, 3, 5, 13):
+            for lo, sep_cols in ((0, nbins % 2 == 1), (2, nbins % 2 == 0)):
+                rng = np.random.default_rng(1000 * p + 10 * nbins + lo)
+                regs = rng.integers(lo, lo + nbins + 1, size=(384, 1 << p),
+                                    dtype=np.uint8)
+                cols = (rng.integers(lo, lo + nbins + 1, size=(320, 1 << p),
+                                     dtype=np.uint8) if sep_cols else None)
+                vals = screen.bank_values(
+                    regs if cols is None else np.concatenate([regs, cols]))
+                check(len(vals) == nbins + 1, f"K2 p={p}: {vals} present")
+                kw = dict(p=p, values=vals, ti=192, tj=64, regs_cols=(
+                    None if cols is None else torch.from_numpy(cols).to(dev)))
+                err = k2_vs_plain(torch, screen, [
+                    torch.from_numpy(regs).to(dev), rows, ctl], kw)
+                print(f"  K2 p={p} ti=192 tj=64 bins={nbins} "
+                      f"regs_cols={sep_cols} zeros={lo == 0} "
+                      f"row_words={screen.plane_row_words(p, nbins)}: "
+                      f"max_abs_err={err}")
+                check(err == 0, f"K2 p={p} bins={nbins} kernel != plain")
+                worst = max(worst, err)
     return worst
 
 
@@ -783,6 +823,11 @@ def main():
     for name, (path, build_secs, log) in _build.build().items():
         print(log.strip())
         print(f"built {os.path.relpath(path, HERE)} in {build_secs:.2f} s")
+        spills = [ln for ln in log.splitlines() if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        check(not spills, f"{name}: ptxas spills registers: {spills}")
+        check("serialized" not in log,
+              f"{name}: ptxas serializes the wgmma (see the log above)")
         _build.library(name)
 
     print("== phase 3: kernel vs plain", flush=True)
@@ -825,7 +870,8 @@ def main():
     max_err = max(max_err, k1["dense"]["max_abs_err"],
                   k1["gated"]["max_abs_err"])
 
-    k2_err = phase_k2_small(torch, screen, dev)
+    k2_err = max(phase_k2_small(torch, screen, dev),
+                 phase_k2_edges(torch, screen, dev))
     k2_args = [hplan.d_aux_regs, hr64, hc64]
     k2_kw = dict(p=8, values=hplan.values_aux, ti=1024, tj=1024)
     err = k2_vs_plain(torch, screen, k2_args, k2_kw)
@@ -836,7 +882,7 @@ def main():
     k2_err = max(k2_err, err)
     k2_plain_ms = cuda_ms(torch, lambda: screen._screen_s_z_plain(
         *k2_args, **k2_kw), 2)
-    k2_ms = cuda_ms(torch, lambda: screen.screen_s_z(*k2_args, **k2_kw), 5)
+    k2_ms = cuda_ms(torch, lambda: screen.screen_s_z(*k2_args, **k2_kw), 10)
     # f32 S (and Z when 0 is present) written once, 2^p_aux a distinct row
     n_ids = int(torch.unique(torch.cat([hr64, hc64])).numel())
     out_bytes = 8 if hplan.values_aux[0] == 0 else 4
@@ -846,9 +892,11 @@ def main():
         / HBM_BYTES_PER_S)
     k2_library_ms = int_mm_ms(torch, hplan.d_aux_regs, hr64, hc64,
                               hplan.values_aux, 1024, 1024)
+    k2_ms2 = cuda_ms(torch, lambda: screen.screen_s_z(*k2_args, **k2_kw), 10)
     hll_chunk_ms = cuda_ms(torch, lambda: hplan.screen_chunk(
         hr[:chunk], hc[:chunk]), 3)
-    print(f"  [{card}] K2 {k2_ms:.3f} ms / plain {k2_plain_ms:.3f} ms per "
+    print(f"  [{card}] K2 {k2_ms:.3f} / {k2_ms2:.3f} ms (two turns) vs plain "
+          f"{k2_plain_ms:.3f} ms per "
           f"launch of {chunk} tiles at p_aux=8; bound {k2_bound_ms:.3f} ms "
           f"({k2_bound_by}), share of the bound {k2_bound_ms / k2_ms:.3f}; "
           f"library (torch._int_mm, {k2_bins} x {chunk} calls) "

@@ -5,10 +5,11 @@
 // bank row into K-1 bit-planes of R/32 uint32 words (bit r of plane k =
 // [reg_r <= v_k]), and each kernel's count stage gets CDF_k of a pair from
 // AND + POPC of the two rows' planes: an exact integer whatever the
-// summation order. K2 counts with __popc on the CUDA cores; K1 with the
-// tensor cores' 1-bit wgmma, 32 plane words a pipeline stage, so its planes
-// are stored in Wp >= R/32 words, the words past R/32 zero (zero words AND
-// to nothing).
+// summation order. Both kernels count with the tensor cores' 1-bit wgmma
+// (wgmma_b1.cuh), 8 plane words an mma depth and 32 a pipeline stage, so a
+// plane is stored in Wp >= R/32 words, the words past R/32 zero (zero words
+// AND to nothing). K1 pads each plane to a whole stage; K2 pads a plane to
+// one depth and the whole row of planes to a whole stage (row_words).
 
 #pragma once
 
@@ -17,19 +18,24 @@
 
 namespace {
 
-// planes[(n * nbins + k) * Wp + w], bit t = [regs[n, 32w + t] <= thr[k]]
-// for w < R/32, and 0 for R/32 <= w < Wp.
+// planes[n * row_words + k * Wp + w], bit t = [regs[n, 32w + t] <= thr[k]]
+// for w < R/32, and 0 for R/32 <= w < Wp; the row's words from nbins * Wp
+// to row_words are 0 too.
 __global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
                                    long long n_rows, int R, int Wp,
                                    const int* __restrict__ thr, int nbins,
+                                   long long row_words,
                                    uint32_t* __restrict__ planes) {
   const int W = R / 32;
   long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n_rows * Wp) return;
   long long n = gid / Wp;
   int w = (int)(gid % Wp);
+  uint32_t* row = planes + n * row_words;
+  for (long long x = (long long)nbins * Wp + w; x < row_words; x += Wp)
+    row[x] = 0u;
   if (w >= W) {
-    for (int k = 0; k < nbins; ++k) planes[(n * nbins + k) * Wp + w] = 0u;
+    for (int k = 0; k < nbins; ++k) row[k * Wp + w] = 0u;
     return;
   }
   const uint4* src = reinterpret_cast<const uint4*>(regs + n * R + w * 32);
@@ -52,22 +58,26 @@ __global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
       const uint32_t y = (lt >> 7) & 0x01010101u;
       bits |= ((y * 0x01020408u) >> 24) << (4 * q);
     }
-    planes[(n * nbins + k) * Wp + w] = bits;
+    row[k * Wp + w] = bits;
   }
 }
 
 // Packs the nbins bit-planes of an (n_rows, R) uint8 bank (16-byte
 // aligned, R a multiple of 32) into caller-allocated `planes` of
-// n_rows * nbins * Wp words, Wp >= R/32.
+// n_rows * row_words words, Wp >= R/32, row_words >= nbins * Wp (0 stands
+// for nbins * Wp: the planes of a row end where the next row's begin).
 inline cudaError_t launch_pack_planes(const void* regs, long long n_rows,
                                       int R, int Wp, const void* thr,
                                       int nbins, void* planes,
-                                      cudaStream_t st) {
+                                      cudaStream_t st,
+                                      long long row_words = 0) {
+  if (row_words == 0) row_words = (long long)nbins * Wp;
   const long long total = n_rows * Wp;
   const unsigned blocks = (unsigned)((total + 255) / 256);
   pack_planes_kernel<<<blocks, 256, 0, st>>>(
       static_cast<const uint8_t*>(regs), n_rows, R, Wp,
-      static_cast<const int*>(thr), nbins, static_cast<uint32_t*>(planes));
+      static_cast<const int*>(thr), nbins, row_words,
+      static_cast<uint32_t*>(planes));
   return cudaGetLastError();
 }
 

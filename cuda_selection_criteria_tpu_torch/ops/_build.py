@@ -40,7 +40,7 @@ KERNELS = {
     "weighted_cdf_sum": ("csc_weighted_cdf_sum", [
         _P, _LL, _P, _LL, _I,    # regs, n_rows, regs_cols, n_cols, R
         _P, _P, _I, _F, _I,      # thr, weights, nbins, tail, emit_z0
-        _P, _P, _P, _P,          # planes, planes_cols, row/col tiles
+        _P, _P, _I, _P, _P,      # planes, planes_cols, row_words, tiles
         _I, _I, _I, _P, _P, _P,  # n_tiles, ti, tj, s, z, stream
     ]),
 }

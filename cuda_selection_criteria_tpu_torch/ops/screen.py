@@ -16,6 +16,8 @@ on CPU tensors; each plain version is also its kernel's reference on the
 card.
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -99,6 +101,16 @@ def _check(who, cond, msg):
         raise ValueError(f"{who}: {msg}")
 
 
+@functools.lru_cache(maxsize=64)
+def _device_telescope(device, p, values):
+    """(int32 thresholds, f32 weights) of telescope(p, values) as tensors on
+    `device`, kept per (device, p, values): K1 and K2 read them at every
+    launch, and a host-to-device copy of a few bytes stalls the stream."""
+    values, weights, _, _ = telescope(p, values)
+    return (torch.tensor(values[:-1], dtype=torch.int32, device=device),
+            torch.tensor(np.asarray(weights, np.float32), device=device))
+
+
 def _constant_s_z(n_tiles, p, tail, want_z, ti, tj, device):
     """S and Z of a bank with a single present value: constants."""
     shape = (n_tiles, ti, tj)
@@ -160,8 +172,10 @@ def screen_s_z(regs, row_tiles, col_tiles, p, values, ti=512, tj=512,
 
     A single present value makes S and Z constants (no kernel). Otherwise
     CPU tensors run _screen_s_z_plain, and CUDA tensors launch the
-    hand-written kernel K2 (csrc/weighted_cdf_sum.cu) on the current stream
-    or raise; there is no fallback.
+    hand-written kernel K2 (csrc/weighted_cdf_sum.cu: CDF counts as 1-bit
+    tensor-core mma over bit-plane rows of plane_row_words(p, nbins) words,
+    folded into S bin by bin) on the current stream or raise; there is no
+    fallback.
 
     Args:
       regs: uint8 (N_pad, 2^p) row bank; row_tiles index it in units of ti.
@@ -181,7 +195,6 @@ def screen_s_z(regs, row_tiles, col_tiles, p, values, ti=512, tj=512,
                                  tj, regs_cols)
     who = "screen_s_z"
     dev = regs.device
-    _check(who, dev.type == "cuda", f"unsupported device {dev}")
     _check(who, 0 <= values[0] and values[-1] <= 255, "values outside uint8")
     r = 1 << p
     _check_bank(who, regs, dev, r, ti, "regs")
@@ -191,14 +204,15 @@ def screen_s_z(regs, row_tiles, col_tiles, p, values, ti=512, tj=512,
         _check(who, tj % 64 == 0 and regs.shape[0] % tj == 0,
                "tj must be a multiple of 64 dividing N_pad")
     n_tiles = _check_tiles(who, row_tiles, col_tiles, dev)
+    _check(who, dev.type == "cuda", f"unsupported device {dev}")
 
     nbins = len(weights)
-    thr = torch.tensor(values[:-1], dtype=torch.int32, device=dev)
-    w = torch.tensor(np.asarray(weights, np.float32), device=dev)
-    planes = torch.empty((regs.shape[0], nbins, r // 32), dtype=torch.int32,
+    thr, w = _device_telescope(dev, p, values)
+    row_words = plane_row_words(p, nbins)
+    planes = torch.empty((regs.shape[0], row_words), dtype=torch.int32,
                          device=dev)
     planes_c = (None if regs_cols is None else
-                torch.empty((regs_cols.shape[0], nbins, r // 32),
+                torch.empty((regs_cols.shape[0], row_words),
                             dtype=torch.int32, device=dev))
     s = torch.empty((n_tiles, ti, tj), dtype=torch.float32, device=dev)
     z = torch.empty_like(s) if want_z else None
@@ -207,7 +221,7 @@ def screen_s_z(regs, row_tiles, col_tiles, p, values, ti=512, tj=512,
         None if regs_cols is None else regs_cols.data_ptr(),
         0 if regs_cols is None else regs_cols.shape[0], r, thr.data_ptr(),
         w.data_ptr(), nbins, float(tail), int(want_z), planes.data_ptr(),
-        None if planes_c is None else planes_c.data_ptr(),
+        None if planes_c is None else planes_c.data_ptr(), row_words,
         row_tiles.data_ptr(), col_tiles.data_ptr(), n_tiles, ti, tj,
         s.data_ptr(), None if z is None else z.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
@@ -288,7 +302,8 @@ def _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp, n_real,
     return hits, hits.sum((1, 2), dtype=torch.int32)
 
 
-K1_STAGE_WORDS = 32  # plane words of a row that one K1 pipeline stage holds
+K1_STAGE_WORDS = 32  # plane words of a row that one pipeline stage holds
+MMA_DEPTH_WORDS = 8  # plane words (256 registers) of one 1-bit mma depth
 
 
 def plane_words(p):
@@ -296,6 +311,16 @@ def plane_words(p):
     padded with zero words to one pipeline stage (1024 registers, four
     256-register depths of its 1-bit mma) when p < 10."""
     return max((1 << p) // 32, K1_STAGE_WORDS)
+
+
+def plane_row_words(p, nbins):
+    """uint32 words of one row of K2's plane scratch: its nbins bit-planes
+    one after the other, each 2^p/32 words padded with zero words to one
+    mma depth (256 registers) when p < 8, and the whole row padded with zero
+    words to whole pipeline stages of 32 words. K2 walks the row four mma
+    depths a stage; depth d belongs to bin d // (plane words / 8)."""
+    w = max((1 << p) // 32, MMA_DEPTH_WORDS)
+    return -(-nbins * w // K1_STAGE_WORDS) * K1_STAGE_WORDS
 
 
 def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
@@ -339,8 +364,7 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
     _check(who, dev.type == "cuda", f"unsupported device {dev}")
 
     nbins = len(weights)
-    thr = torch.tensor(values[:-1], dtype=torch.int32, device=dev)
-    w = torch.tensor(np.asarray(weights, np.float32), device=dev)
+    thr, w = _device_telescope(dev, p, values)
     wp = plane_words(p)
     planes = torch.empty((regs.shape[0], nbins, wp), dtype=torch.int32,
                          device=dev)

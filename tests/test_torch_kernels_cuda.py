@@ -238,7 +238,7 @@ def _k2_compare(dev, regs, rows, cols, vals, p, ti, tj, regs_cols=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [5, 6, 8, 14])
+@pytest.mark.parametrize("p", [5, 6, 7, 8, 9, 10, 14])
 @pytest.mark.parametrize("case", ["zeros", "no_zeros", "truncated",
                                   "regs_cols"])
 def test_k2_matches_plain(cuda, p, case):
@@ -258,6 +258,32 @@ def test_k2_matches_plain(cuda, p, case):
     _k2_compare(cuda, regs, np.array([0, 2, 1, 3, 2], np.int32),
                 np.array([0, 1, 0, 2 if regs_cols is not None else 1, 0],
                          np.int32), vals, p, 64, 128, regs_cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [5, 7, 8, 9, 10, 14])
+@pytest.mark.parametrize("nbins", [1, 2, 3, 5, 13])
+@pytest.mark.parametrize("zeros", [True, False])
+@pytest.mark.parametrize("sep_cols", [True, False])
+def test_k2_matches_plain_bins_and_depths(cuda, p, nbins, zeros, sep_cols):
+    """K2 where its walk over the mma depths has edges: a plane padded to
+    one depth (p < 8), one, two and four depths a bin (p = 8, 9, 10), a bin
+    of many stages (p = 14); bin counts that leave the last stage part
+    filled; ti = 192 and tj = 64 (odd multiples of 64, so blocks reach past
+    the tile edge); a column bank with another row count; 0 absent (no Z);
+    a tile listed twice."""
+    lo = 0 if zeros else 2
+    rng = np.random.default_rng(1000 * p + 10 * nbins + zeros)
+    regs = rng.integers(lo, lo + nbins + 1, size=(384, 1 << p),
+                        dtype=np.uint8)
+    regs_cols = (rng.integers(lo, lo + nbins + 1, size=(320, 1 << p),
+                              dtype=np.uint8) if sep_cols else None)
+    vals = screen.bank_values(regs if regs_cols is None
+                              else np.concatenate([regs, regs_cols]))
+    assert len(vals) == nbins + 1
+    _k2_compare(cuda, regs, np.array([0, 1, 1, 0], np.int32),
+                np.array([0, 4, 4, 3], np.int32), vals, p, 192, 64,
+                regs_cols)
 
 
 @pytest.mark.cuda
