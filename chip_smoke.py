@@ -58,6 +58,19 @@ Phases (any failure exits non-zero, without the final result line):
                 emitted, no 0.02 copy emitted, K1 and K2 launched);
                 time_smh -m 32 rows well-formed, K1 launched in its
                 smh_a_kernel row
+  8. dense    - the dense exact engine (indicator products and the
+                ERTL-MLE as torch ops; no hand-written kernel): the
+                selection CLI with --engine dense on phase 4's files for
+                smh_a (--precision bf16 and int8), smh_only, cb, baseline,
+                hll_a and hll_an equal to the host reference and the
+                screened engine's lines; select_pairs(engine="dense") on
+                the phase 5 and 6 banks (smh_a, hll_a) with the checks of
+                phase 5, its wall and per-tile split (products, MLE)
+                beside the screened engine's wall; the card's f64 MLE in
+                ulp from hostref.ertl_mle_batch and the f32 MLE's relative
+                error; a checkpointed screened sweep cut to two records
+                and a torn line resumes to the same pairs with fewer K1
+                launches
 
 The last two lines are a JSON record of the kernels (launches on the main
 paths, times, bounds, library times) and the result line
@@ -383,6 +396,18 @@ def phase_k2_edges(torch, screen, dev):
     return worst
 
 
+def oracle_all_pairs(oracle, n, threads=8):
+    """PairOracle.confirm_pairs over every i<k pair of n sorted rows, in
+    slices over a thread pool (numpy releases the interpreter lock in most
+    of the union histograms and the MLE): [(i, k, jacc)] in pair order."""
+    ii, kk = np.triu_indices(n, 1)
+    step = -(-len(ii) // (4 * threads))
+    with ThreadPoolExecutor(threads) as pool:
+        parts = pool.map(lambda c: oracle.confirm_pairs(
+            zip(ii[c:c + step], kk[c:c + step])), range(0, len(ii), step))
+        return [x for part in parts for x in part]
+
+
 def bench_bank(models, synth, n, rng, n_dups):
     """The reference bench's headline bank (bench.py:86-149): n genomes of
     2048 hashes at p=14, m=32 uniform SMH buckets, plus planted pairs."""
@@ -593,10 +618,11 @@ def device_profile(torch, fn, card, label, top=10):
     """One torch.profiler trace of fn() (warm: the caller has run it
     before): wall, device busy time, the device's idle share and the top
     device items."""
+    from cuda_selection_criteria_tpu_torch.utils.profiling import (
+        device_trace)
+
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_trace() as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -780,6 +806,179 @@ def phase_fasta(torch, dev, card, corpus_kw):
     return launches, build_err
 
 
+def cli_lines(cli, argv):
+    """The selection CLI's output lines and its wall seconds."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"selection {' '.join(argv[4:])} exit {rc}")
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_dense_cli(models, cli, hostref, format_results, names, lst, ref4,
+                    dev, card):
+    """Phase 8, step 1: the selection CLI with --engine dense on phase 4's
+    N=2048 files for every criterion, against the host reference lines
+    (phase 4's, and for smh_only the vectorized oracle over all pairs) and
+    the screened engine's lines (phase 4 held them equal to the same
+    reference; smh_only runs here)."""
+    base = ["-l", lst, "-a", "256", "-h", "0.9", "--device", str(dev)]
+    fbank = models.SketchBank.from_sketch_files(names, criterion="smh_a")
+    order = fbank.sorted_by_cardinality()
+    oracle = hostref.PairOracle(
+        14, fbank.regs[order], np.trunc(fbank.cards[order]),
+        aux=fbank.aux[order], aux_param=32, criterion="smh_only", tau=0.9,
+        apply_cb=False)
+    ref4["smh_only"] = format_results(
+        [(names[order[i]], names[order[k]], j)
+         for i, k, j in oracle_all_pairs(oracle, len(names))])
+    got, _ = cli_lines(cli, base + ["-c", "smh_only", "--engine",
+                                    "screened"])
+    check(got == ref4["smh_only"], "screened -c smh_only differs from the "
+          "host reference")
+    for crit, precision in (("smh_a", "bf16"), ("smh_a", "int8"),
+                            ("smh_only", "bf16"), ("cb", "bf16"),
+                            ("baseline", "bf16"), ("hll_a", "bf16"),
+                            ("hll_an", "bf16")):
+        got, secs = cli_lines(cli, base + [
+            "-c", crit, "--engine", "dense", "--precision", precision])
+        print(f"  [{card}] --engine dense --precision {precision} -c {crit}:"
+              f" {len(got)} lines in {secs:.2f} s, equal to the host "
+              f"reference and the screened engine: {got == ref4[crit]}")
+        check(got == ref4[crit], f"dense -c {crit} ({precision}) differs "
+              "from the host reference")
+
+
+def phase_dense_main(torch, mods, bank, picks, crit, dev, card):
+    """Phase 8, step 2: select_pairs(engine="dense") on a phase 5 / 6 bank
+    with the checks of phase 5; wall and stage split beside the screened
+    engine's warm wall on the same bank, and one tile's parts timed alone
+    (CUDA events): the union histograms on both routes, the MLE, and for
+    hll_a the aux union and aux MLE at p_aux."""
+    screen, pairwise, estimators = mods["screen"], mods["pairwise"], \
+        mods["estimators"]
+    params = mods["SelectionParams"](tau=0.9, criterion=crit, engine="dense")
+    screen.screen_hits_fused.launches = 0
+    screen.screen_s_z.launches = 0
+    torch.cuda.synchronize()
+    stats = {}
+    t0 = time.perf_counter()
+    out = mods["select_pairs"](bank, params, device=dev, stats=stats)
+    wall = time.perf_counter() - t0
+    k_launches = (screen.screen_hits_fused.launches,
+                  screen.screen_s_z.launches)
+    verify_pairs(mods["hostref"], bank, [(i, i + 1) for i in picks], out,
+                 crit)
+    sparams = mods["SelectionParams"](tau=0.9, criterion=crit)
+    mods["select_pairs"](bank, sparams, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_out = mods["select_pairs"](bank, sparams, device=dev)
+    s_wall = time.perf_counter() - t0
+    check(out == s_out, f"dense -c {crit} != screened at N={bank.n}")
+    tile_ms = stats["tile_secs"] / stats["tiles"] * 1e3
+    print(f"  [{card}] select_pairs -c {crit} --engine dense N={bank.n}: "
+          f"wall {wall:.3f} s (plan {stats['plan_secs']:.3f} s, tiles "
+          f"{stats['tile_secs']:.3f} s, confirm {stats['confirm_secs']:.3f}"
+          f" s); {stats['tiles']} tiles of 512 x 512, {tile_ms:.3f} ms a "
+          f"tile; {stats['candidates']} candidates, {len(out)} pairs, equal "
+          f"to the screened engine's (warm wall {s_wall:.3f} s, "
+          f"{wall / s_wall:.1f}x); K1 / K2 launches {k_launches}")
+
+    order = bank.sorted_by_cardinality()
+    rows = torch.from_numpy(bank.regs[order[:1024]]).to(dev)
+    ra, rb = rows[:512], rows[512:]
+    split = {}
+    for precision in ("bf16", "int8"):
+        split[f"union_{precision}"] = cuda_ms(
+            torch, lambda: pairwise.union_histograms(ra, rb, 14, precision),
+            3)
+    h32 = pairwise.union_histograms(ra, rb, 14)
+    check(torch.equal(h32, pairwise.union_histograms(ra, rb, 14, "int8")),
+          "union histograms: the int8 and f32 routes differ")
+    split["mle"] = cuda_ms(torch, lambda: estimators.ertl_mle(
+        h32, 14, dtype=torch.float32), 3)
+    if crit.startswith("hll"):
+        aux = torch.from_numpy(bank.aux[order[:1024]]).to(dev)
+        split["aux_union"] = cuda_ms(torch, lambda: pairwise.union_histograms(
+            aux[:512], aux[512:], bank.aux_param), 3)
+        ha = pairwise.union_histograms(aux[:512], aux[512:], bank.aux_param)
+        split["aux_mle"] = cuda_ms(torch, lambda: estimators.ertl_mle(
+            ha, bank.aux_param, dtype=torch.float32), 3)
+    parts = ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+    alone = sum(v for k, v in split.items() if k != "union_int8")
+    print(f"  [{card}] one 512 x 512 tile's parts alone: {parts}; the parts "
+          f"the engine runs sum to {alone:.3f} ms, against {tile_ms:.3f} ms "
+          f"a tile in the engine's run")
+    return dict(wall=wall, screened_wall=s_wall, tile_ms=tile_ms, **split)
+
+
+def phase_dense_mle(torch, estimators, hostref, banks, dev, card):
+    """Phase 8, step 3: the card's f64 ERTL-MLE against the host oracle's
+    (hostref.ertl_mle_batch) over 2^16 pair-union histograms at p=14 from
+    the given banks, in ulp, and the f32 MLE's largest relative error;
+    then 4096 histograms whose secant start takes the log1p branch."""
+    rng = np.random.default_rng(0x3E7)
+    per = (1 << 16) // len(banks)
+    hists = np.concatenate([hostref.pair_union_histograms_np(
+        regs, *rng.integers(0, len(regs), size=(2, per))) for regs in banks])
+    q, m = 50, 1 << 14
+    deg = np.zeros((4096, 64), np.int64)
+    deg[:, q] = rng.integers(1, m // 3, 4096)
+    deg[:, q - 1] = rng.integers(0, 3, 4096)
+    deg[:, q + 1] = m - deg[:, q] - deg[:, q - 1]
+    res = {}
+    for label, h in (("pair unions", hists), ("log1p branch", deg)):
+        want = hostref.ertl_mle_batch(h, 14)
+        d = torch.from_numpy(h).to(dev)
+        got = estimators.ertl_mle(d, 14).cpu().numpy()
+        f32 = estimators.ertl_mle(d, 14, dtype=torch.float32).cpu().numpy()
+        ulps = np.where(got == want, 0,
+                        np.abs(got.view(np.int64) - want.view(np.int64)))
+        fin = np.isfinite(want) & (want > 0)
+        rel = float(np.abs(f32[fin] / want[fin] - 1.0).max())
+        print(f"  [{card}] f64 ertl_mle on the card vs ertl_mle_batch, "
+              f"{len(h)} {label} histograms: max {int(ulps.max())} ulp, "
+              f"{int((ulps > 0).sum())} differ; f32 ertl_mle largest "
+              f"relative error {rel:.3g} (screen_margin 1e-4)")
+        check(rel <= 1e-5, f"f32 MLE error {rel} above 1e-5")
+        res[label] = (int(ulps.max()), rel)
+    check(res["pair unions"][0] <= 2, "the card's f64 MLE is more than 2 ulp "
+          "from the host oracle's on pair unions")
+    check(res["log1p branch"][0] <= 4, "the card's f64 MLE is more than 4 "
+          "ulp from the host oracle's on the log1p branch")
+    return res
+
+
+def phase_checkpoint(torch, screen, screened, bank, params, dev, card):
+    """Phase 8, step 4: phase 5's smh_a sweep with a checkpoint file (chunks
+    of 8 tiles, so several spans); the file cut to its header, two records
+    and a torn line; the resumed run gives the same pairs with fewer K1
+    launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "sweep.jsonl")
+        runs = []
+        for ckpt in (None, path, path):
+            screen.screen_hits_fused.launches = 0
+            out = screened.select_pairs_screened(bank, params, chunk=8,
+                                                 device=dev, checkpoint=ckpt)
+            runs.append((out, screen.screen_hits_fused.launches))
+            if ckpt is not None and len(runs) == 2:
+                with open(path) as fh:
+                    lines = fh.read().splitlines()
+                with open(path, "w") as fh:
+                    fh.write("\n".join(lines[:3]) + '\n{"span": [99')
+    (plain, n0), (first, n1), (resumed, n2) = runs
+    print(f"  [{card}] checkpointed smh_a sweep: {len(lines) - 1} spans "
+          f"recorded, K1 launches {n0} plain / {n1} with the file / {n2} "
+          f"resumed from 2 records and a torn line; pairs equal: "
+          f"{plain == first == resumed}")
+    check(plain == first == resumed, "a checkpointed sweep changed the pairs")
+    check(len(lines) - 1 == n0 == n1 and n2 == n0 - 2,
+          "the resumed sweep did not skip the recorded spans")
+
+
 def main():
     try:
         import torch
@@ -796,7 +995,8 @@ def main():
     sys.path.insert(0, HERE)
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
-    from cuda_selection_criteria_tpu_torch.ops import _build, screen
+    from cuda_selection_criteria_tpu_torch.ops import (_build, estimators,
+                                                      pairwise, screen)
     from cuda_selection_criteria_tpu_torch.parallel import (scheduler,
                                                             screened)
     from cuda_selection_criteria_tpu_torch.parallel.selection import (
@@ -914,49 +1114,52 @@ def main():
     aux4 = synth.synthetic_aux(n4, 32, rng4)
     for i in synth.plant_near_duplicates(regs4, aux4, rng4, 64):
         hll4[i + 1] = hll4[i]
-    with tempfile.TemporaryDirectory() as tmp:
-        names = [os.path.join(tmp, f"g{i:04d}.fna.gz") for i in range(n4)]
-        for name, r, a, h in zip(names, regs4, aux4, hll4):
-            formats.write_hll(name + ".hll", 14, r)
-            formats.write_smh(name + ".smh32", a)
-            formats.write_hll(name + ".hll_8", 8, h)
-        lst = os.path.join(tmp, "list.txt")
-        with open(lst, "w") as fh:
-            fh.write("\n".join(names) + "\n")
-        for crit in ("smh_a", "cb", "baseline", "hll_a", "hll_an"):
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main(["-l", lst, "-a", "256", "-h", "0.9", "-c",
-                               crit, "--device", str(dev)])
-            t_cli = time.perf_counter() - t0
-            check(rc == 0, f"cli exit {rc}")
-            got = buf.getvalue().splitlines()
-            t0 = time.perf_counter()
-            fbank = models.SketchBank.from_sketch_files(
-                names, criterion=None if crit in ("cb", "baseline") else crit)
-            if crit == "baseline":
-                # select_pairs_host would run 2.1M scalar MLE loops here;
-                # the vectorized oracle is the same f64 cascade
-                # (tests/test_torch_hostref.py holds them equal)
-                order = fbank.sorted_by_cardinality()
-                oracle = hostref.PairOracle(
-                    14, fbank.regs[order], np.trunc(fbank.cards[order]),
-                    criterion="baseline", tau=0.9, apply_cb=False)
-                ii, kk = np.triu_indices(n4, 1)
-                want = format_results(
-                    [(names[order[i]], names[order[k]], j)
-                     for i, k, j in oracle.confirm_pairs(zip(ii, kk))])
-                how = "PairOracle.confirm_pairs over all pairs"
-            else:
-                want = format_results(hostref.select_pairs_host(
-                    fbank, 0.9, crit))
-                how = "select_pairs_host"
-            print(f"  [{card}] -c {crit}: {len(got)} lines in {t_cli:.2f} s;"
-                  f" host reference ({how}) {len(want)} lines in "
-                  f"{time.perf_counter() - t0:.1f} s")
-            check(got == want, f"cli -c {crit} differs from host reference")
-            check(len(got) >= 32, f"cli -c {crit} found too few pairs")
+    # the files and the host reference lines stay for phase 8
+    tmp4 = tempfile.TemporaryDirectory()
+    tmp = tmp4.name
+    ref4 = {}
+    names = [os.path.join(tmp, f"g{i:04d}.fna.gz") for i in range(n4)]
+    for name, r, a, h in zip(names, regs4, aux4, hll4):
+        formats.write_hll(name + ".hll", 14, r)
+        formats.write_smh(name + ".smh32", a)
+        formats.write_hll(name + ".hll_8", 8, h)
+    lst = os.path.join(tmp, "list.txt")
+    with open(lst, "w") as fh:
+        fh.write("\n".join(names) + "\n")
+    for crit in ("smh_a", "cb", "baseline", "hll_a", "hll_an"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["-l", lst, "-a", "256", "-h", "0.9", "-c",
+                           crit, "--device", str(dev)])
+        t_cli = time.perf_counter() - t0
+        check(rc == 0, f"cli exit {rc}")
+        got = buf.getvalue().splitlines()
+        t0 = time.perf_counter()
+        fbank = models.SketchBank.from_sketch_files(
+            names, criterion=None if crit in ("cb", "baseline") else crit)
+        if crit == "baseline":
+            # select_pairs_host would run 2.1M scalar MLE loops here;
+            # the vectorized oracle is the same f64 cascade
+            # (tests/test_torch_hostref.py holds them equal)
+            order = fbank.sorted_by_cardinality()
+            oracle = hostref.PairOracle(
+                14, fbank.regs[order], np.trunc(fbank.cards[order]),
+                criterion="baseline", tau=0.9, apply_cb=False)
+            want = format_results(
+                [(names[order[i]], names[order[k]], j)
+                 for i, k, j in oracle_all_pairs(oracle, n4)])
+            how = "PairOracle.confirm_pairs over all pairs, 8 threads"
+        else:
+            want = format_results(hostref.select_pairs_host(
+                fbank, 0.9, crit))
+            how = "select_pairs_host"
+        print(f"  [{card}] -c {crit}: {len(got)} lines in {t_cli:.2f} s;"
+              f" host reference ({how}) {len(want)} lines in "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(got == want, f"cli -c {crit} differs from host reference")
+        check(len(got) >= 32, f"cli -c {crit} found too few pairs")
+        ref4[crit] = want
 
     print("== phase 5: main path, select_pairs smh_a N=16384 p=14",
           flush=True)
@@ -1023,6 +1226,21 @@ def main():
     for name in launches:
         launches[name] += fl[name]
     print(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
+
+    print("== phase 8: dense exact engine", flush=True)
+    t8 = time.perf_counter()
+    phase_dense_cli(models, cli, hostref, format_results, names, lst, ref4,
+                    dev, card)
+    tmp4.cleanup()
+    mods = dict(screen=screen, pairwise=pairwise, estimators=estimators,
+                hostref=hostref, select_pairs=select_pairs,
+                SelectionParams=SelectionParams)
+    phase_dense_main(torch, mods, bank, picks, "smh_a", dev, card)
+    phase_dense_main(torch, mods, hbank, hpicks, "hll_a", dev, card)
+    phase_dense_mle(torch, estimators, hostref, [bank.regs, regs4], dev,
+                    card)
+    phase_checkpoint(torch, screen, screened, bank, params, dev, card)
+    print(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())

@@ -1,11 +1,73 @@
-"""HyperLogLog estimator helpers.
+"""Batched HyperLogLog cardinality estimators. Port of
+cuda_selection_criteria_tpu/ops/estimators.py.
 
-The ERTL-MLE itself runs on the host in true f64
-(utils/hostref.ertl_mle_batch); the device only counts registers.
+* ertl_mle: Ertl's maximum-likelihood estimator (reference:
+  sketch/include/sketch/hll.h:629-688), vectorized over a batch of register
+  histograms with per-element freeze masks, so each element runs the f64
+  operation sequence of the scalar loop: bit-identical to
+  utils/hostref.ertl_mle_batch and to the JAX twin on the CPU. The dense
+  engine runs it on the device; the screened engine confirms on the host.
+* original_estimate: the ORIGINAL estimator the reference's CUDA kernels
+  use (include/criteria_sketch_cuda.cuh:30-65), for GPU-parity
+  experiments.
+
+Exactness rules that every function here keeps:
+  - one rounding per torch op: the MLE runs eagerly, one kernel per
+    multiply and per add (never under torch.compile or through
+    addcmul / lerp, which would fuse them into an FMA);
+  - division by a constant divides by a tensor on the tensor's device: a
+    CUDA tensor divided by a CPU scalar is multiplied by the scalar's
+    reciprocal, and `scalar / tensor` is `scalar * reciprocal(tensor)` on
+    every device;
+  - scaling by 2^e goes through an exact power-of-two table.
+
+Histograms use bins 0..q+1 (q = 64 - p); counts arrays may be longer.
 """
+
+import functools
+import math
 
 import numpy as np
 import torch
+
+# Exact powers of two for |e| <= 120, far beyond any exponent the
+# estimators see; a gather plus one multiply by an exact power of two is
+# correctly rounded, identical to C ldexp (also exact in f32 within its
+# exponent range).
+_POW2_LO = -120
+_POW2_HI = 120
+_POW2 = np.ldexp(1.0, np.arange(_POW2_LO, _POW2_HI + 1)).astype(np.float64)
+
+_NP_DTYPE = {torch.float64: np.float64, torch.float32: np.float32}
+
+
+@functools.lru_cache(maxsize=None)
+def _pow2_table(device, dtype):
+    return torch.from_numpy(_POW2).to(device=device, dtype=dtype)
+
+
+def pow2_exact(e, dtype=torch.float64):
+    """2.0**e for an integer tensor e, clamped to [-120, 120], exact."""
+    idx = e.clamp(_POW2_LO, _POW2_HI).to(torch.int64) - _POW2_LO
+    return _pow2_table(e.device, dtype)[idx]
+
+
+def ldexp_exact(x, e):
+    """x * 2^e, correctly rounded (== C ldexp for |e| <= 120)."""
+    return x * pow2_exact(e, x.dtype)
+
+
+def frexp_exponent(x):
+    """C frexp's exponent e (x = m * 2^e, m in [0.5, 1)) for positive
+    finite x: a log2 guess corrected against exact powers of two. 0 for
+    x <= 0, like C's frexp(0); the value for inf and NaN is unspecified
+    (the MLE reads it only for elements it then discards)."""
+    ok = (x > 0) & torch.isfinite(x)
+    xs = torch.where(ok, x, torch.ones_like(x))
+    e = torch.floor(torch.log2(xs)).to(torch.int32) + 1
+    e = torch.where(xs >= pow2_exact(e, x.dtype), e + 1, e)
+    e = torch.where(xs < pow2_exact(e - 1, x.dtype), e - 1, e)
+    return torch.where(x > 0, e, 0)
 
 
 def hll_histogram(regs, p):
@@ -52,3 +114,139 @@ def sigma(p):
     else:
         v = 1.039 / np.sqrt(np.float64(1 << p))
     return np.float32(v)
+
+
+def ertl_mle(counts, p, relerr=1e-2, dtype=torch.float64):
+    """Batched Ertl ML cardinality estimate from register histograms.
+
+    counts: (..., >= q+2) register-value histograms (c[0..q+1] used), any
+    numeric dtype. dtype: the compute dtype. float64 is bit-identical to
+    the reference's scalar loop; float32 is the fast screening mode
+    (about 1e-6 relative, covered by the engine's screen margin and host
+    adjudication). Every intermediate has the JAX twin's dtype in both.
+
+    Returns `dtype` (...) estimates (inf where c[q+1] == m)."""
+    q = 64 - p
+    m = 1 << p
+    # Histograms are held f32 (exact for counts <= 2^p < 2^24) and each
+    # column is widened where it is used, as in the JAX twin.
+    c = counts[..., : q + 2].to(torch.float32)
+    batch_shape = c.shape[:-1]
+    c = c.reshape(-1, q + 2)
+    dev = c.device
+    nb = c.shape[0]
+    if nb == 0:
+        return torch.zeros(batch_shape, dtype=dtype, device=dev)
+
+    def col(k):
+        return c[:, k].to(dtype)
+
+    def const(v):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    is_inf = c[:, q + 1] == m
+    nz = c > 0
+    bins = torch.arange(q + 2, device=dev)
+    any_nz = nz.any(1)
+    k_min = torch.where(any_nz, torch.where(nz, bins, q + 2).amin(1), 0)
+    k_min_p = k_min.clamp(min=1)
+    k_max = torch.where(any_nz, torch.where(nz, bins, -1).amax(1), 0)
+    k_max_p = k_max.clamp(max=q)
+
+    # z = sum_{k=kMinP..kMaxP} c[k] * 2^-k, accumulated high-to-low like
+    # the reference loop (hll.h:671-673); bins outside every row's range
+    # change nothing, so the loop walks only the batch's range.
+    z = torch.zeros(nb, dtype=dtype, device=dev)
+    lo, hi = torch.stack([k_min_p.amin(), k_max_p.amax()]).tolist()
+    for k in range(min(q, hi), max(1, lo) - 1, -1):
+        in_range = (k >= k_min_p) & (k <= k_max_p)
+        z = torch.where(in_range, 0.5 * z + col(k), z)
+    z = ldexp_exact(z, -k_min_p)
+
+    c_prime = col(q + 1)
+    if q:
+        c_prime = c_prime + c.gather(1, k_max_p[:, None])[:, 0].to(dtype)
+    a = z + col(0)
+    m_prime = m - col(0)
+    g0 = z + col(q + 1) * math.ldexp(1.0, -q)  # exact 2^-q
+    x = torch.where(g0 <= 1.5 * a, m_prime / (0.5 * g0 + a),
+                    (m_prime / g0) * torch.log1p(g0 / a))
+    delta_x = x
+    np_dt = _NP_DTYPE[dtype]
+    eps = float(np_dt(relerr) / np.sqrt(np_dt(m)))
+    g_prev = torch.zeros_like(x)
+    three, d472_5 = const(3.0), const(472.5)
+
+    while True:
+        active = delta_x > x * eps
+        kappa_m1 = frexp_exponent(x)
+        h_hi = torch.maximum(kappa_m1, k_max_p - 1)
+        # One host read per step: whether any element is still active (the
+        # reference's loop test), and the largest h_hi among them. The
+        # inner loop of the JAX twin runs k = 64..1 with per-element masks;
+        # for k above every active element's h_hi it changes nothing, so
+        # starting at that maximum is bit-identical.
+        top = int(torch.where(active, h_hi.clamp(min=0) + 1, 0).amax())
+        if top == 0:
+            break
+        x_prime = ldexp_exact(x, -torch.maximum(k_max_p + 1, kappa_m1 + 2))
+        x_pp = x_prime * x_prime
+        h = (x_prime - x_pp / three
+             + (x_pp * x_pp) * (1.0 / 45.0 - x_pp / d472_5))
+
+        # Fused inner loops (hll.h:667-680): h / x_prime update for k in
+        # [kMinP, max(kappa-1, kMaxP-1)] descending; g accumulates c[k]*h
+        # for k in [kMinP, kMaxP-1]. The reference computes g = cPrime * h
+        # after its first loop (updates for k >= kMaxP), so g is seeded at
+        # the start of iteration k = kMaxP-1, or after the loop when
+        # kMaxP <= 1 never reaches it.
+        g = torch.zeros_like(x)
+        for k in range(min(64, top - 1), 0, -1):
+            g = torch.where(k == k_max_p - 1, c_prime * h, g)
+            upd = (k <= h_hi) & (k >= k_min_p)
+            h_prime = 1.0 - h
+            h_new = (x_prime + h * h_prime) / (x_prime + h_prime)
+            h = torch.where(upd, h_new, h)
+            x_prime = torch.where(upd, x_prime + x_prime, x_prime)
+            acc = upd & (k <= k_max_p - 1)
+            g = torch.where(acc, g + col(min(k, q + 1)) * h, g)
+        g = torch.where(k_max_p <= 1, c_prime * h, g)
+        g = g + x * a
+
+        # deltaX *= (g - mPrime) / (gprev - g): the division comes first in
+        # the reference (hll.h:683)
+        step = torch.where((g_prev < g) & (g <= m_prime),
+                           delta_x * ((g - m_prime) / (g_prev - g)), 0.0)
+        x_new = x + step
+        x = torch.where(active, x_new, x)
+        delta_x = torch.where(active, step, delta_x)
+        g_prev = torch.where(active, g, g_prev)
+
+    est = torch.where(is_inf, math.inf, x * m)
+    return est.reshape(batch_shape)
+
+
+def ertl_mle_from_regs(regs, p, relerr=1e-2):
+    """f64 cardinality estimates straight from register rows (B, 2^p)."""
+    return ertl_mle(hll_histogram(regs, p), p, relerr)
+
+
+def original_estimate(counts, p):
+    """Flajolet ORIGINAL estimator with corrections, batched, f64: raw =
+    alpha*m^2 / sum(2^-r), linear counting when raw < 2.5m and zeros > 0,
+    large-range correction when raw > 2^32/30
+    (include/criteria_sketch_cuda.cuh:30-65)."""
+    q = 64 - p
+    m = 1 << p
+    c = counts[..., : q + 2].to(torch.float64)
+    dev = c.device
+    zeros = c[..., 0]
+    inv_pow2 = torch.from_numpy(np.ldexp(1.0, -np.arange(1, q + 2))).to(dev)
+    ssum = zeros + torch.sum(c[..., 1:] * inv_pow2, dim=-1)
+    raw = torch.full_like(ssum, make_alpha(m) * m * m) / ssum
+    two32 = 2.0 ** 32
+    lin = m * torch.log(torch.full_like(zeros, m)
+                        / torch.clamp(zeros, min=1.0))
+    large = -two32 * torch.log1p(-raw / torch.full_like(raw, two32))
+    return torch.where((raw < 2.5 * m) & (zeros > 0), lin,
+                       torch.where(raw > two32 / 30.0, large, raw))

@@ -21,6 +21,9 @@ cascade, mirroring the reference's prune-then-confirm design
      and Jaccard values are identical to the reference.
 """
 
+import hashlib
+import json
+import os
 import time
 
 import numpy as np
@@ -275,6 +278,83 @@ def make_device_hist_fn(d_regs, d_e, p, tau, delta, chunk=8192):
     return fn
 
 
+class _SweepCheckpoint:
+    """Append-only JSONL progress log for long screen sweeps; the file
+    format is the reference package's, so a file written by either package
+    resumes in the other.
+
+    Line 0: a header binding the file to one exact run (bank size,
+    criterion, tau, tile, chunk and a hash of the pruned tile schedule):
+    resuming against a different run raises instead of mixing results.
+    Each further line: {"span": [c0, width], "cand": [[i, j], ...]} for one
+    completed launch span. A torn final line (a crash mid-write) is
+    ignored and its span recomputed. fsync every 64 records and at close
+    bounds the lost work."""
+
+    def __init__(self, fh, done_spans, done_candidates):
+        self._fh = fh
+        self.done_spans = done_spans
+        self.done_candidates = done_candidates
+        self._since_sync = 0
+
+    @classmethod
+    def open(cls, path, plan, rows, cols, chunk):
+        if path is None:
+            return None
+        header = {
+            "schedule_hash": hashlib.sha1(
+                rows.tobytes() + cols.tobytes()).hexdigest()[:16],
+            "n": int(plan.n),
+            "criterion": plan.crit,
+            "tau": float(plan.params.tau),
+            "ti": int(plan.ti),
+            # spans are a function of the chunk: a resume with another
+            # chunk raises instead of recomputing every span while still
+            # prepending the old candidates
+            "chunk": int(chunk),
+        }
+        done_spans = set()
+        done_cand = []
+        if os.path.exists(path) and os.path.getsize(path):
+            with open(path) as fh:
+                first = fh.readline()
+                try:
+                    if json.loads(first) != header:
+                        raise ValueError(
+                            f"checkpoint {path!r} belongs to a different "
+                            "run (bank/params/schedule changed)")
+                except json.JSONDecodeError as exc:
+                    raise ValueError(
+                        f"corrupt checkpoint header in {path!r}") from exc
+                for line in fh:
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        break  # torn tail line: recompute that span
+                    done_spans.add(tuple(rec["span"]))
+                    done_cand.extend(map(tuple, rec["cand"]))
+            fh = open(path, "a")
+        else:
+            fh = open(path, "w")
+            fh.write(json.dumps(header) + "\n")
+            fh.flush()
+        return cls(fh, done_spans, done_cand)
+
+    def record(self, span, cand):
+        self._fh.write(json.dumps(
+            {"span": list(span), "cand": [list(c) for c in cand]}) + "\n")
+        self._since_sync += 1
+        if self._since_sync >= 64:
+            self._fh.flush()
+            os.fsync(self._fh.fileno())
+            self._since_sync = 0
+
+    def close(self):
+        self._fh.flush()
+        os.fsync(self._fh.fileno())
+        self._fh.close()
+
+
 def _upload_sorted(arr, order, n_pad, device):
     """One upload of a raw (N, R) uint8 bank, then a device-side gather of
     its rows in `order` into a zero-padded (n_pad, R) device bank."""
@@ -412,14 +492,18 @@ class ScreenPlan:
             self.bank.p, self.values, self.ti, self.n_bands, self.use_cb,
             self.use_smh)
 
-    def screen_tiles(self, rows, cols, chunk=64, wave=64):
+    def screen_tiles(self, rows, cols, chunk=64, checkpoint=None, wave=64):
         """Cascade stage 2 over a live-tile list: sorted candidate (i, j).
 
         Launches every chunk of a wave before reading any result, then
         copies ONE array of per-tile hit counts to the host (one .cpu() per
         wave) and extracts coordinates only from tiles that hold hits.
         Full chunks keep one shape; the remainder is padded to a small
-        power-of-two bucket with repeats of the last tile (deduped)."""
+        power-of-two bucket with repeats of the last tile (deduped).
+
+        checkpoint: optional progress file (_SweepCheckpoint): each span's
+        candidates are appended once its wave is read, and a restarted run
+        with the same bank, params and schedule skips the spans done."""
         n_live = len(rows)
         if n_live == 0:
             return []
@@ -432,27 +516,39 @@ class ScreenPlan:
             spans.append((n_live - rem, bucket))
 
         cand = []
-        for w0 in range(0, len(spans), wave):
-            pending = []
-            for c0, width in spans[w0:w0 + wave]:
-                take = min(width, n_live - c0)
-                r_chunk = np.pad(rows[c0:c0 + take], (0, width - take),
-                                 constant_values=rows[-1])
-                c_chunk = np.pad(cols[c0:c0 + take], (0, width - take),
-                                 constant_values=cols[-1])
-                hits, cnt = self.screen_chunk(r_chunk, c_chunk)
-                pending.append((r_chunk, c_chunk, hits, cnt))
-            counts = torch.cat([c for _, _, _, c in pending]).cpu().numpy()
-            pos = 0
-            for r_chunk, c_chunk, hits, _ in pending:
-                width = len(r_chunk)
-                ts = np.nonzero(counts[pos:pos + width])[0]
-                if ts.size:
-                    for t, ri, cj in extract_hit_coords(hits, ts):
-                        gi = int(r_chunk[t]) * ti + ri
-                        gj = int(c_chunk[t]) * ti + cj
-                        cand.extend(zip(gi.tolist(), gj.tolist()))
-                pos += width
+        ckpt = _SweepCheckpoint.open(checkpoint, self, rows, cols, chunk)
+        if ckpt is not None:
+            cand.extend(ckpt.done_candidates)
+            spans = [sp for sp in spans if sp not in ckpt.done_spans]
+        try:
+            for w0 in range(0, len(spans), wave):
+                pending = []
+                for c0, width in spans[w0:w0 + wave]:
+                    take = min(width, n_live - c0)
+                    r_chunk = np.pad(rows[c0:c0 + take], (0, width - take),
+                                     constant_values=rows[-1])
+                    c_chunk = np.pad(cols[c0:c0 + take], (0, width - take),
+                                     constant_values=cols[-1])
+                    hits, cnt = self.screen_chunk(r_chunk, c_chunk)
+                    pending.append(((c0, width), r_chunk, c_chunk, hits, cnt))
+                counts = torch.cat([p[4] for p in pending]).cpu().numpy()
+                pos = 0
+                for span, r_chunk, c_chunk, hits, _ in pending:
+                    width = len(r_chunk)
+                    span_cand = []
+                    ts = np.nonzero(counts[pos:pos + width])[0]
+                    if ts.size:
+                        for t, ri, cj in extract_hit_coords(hits, ts):
+                            gi = int(r_chunk[t]) * ti + ri
+                            gj = int(c_chunk[t]) * ti + cj
+                            span_cand.extend(zip(gi.tolist(), gj.tolist()))
+                    pos += width
+                    cand.extend(span_cand)
+                    if ckpt is not None:
+                        ckpt.record(span, span_cand)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
         return sorted(set(cand))
 
     def device_hist_fn(self, chunk=8192, tau=None):
@@ -482,14 +578,15 @@ class ScreenPlan:
 
 
 def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
-                          stats=None):
+                          stats=None, checkpoint=None):
     """All-pairs selection via the fused screen + exact confirmation.
 
     Returns reference-ordered [(name_i, name_j, jacc)]. ti/chunk default
     to auto_tile/auto_chunk. stats: optional dict, filled with the wall
     seconds of each stage (plan, schedule, prune, screen, confirm) and the
     tile and candidate counts; the screen and prune walls end in a
-    device-to-host copy, so they include the device work."""
+    device-to-host copy, so they include the device work. checkpoint: the
+    screen stage's progress file (ScreenPlan.screen_tiles)."""
     if bank.n < 2:
         return []
     if ti is None:
@@ -508,7 +605,8 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
         return []
     rows, cols = plan.prune_tiles(rows, cols, chunk=max(chunk, 256))
     t3 = time.perf_counter()
-    cand = plan.screen_tiles(rows, cols, chunk=chunk)
+    cand = plan.screen_tiles(rows, cols, chunk=chunk,
+                             checkpoint=checkpoint)
     t4 = time.perf_counter()
     confirmed = plan.confirm(cand)
     t5 = time.perf_counter()

@@ -234,7 +234,8 @@ def test_selection_smh_only_on_built_sketches(built_list, capsys):
         jb = jbank.SketchBank.from_sketch_files(files, criterion="smh_a",
                                                 aux_bytes=32)
         assert select_pairs(bank, SelectionParams(
-            tau=float(tau), criterion="smh_only"), device="cpu") == \
+            tau=float(tau), criterion="smh_only", engine="screened"),
+            device="cpu") == \
             jselect_pairs(jb, JParams(tau=float(tau), criterion="smh_only"))
     assert {"g0.fna.gz", "g1.fna.gz"} in [
         {os.path.basename(a), os.path.basename(b)} for a, b, _ in host]

@@ -8,6 +8,8 @@ import sys
 import numpy as np
 import pytest
 
+from torch_banks import one_torch_thread  # noqa: F401
+
 from cuda_selection_criteria_tpu.cli import selection as jcli
 from cuda_selection_criteria_tpu_torch.cli import selection as cli
 from cuda_selection_criteria_tpu_torch.models import SketchBank
@@ -17,6 +19,7 @@ from cuda_selection_criteria_tpu_torch.utils import formats, synth
 from cuda_selection_criteria_tpu_torch.utils.hostref import select_pairs_host
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +50,8 @@ def _stdout(main, argv, capsys):
 @pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline", "smh_only"])
 def test_cli_output_matches_jax_and_host(sketch_list, crit, capsys):
     argv = ["-l", sketch_list, "-a", "256", "-h", "0.9", "-c", crit]
-    got = _stdout(cli.main, argv + ["--device", "cpu"], capsys)
+    got = _stdout(cli.main, argv + ["--device", "cpu", "--engine",
+                                    "screened"], capsys)
     want = _stdout(jcli.main, argv, capsys)
     assert got == want
     files = [ln.strip() for ln in open(sketch_list) if ln.strip()]
@@ -60,6 +64,21 @@ def test_cli_output_matches_jax_and_host(sketch_list, crit, capsys):
     # the screened engine with an explicit tile prints the same lines
     assert _stdout(cli.main, argv + ["--device", "cpu", "--engine",
                                      "screened", "-b", "64"], capsys) == got
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8"])
+@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline", "smh_only"])
+def test_cli_dense_engine_matches_screened(sketch_list, crit, precision,
+                                           capsys):
+    """--engine dense --precision bf16|int8 prints the screened engine's
+    lines; -b unset is 512 (one tile here), -b 10 does not divide N."""
+    argv = ["-l", sketch_list, "-a", "256", "-h", "0.9", "-c", crit,
+            "--device", "cpu"]
+    want = _stdout(cli.main, argv + ["--engine", "screened"], capsys)
+    dense = ["--engine", "dense", "--precision", precision]
+    assert _stdout(cli.main, argv + dense, capsys) == want
+    assert _stdout(cli.main, argv + dense + ["-b", "10"], capsys) == want
+    assert len(want.splitlines()) >= 3
 
 
 def test_cli_messages_match_jax(capsys):
@@ -79,10 +98,11 @@ def test_import_leaves_jax_out():
             "cli.build_sketch", "cli.selection", "cli.time_smh",
             "models.bank", "models.hll", "models.smh", "ops._build",
             "ops.criteria", "ops.estimators", "ops.hashes", "ops.hll_build",
-            "ops.kmers", "ops.screen", "ops.smh_build", "parallel.scheduler",
-            "parallel.screened", "parallel.selection", "utils.device",
-            "utils.fasta", "utils.filelist", "utils.formats",
-            "utils.hostref", "utils.synth")]
+            "ops.kmers", "ops.pairwise", "ops.screen", "ops.smh_build",
+            "parallel.scheduler", "parallel.screened", "parallel.selection",
+            "utils.device", "utils.fasta", "utils.filelist", "utils.formats",
+            "utils.hostref", "utils.profiling", "utils.resilience",
+            "utils.synth", "utils.timer")]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m == 'jax' "

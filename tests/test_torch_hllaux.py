@@ -16,7 +16,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_banks import jax_bank_hll, port_bank, rounded
+from torch_banks import (jax_bank_hll, one_torch_thread,  # noqa: F401
+                         port_bank, rounded)
 
 from cuda_selection_criteria_tpu.cli import selection as jcli
 from cuda_selection_criteria_tpu.models.bank import SketchBank as JBank
@@ -34,6 +35,8 @@ from cuda_selection_criteria_tpu_torch.parallel import screened
 from cuda_selection_criteria_tpu_torch.parallel.selection import (
     SelectionParams, format_results, select_pairs)
 from cuda_selection_criteria_tpu_torch.utils import formats, hostref, synth
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 # (lo, hi) of the register draws, truncate, separate column bank, tj
 K2_CASES = {
@@ -237,7 +240,8 @@ def test_select_pairs_hll_matches_jax_and_host(crit, bank_kind, tau):
     want = jscreened.select_pairs_screened(
         jb, JParams(tau=tau, criterion=crit, block=64), ti=ti, chunk=4)
     stats = {}
-    got = select_pairs(bank, SelectionParams(tau=tau, criterion=crit),
+    got = select_pairs(bank, SelectionParams(tau=tau, criterion=crit,
+                                             engine="screened"),
                        device="cpu", stats=stats)
     assert got == want
     assert rounded(got) == rounded(host)
@@ -323,9 +327,13 @@ def test_from_sketch_files_hll_matches_jax(hll_sketch_list, crit):
 def test_cli_hll_matches_jax_and_host(hll_sketch_list, crit, capsys):
     lst, names, _ = hll_sketch_list
     argv = ["-l", lst, "-a", "256", "-h", "0.9", "-c", crit]
-    capsys.readouterr()
-    assert cli.main(argv + ["--device", "cpu"]) == 0
-    got = capsys.readouterr().out
+    outs = []
+    for engine in ("screened", "dense"):
+        capsys.readouterr()
+        assert cli.main(argv + ["--device", "cpu", "--engine", engine]) == 0
+        outs.append(capsys.readouterr().out)
+    got = outs[0]
+    assert outs[1] == got
     assert jcli.main(argv) == 0
     assert got == capsys.readouterr().out
     bank = SketchBank.from_sketch_files(names, criterion=crit)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 screen_fused, K2 weighted_cdf_sum) and their
 card paths against their plain versions, bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
-torch ops on the card against the same ops on the CPU.
+torch ops and the dense engine (indicator products, the ERTL-MLE) on the
+card against the same ops on the CPU and the host oracle.
 
 Needs an NVIDIA card: every test skips without one (the kernels have no CPU
 mode). Imports neither JAX nor the reference package, so it also runs on
@@ -22,11 +23,12 @@ import torch
 from cuda_selection_criteria_tpu_torch.models import SketchBank
 from cuda_selection_criteria_tpu_torch.models import bank as tbank
 from cuda_selection_criteria_tpu_torch.models.bank import host_cards
-from cuda_selection_criteria_tpu_torch.ops import screen
+from cuda_selection_criteria_tpu_torch.ops import (estimators, pairwise,
+                                                  screen)
 from cuda_selection_criteria_tpu_torch.parallel import screened
 from cuda_selection_criteria_tpu_torch.parallel.selection import (
-    SelectionParams)
-from cuda_selection_criteria_tpu_torch.utils import synth
+    SelectionParams, select_pairs)
+from cuda_selection_criteria_tpu_torch.utils import hostref, synth
 
 
 @pytest.fixture
@@ -421,3 +423,125 @@ def test_chunked_sketch_on_cuda_matches_cpu(cuda, aux_kind, aux_param):
                                      device="cpu")
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _dense_bank(crit):
+    rng = np.random.default_rng(7)
+    if crit.startswith("hll"):
+        regs, aux = synth.synthetic_hll_banks(
+            200, rng.integers(400, 900, 200), (10, 6), rng)
+        kind, param = "hll", 6
+    else:
+        regs = synth.synthetic_regs(200, rng.integers(400, 900, 200), 10,
+                                    rng)
+        aux = synth.synthetic_aux(200, 16, rng)
+        kind, param = "smh", 16
+    synth.plant_near_duplicates(regs, aux, rng, 12)
+    return SketchBank(names=[f"g{i}" for i in range(200)], regs=regs, p=10,
+                      aux_kind=kind, aux=aux, aux_param=param)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crit", ["smh_a", "smh_only", "cb", "baseline",
+                                  "hll_a", "hll_an"])
+def test_dense_engine_on_cuda_matches_cpu(cuda, crit):
+    """The dense engine on the card (f32 MLE, device confirm histograms)
+    prints the CPU run's lines (f64 MLE, host histograms), with a block
+    that does not divide N."""
+    bank = _dense_bank(crit)
+    params = SelectionParams(tau=0.5, criterion=crit, engine="dense",
+                             block=48)
+    got = select_pairs(bank, params, device=cuda)
+    assert got == select_pairs(bank, params, device="cpu")
+    assert len(got) >= 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bi,bj,p", [(8, 9, 8), (16, 17, 8), (17, 24, 10),
+                                     (512, 512, 14), (13, 11, 6)])
+def test_dense_routes_give_equal_histograms_on_cuda(cuda, bi, bj, p):
+    """torch._int_mm (int8) and the f32 matmul route give the same union
+    histograms on the card, equal to the CPU's, including the row counts
+    that torch._int_mm's shape limits make the wrapper pad."""
+    rng = np.random.default_rng(bi + bj + p)
+    a = rng.integers(0, 64 - p + 2, size=(bi, 1 << p), dtype=np.uint8)
+    b = rng.integers(0, 64 - p + 2, size=(bj, 1 << p), dtype=np.uint8)
+    want = pairwise.union_histograms(torch.from_numpy(a),
+                                     torch.from_numpy(b), p, "int8")
+    for precision in ("int8", "bf16"):
+        got = pairwise.union_histograms(torch.from_numpy(a).to(cuda),
+                                        torch.from_numpy(b).to(cuda), p,
+                                        precision)
+        assert torch.equal(got.cpu(), want)
+
+
+def _mle_histograms(p, n, seed, log1p_branch):
+    """Histograms of pair unions of synthetic register rows. With
+    log1p_branch: registers only at q-1, q and q+1 instead, mostly q+1 -
+    the only histograms whose secant start takes its log1p branch (g0 >
+    1.5a needs no zero register and almost no weight below q)."""
+    rng = np.random.default_rng(seed)
+    if log1p_branch:
+        q, m = 64 - p, 1 << p
+        c = np.zeros((n, 64), np.int64)
+        c[:, q] = rng.integers(1, m // 3, n)
+        c[:, q - 1] = rng.integers(0, 3, n)
+        c[:, q + 1] = m - c[:, q] - c[:, q - 1]
+        return c
+    regs = synth.synthetic_regs(256, rng.integers(50, 200_000, 256), p, rng)
+    ii, kk = rng.integers(0, 256, size=(2, n))
+    return hostref.pair_union_histograms_np(regs, ii, kk)
+
+
+def _ulps(a, b):
+    """|a - b| in units in the last place of f64 (positive finite values;
+    equal infinities count 0)."""
+    same = (a == b)
+    ai, bi = a.view(np.int64), b.view(np.int64)
+    return np.where(same, 0, np.abs(ai - bi))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [8, 14])
+def test_ertl_mle_f64_on_cuda_vs_host(cuda, p):
+    """The card's f64 ERTL-MLE against hostref.ertl_mle_batch: bit-equal
+    on pair unions of realistic register rows, whose secant start never
+    calls log1p. Histograms that do (no register below q-1) get 4 ulp: a
+    1-ulp log1p difference moves the secant's result by up to 3 ulp, as
+    the JAX package's own f64 MLE (XLA's log1p) and torch's on the CPU
+    show against glibc's (tests/test_torch_dense.py)."""
+    for log1p_branch in (False, True):
+        hists = _mle_histograms(p, 4096, p + log1p_branch, log1p_branch)
+        want = hostref.ertl_mle_batch(hists, p)
+        got = estimators.ertl_mle(torch.from_numpy(hists).to(cuda),
+                                  p).cpu().numpy()
+        ulps = _ulps(got, want)
+        if log1p_branch:
+            assert ulps.max() <= 4
+        else:
+            assert ulps.max() == 0
+        f32 = estimators.ertl_mle(torch.from_numpy(hists).to(cuda), p,
+                                  dtype=torch.float32).cpu().numpy()
+        fin = np.isfinite(want) & (want > 0)
+        assert np.abs(f32[fin] / want[fin] - 1.0).max() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_scalar_divisor_on_cuda(cuda):
+    """Regression case for x_pp / 3 in the MLE's secant start: a CUDA
+    tensor divided by a CPU scalar is multiplied by the scalar's
+    reciprocal, so the MLE divides by a device tensor; that division is
+    C's `/`, bit for bit, where the reciprocal product is not."""
+    rng = np.random.default_rng(3)
+    x = rng.uniform(1e-6, 1.0, 1 << 16) ** 2
+    recip = x * (1.0 / 3.0)
+    assert np.any(recip != x / 3)  # the inputs exercise the difference
+    got = torch.from_numpy(x).to(cuda) / torch.tensor(3.0, dtype=torch.float64,
+                                                      device=cuda)
+    np.testing.assert_array_equal(got.cpu().numpy(), x / 3)
+    # and the whole MLE: histograms whose secant starts differ between
+    # the two forms give the CPU's estimates on the card
+    hists = _mle_histograms(14, 2048, 5, False)
+    np.testing.assert_array_equal(
+        estimators.ertl_mle(torch.from_numpy(hists).to(cuda), 14).cpu()
+        .numpy(), estimators.ertl_mle(torch.from_numpy(hists), 14).numpy())

@@ -216,7 +216,7 @@ def test_unported_criteria_and_engines_raise():
         screened.ScreenPlan(bank, SelectionParams(tau=0.2, criterion="nope"),
                             64, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
-        select_pairs(bank, SelectionParams(tau=0.2, engine="dense"),
+        select_pairs(bank, SelectionParams(tau=0.2, engine="ring"),
                      device="cpu")
 
 

@@ -2,6 +2,8 @@
 package: banks made once from a numpy seed, handed to both packages."""
 
 import numpy as np
+import pytest
+import torch
 
 from test_screen import _make_bank, _make_bank_hll_aux
 
@@ -31,3 +33,15 @@ def port_bank(bank, cards=True):
 
 def rounded(results):
     return [(a, b, round(j, 12)) for a, b, j in results]
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run a test on one torch intra-op thread. Each of the suite's
+    workers would otherwise start a thread per core for every small CPU
+    op, and with all the workers' threads competing for the cores a test
+    of many small ops ran twenty times slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
