@@ -9,7 +9,10 @@ reference bench's bank size.
 Phases (any failure exits non-zero, without the final result line):
   1. device   - card name and power limit, torch / CUDA / nvcc versions
   2. build    - nvcc builds every csrc/*.cu for sm_90a, all at once; the
-                ptxas log must show no spill and no serialized wgmma
+                ptxas log must show no spill and no serialized wgmma;
+                g++ builds the host library native/fastx.cpp (libfastx)
+                meanwhile: seconds, compiler and zlib versions; the run
+                fails if it does not build
   3. kernel   - K1 vs its plain version, bit-equal hits and counts: p=8
                 (ti=64, every gate combination, with and without zero
                 registers, n_real < n, a truncated value list); planes
@@ -29,9 +32,13 @@ Phases (any failure exits non-zero, without the final result line):
                 a column bank of another row count and without zeros; and
                 p_aux=8, ti=1024 on the first 64 tiles of the hll bench
                 bank; K2, plain, bound and torch._int_mm there
-  4. cli      - planted .hll/.smh32/.hll_8 files for N=2048 genomes; the
+  4. cli      - planted .hll/.smh32/.hll_8 files for N=2048 genomes, read
+                by the native threaded loaders and the numpy readers
+                (bit-equal, both walls); the native fused union
+                histograms against the numpy ones on 2^16 pairs; the
                 selection CLI's lines for smh_a, cb, baseline, hll_a and
-                hll_an must equal the exact host reference's
+                hll_an must equal the exact host reference's (its wall,
+                on the native histograms)
   5. main     - select_pairs(smh_a, tau=0.9) on N=16384 genomes at p=14
                 (256 MiB of registers on the card) with planted
                 near-duplicates: every planted pair the exact oracle passes
@@ -51,8 +58,13 @@ Phases (any failure exits non-zero, without the final result line):
                 bit-equal to the CPU build on a subset (smh_a -a 256,
                 hll_a -a 256, smh_a -a 4096; written files byte-identical);
                 the build_sketch CLI on the whole corpus (-c smh_a and
-                hll_a, wall and stage split) and a profiler trace of one
-                warm pack; the selection CLI on the files it wrote for
+                hll_a) with -t 8 on the device pipeline fed by the native
+                decoder (wall and stage split) and on the native host
+                builder (wall), and on a subset with the pure-Python
+                decoder and with the native one, all files byte-identical;
+                the decode rate of both readers on one thread; a profiler
+                trace of one warm pack; the selection CLI on the files it
+                wrote for
                 smh_a, smh_only, cb, hll_a and hll_an against the host
                 reference (every 0.001 copy the exact oracle passes
                 emitted, no 0.02 copy emitted, K1 and K2 launched);
@@ -396,10 +408,21 @@ def phase_k2_edges(torch, screen, dev):
     return worst
 
 
+def pooled_oracle(hostref, regs, e, **kw):
+    """A p=14 PairOracle for oracle_all_pairs: each batch's native union
+    histograms on one thread, since the pool's threads are the
+    parallelism (the library's own threads would oversubscribe the
+    cores)."""
+    from cuda_selection_criteria_tpu_torch.native import fastx
+    return hostref.PairOracle(
+        14, regs, e, hist_fn=lambda ii, kk: fastx.pair_union_hist(
+            regs, ii, kk, threads=1), **kw)
+
+
 def oracle_all_pairs(oracle, n, threads=8):
     """PairOracle.confirm_pairs over every i<k pair of n sorted rows, in
-    slices over a thread pool (numpy releases the interpreter lock in most
-    of the union histograms and the MLE): [(i, k, jacc)] in pair order."""
+    slices over a thread pool (the native histograms and most of numpy's
+    MLE release the interpreter lock): [(i, k, jacc)] in pair order."""
     ii, kk = np.triu_indices(n, 1)
     step = -(-len(ii) // (4 * threads))
     with ThreadPoolExecutor(threads) as pool:
@@ -591,8 +614,8 @@ def build_card_vs_cpu(torch, bank_mod, files, tmp, dev, card):
             st = {}
             t0 = time.perf_counter()
             bank = bank_mod.build_bank_from_files(
-                linked, crit, aux_bytes, device=dev if where == "cuda"
-                else "cpu", stats=st)
+                linked, crit, aux_bytes, backend="device",
+                device=dev if where == "cuda" else "cpu", stats=st)
             secs = time.perf_counter() - t0
             bank.write_sketch_files()
             out[where] = (bank, linked, st, secs)
@@ -601,8 +624,10 @@ def build_card_vs_cpu(torch, bank_mod, files, tmp, dev, card):
         sfx = [".hll", f".hll_{param}" if kind == "hll" else f".smh{param}"]
         same = all(filecmp.cmp(a + x, b + x, shallow=False)
                    for a, b in zip(cf, pf) for x in sfx)
-        print(f"  [{card}] build -c {crit} -a {aux_bytes} ({kind} {param}), "
-              f"{len(files)} files, {cst['codes']} codes: card "
+        print(f"  [{card}] build -c {crit} -a {aux_bytes} ({kind} {param}; "
+              f"backend {cst['backend']}, decoder {cst['decoder']}, threads "
+              f"{cst['io_threads']}), {len(files)} files, {cst['codes']} "
+              f"codes: card "
               f"{csecs:.2f} s, cpu {psecs:.2f} s; {cst['packs']} packs, "
               f"{cst['chunked_genomes']} chunked, {cst['smh_fallbacks']} "
               f"SMH fallbacks; max_abs_err={err}; files identical: {same}")
@@ -686,6 +711,46 @@ class LineLog(io.TextIOBase):
         return len(s)
 
 
+def sketch_bytes(files, crit):
+    """{path: bytes} of the sketch files build_sketch -c crit -a 256 wrote
+    next to `files`."""
+    out = {}
+    for f in files:
+        for sfx in (".hll", ".smh32" if crit == "smh_a" else ".hll_8"):
+            with open(f + sfx, "rb") as fh:
+                out[f + sfx] = fh.read()
+    return out
+
+
+@contextlib.contextmanager
+def python_decoder(fasta):
+    """utils/fasta with the native reader switched off, as the port was
+    before it had one: the device pipeline decodes with fasta_codes_py on
+    one thread."""
+    saved = fasta.fasta_codes, fasta.decoder
+    fasta.fasta_codes, fasta.decoder = fasta.fasta_codes_py, lambda: "python"
+    try:
+        yield
+    finally:
+        fasta.fasta_codes, fasta.decoder = saved
+
+
+def run_build(build_sketch, lst, crit, backend, dev):
+    """build_sketch -a 256 -c crit -t 8 --backend backend: (stats, wall)."""
+    st = {}
+    t0 = time.perf_counter()
+    check(build_sketch.main(["-l", lst, "-a", "256", "-c", crit, "-t", "8",
+                             "--backend", backend, "--device", str(dev)],
+                            stats=st) == 0,
+          f"build_sketch -c {crit} --backend {backend} failed")
+    return st, time.perf_counter() - t0
+
+
+def build_label(crit, st):
+    return (f"build_sketch -c {crit} -a 256 -t 8 --backend {st['backend']} "
+            f"(decoder {st['decoder']}, threads {st['io_threads']})")
+
+
 def phase_fasta(torch, dev, card, corpus_kw):
     """Phase 7: FASTA -> build_sketch -> selection and time_smh on a
     synthetic bacterial corpus. Returns ({kernel: launches on the
@@ -695,6 +760,7 @@ def phase_fasta(torch, dev, card, corpus_kw):
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
     from cuda_selection_criteria_tpu_torch.cli import time_smh
     from cuda_selection_criteria_tpu_torch.models import bank as bank_mod
+    from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import screen
     from cuda_selection_criteria_tpu_torch.parallel.selection import (
         format_results)
@@ -719,25 +785,71 @@ def phase_fasta(torch, dev, card, corpus_kw):
                   + [files[c] for _, c in near[:2]] + files[-4:])
         build_err = build_card_vs_cpu(torch, bank_mod, subset, tmp, dev, card)
 
+        sub = files[:16]
+        sub_lst = os.path.join(tmp, "subset.txt")
+        with open(sub_lst, "w") as fh:
+            fh.write("\n".join(sub) + "\n")
+        secs = {"native": 0.0, "python": 0.0}
+        sub_codes = 0
+        for f in sub:
+            t0 = time.perf_counter()
+            got = fastx.fasta_codes(f)
+            secs["native"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = fasta.fasta_codes_py(f)
+            secs["python"] += time.perf_counter() - t0
+            check(np.array_equal(got, want), f"native decode of {f} differs")
+            sub_codes += want.size
+        print(f"  [{card}] decode on one host thread, {len(sub)} files, "
+              f"{sub_codes} codes: native {sub_codes / secs['native']:.4g} "
+              f"codes/s ({secs['native']:.2f} s), Python "
+              f"{sub_codes / secs['python']:.4g} codes/s "
+              f"({secs['python']:.2f} s): "
+              f"{secs['python'] / secs['native']:.2f}x, codes bit-equal")
+
         walls = {}
         for crit in ("smh_a", "hll_a"):
-            st = {}
-            t0 = time.perf_counter()
-            check(build_sketch.main(["-l", lst, "-a", "256", "-c", crit,
-                                     "--device", str(dev)],
-                                    stats=st) == 0,
-                  f"build_sketch -c {crit} failed")
-            walls[crit] = wall = time.perf_counter() - t0
-            print(f"  [{card}] build_sketch -c {crit} -a 256: {st['genomes']} "
-                  f"files, {st['codes']} codes in {wall:.2f} s = "
-                  f"{st['codes'] / wall:.4g} codes/s; decode wait "
-                  f"{st['decode_secs']:.2f} s (decode thread busy "
+            st, walls[crit] = run_build(build_sketch, lst, crit, "device",
+                                        dev)
+            print(f"  [{card}] {build_label(crit, st)}: {st['genomes']} "
+                  f"files, {st['codes']} codes in {walls[crit]:.2f} s = "
+                  f"{st['codes'] / walls[crit]:.4g} codes/s; decode wait "
+                  f"{st['decode_secs']:.2f} s (decode threads busy "
                   f"{st['decode_busy_secs']:.2f} s), "
                   f"pack {st['pack_secs']:.2f} s ({st['packs']} packs), "
                   f"chunked {st['chunked_secs']:.2f} s "
                   f"({st['chunked_genomes']} genomes), fetch "
                   f"{st['fetch_secs']:.3f} s, {st['smh_fallbacks']} SMH "
                   f"fallbacks")
+            check(st["decoder"] == "native", "the build did not decode with "
+                  "the native reader")
+            want = sketch_bytes(files, crit)
+            nst, wall = run_build(build_sketch, lst, crit, "native", dev)
+            same = sketch_bytes(files, crit) == want
+            print(f"  [{card}] {build_label(crit, nst)}: {nst['genomes']} "
+                  f"files in {wall:.2f} s = {st['codes'] / wall:.4g} codes/s "
+                  f"({walls[crit] / wall:.2f}x the device pipeline's); "
+                  f"files identical to its: {same}")
+            check(same, f"-c {crit}: native backend's files differ")
+            sub_want = sketch_bytes(sub, crit)
+            for decoder in ("native", "python"):
+                with (python_decoder(fasta) if decoder == "python"
+                      else contextlib.nullcontext()):
+                    sst, wall = run_build(build_sketch, sub_lst, crit,
+                                          "device", dev)
+                same = sketch_bytes(sub, crit) == sub_want
+                print(f"  [{card}] subset {build_label(crit, sst)}: "
+                      f"{sst['genomes']} files, {sst['codes']} codes in "
+                      f"{wall:.2f} s = {sst['codes'] / wall:.4g} codes/s; "
+                      f"decode wait {sst['decode_secs']:.2f} s (decode "
+                      f"threads busy {sst['decode_busy_secs']:.2f} s), pack "
+                      f"{sst['pack_secs']:.2f} s, chunked "
+                      f"{sst['chunked_secs']:.2f} s "
+                      f"({sst['chunked_genomes']} genomes); files "
+                      f"identical: {same}")
+                check(sst["decoder"] == decoder, f"decoder {sst['decoder']}")
+                check(same, f"-c {crit} subset ({decoder} decoder): files "
+                      "differ")
         profile_pack(torch, bank_mod, fasta, files, dev, card)
 
         pair_names = [{files[b], files[c]} for b, c in far]
@@ -826,8 +938,8 @@ def phase_dense_cli(models, cli, hostref, format_results, names, lst, ref4,
     base = ["-l", lst, "-a", "256", "-h", "0.9", "--device", str(dev)]
     fbank = models.SketchBank.from_sketch_files(names, criterion="smh_a")
     order = fbank.sorted_by_cardinality()
-    oracle = hostref.PairOracle(
-        14, fbank.regs[order], np.trunc(fbank.cards[order]),
+    oracle = pooled_oracle(
+        hostref, fbank.regs[order], np.trunc(fbank.cards[order]),
         aux=fbank.aux[order], aux_param=32, criterion="smh_only", tau=0.9,
         apply_cb=False)
     ref4["smh_only"] = format_results(
@@ -995,6 +1107,7 @@ def main():
     sys.path.insert(0, HERE)
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
+    from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import (_build, estimators,
                                                       pairwise, screen)
     from cuda_selection_criteria_tpu_torch.parallel import (scheduler,
@@ -1020,15 +1133,25 @@ def main():
     print(nvcc.strip().splitlines()[-1])
 
     print("== phase 2: build", flush=True)
-    for name, (path, build_secs, log) in _build.build().items():
-        print(log.strip())
-        print(f"built {os.path.relpath(path, HERE)} in {build_secs:.2f} s")
-        spills = [ln for ln in log.splitlines() if "spill" in ln
-                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
-        check(not spills, f"{name}: ptxas spills registers: {spills}")
-        check("serialized" not in log,
-              f"{name}: ptxas serializes the wgmma (see the log above)")
-        _build.library(name)
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(fastx.info)  # g++ builds while nvcc does
+        for name, (path, build_secs, log) in _build.build().items():
+            print(log.strip())
+            print(f"built {os.path.relpath(path, HERE)} in {build_secs:.2f} s")
+            spills = [ln for ln in log.splitlines() if "spill" in ln and
+                      "0 bytes spill stores, 0 bytes spill loads" not in ln]
+            check(not spills, f"{name}: ptxas spills registers: {spills}")
+            check("serialized" not in log,
+                  f"{name}: ptxas serializes the wgmma (see the log above)")
+            _build.library(name)
+        info = host_lib.result()
+    print(info["log"].strip())
+    check(info["error"] is None, f"libfastx did not build: {info['error']}")
+    gxx = subprocess.run([_build.GXX, "--version"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    print(f"built {os.path.relpath(info['path'], HERE)} in "
+          f"{info['build_secs']:.2f} s with {gxx.splitlines()[0]}; zlib "
+          f"{info['zlib']}")
 
     print("== phase 3: kernel vs plain", flush=True)
     max_err = max(phase_kernel_p8(torch, screen, screened, dev),
@@ -1126,6 +1249,36 @@ def main():
     lst = os.path.join(tmp, "list.txt")
     with open(lst, "w") as fh:
         fh.write("\n".join(names) + "\n")
+    t0 = time.perf_counter()
+    loaded = [fastx.read_hll_batch([f + ".hll" for f in names], 14, 8),
+              fastx.read_hll_batch([f + ".hll_8" for f in names], 8, 8),
+              fastx.read_smh_batch([f + ".smh32" for f in names], 32, 8)]
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read = [np.stack([formats.read_hll(f + ".hll")[1] for f in names]),
+            np.stack([formats.read_hll(f + ".hll_8")[1] for f in names]),
+            np.stack([formats.read_smh(f + ".smh32") for f in names])]
+    t_numpy = time.perf_counter() - t0
+    err = max(max_abs_diff(a, b) for a, b in zip(loaded, read))
+    print(f"  [{card}] load {n4} x (.hll, .hll_8, .smh32): native batch "
+          f"readers on 8 threads {t_native:.3f} s, numpy readers "
+          f"{t_numpy:.3f} s ({t_numpy / t_native:.2f}x); max_abs_err={err}")
+    check(err == 0, "native loaders differ from the numpy readers")
+    ii, kk = np.random.default_rng(4).integers(0, n4, size=(2, 1 << 16))
+    hists = {}
+    for how, fn in (("native, 8 threads", hostref.pair_union_histograms),
+                    ("native, 1 thread", lambda *a: fastx.
+                     pair_union_hist(*a, threads=1)),
+                    ("numpy", hostref.pair_union_histograms_np)):
+        t0 = time.perf_counter()
+        hists[how] = fn(read[0], ii, kk)
+        secs = time.perf_counter() - t0
+        print(f"  [{card}] union histograms of {len(ii)} pairs at p=14, "
+              f"{how}: {secs:.3f} s = {len(ii) / secs:.5g} pairs/s")
+    check(all(np.array_equal(h, hists["numpy"]) for h in hists.values()),
+          "native union histograms differ from numpy's")
+    check(hostref.hist_backend() == "native", "the oracle's histograms are "
+          "not the native ones")
     for crit in ("smh_a", "cb", "baseline", "hll_a", "hll_an"):
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -1143,13 +1296,14 @@ def main():
             # the vectorized oracle is the same f64 cascade
             # (tests/test_torch_hostref.py holds them equal)
             order = fbank.sorted_by_cardinality()
-            oracle = hostref.PairOracle(
-                14, fbank.regs[order], np.trunc(fbank.cards[order]),
+            oracle = pooled_oracle(
+                hostref, fbank.regs[order], np.trunc(fbank.cards[order]),
                 criterion="baseline", tau=0.9, apply_cb=False)
             want = format_results(
                 [(names[order[i]], names[order[k]], j)
                  for i, k, j in oracle_all_pairs(oracle, n4)])
-            how = "PairOracle.confirm_pairs over all pairs, 8 threads"
+            how = ("PairOracle.confirm_pairs over all pairs, 8 threads, "
+                   f"{hostref.hist_backend()} union histograms")
         else:
             want = format_results(hostref.select_pairs_host(
                 fbank, 0.9, crit))

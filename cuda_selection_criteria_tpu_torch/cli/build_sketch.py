@@ -10,10 +10,12 @@ the JAX package's cli/build_sketch.py.
 
 -a semantics match the reference: aux BYTES; p_aux = ctz(bytes) for hll_a /
 hll_an, m = bytes/8 buckets for smh_a (src/build_sketch.cpp:242,258,274).
--t is accepted for flag parity: the pure-Python FASTA reader decodes on one
-host thread (models/bank.build_bank_from_files says why).
---device picks the torch device of the sketch builds (default cuda; cpu
-runs the same torch ops on the host).
+-t sets the host threads: the FASTA decode threads of the device pipeline
+(the native reader; the pure-Python one, used where the native library does
+not build, decodes on one), or the build threads of --backend native.
+--backend native builds the sketches on the host with the native
+single-pass builder; device and auto run the torch pipeline on --device
+(default cuda; cpu runs the same torch ops on the host).
 """
 
 import argparse
@@ -30,8 +32,9 @@ def main(argv=None, stats=None):
     ap.add_argument("-c", dest="criterion", default="")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "device", "native"],
-                    help="sketch builder: device (the torch pipeline; auto "
-                         "resolves to it); native is not ported yet")
+                    help="sketch builder: device (the torch pipeline on "
+                         "--device; auto resolves to it) or native (the C++ "
+                         "single-pass builder on -t host threads)")
     ap.add_argument("--bank", dest="bank_out", default=None,
                     help="also save a stacked .npz sketch bank")
     ap.add_argument("--device", default="cuda",
@@ -50,7 +53,8 @@ def main(argv=None, stats=None):
     files = load_file_list(args.list_file)
     bank = build_bank_from_files(
         files, criterion=args.criterion, aux_bytes=args.aux_bytes,
-        backend=args.backend, device=args.device, stats=stats)
+        io_threads=max(1, args.threads), backend=args.backend,
+        device=args.device, stats=stats)
     bank.write_sketch_files()
     if args.bank_out:
         formats.save_bank(

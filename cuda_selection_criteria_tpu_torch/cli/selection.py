@@ -69,11 +69,13 @@ def main(argv=None):
     from ..utils.resilience import run_with_transient_retry
 
     files = load_file_list(args.list_file)
-    # -t is accepted for flag parity; the numpy loader reads on one thread
     load_crit = {"hll_a": "hll_a", "hll_an": "hll_an", "smh_a": "smh_a",
                  "smh_only": "smh_a"}.get(args.criterion)
+    # -t: the reference's OpenMP thread count (src/selection.cpp:113-115);
+    # here the threads that load the sketch files
     bank = SketchBank.from_sketch_files(files, criterion=load_crit,
-                                        aux_bytes=args.aux_bytes)
+                                        aux_bytes=args.aux_bytes,
+                                        io_threads=max(1, args.threads))
     params = SelectionParams(
         tau=args.threshold,
         criterion=args.criterion,

@@ -57,7 +57,8 @@ def main(argv=None):
 
     import numpy as np
 
-    from ..models.bank import SketchBank, build_bank_from_files, load_hll_bank
+    from ..models.bank import (PRIMARY_P, SketchBank, build_bank_from_files,
+                               load_hll_bank)
     from ..ops import criteria
     from ..parallel.screened import ScreenPlan
     from ..parallel.selection import SelectionParams, select_pairs
@@ -70,11 +71,13 @@ def main(argv=None):
 
     # --- build: SMH in memory (device), primary .hll from disk ---
     t0 = time.perf_counter()
-    # -t is accepted for flag parity: the FASTA decode runs on one thread
+    threads = max(1, args.threads)
     smh_bank = build_bank_from_files(files, criterion="smh_a",
-                                     aux_bytes=8 * m, device=dev)
+                                     aux_bytes=8 * m, io_threads=threads,
+                                     device=dev)
     bank = SketchBank(
-        names=list(files), regs=load_hll_bank([f + ".hll" for f in files]),
+        names=list(files),
+        regs=load_hll_bank([f + ".hll" for f in files], PRIMARY_P, threads),
         aux_kind="smh", aux=smh_bank.aux, aux_param=m)
     _sync(dev)
     build_secs = time.perf_counter() - t0

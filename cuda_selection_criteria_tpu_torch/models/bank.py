@@ -5,8 +5,11 @@ Host numpy, like cuda_selection_criteria_tpu/models/bank.py: registers
 (N, 2^p) uint8, aux sketches stacked, cardinalities from the host f64
 ERTL-MLE. The screened engine uploads the registers to the device itself
 (parallel/screened.ScreenPlan). build_bank_from_files decodes the files on
-a host thread and builds the sketches on the device with torch ops
-(ops/kmers, ops/hll_build, ops/smh_build).
+host threads and builds the sketches on the device with torch ops
+(ops/kmers, ops/hll_build, ops/smh_build), or on the host with the native
+single-pass builder (backend="native"). The sketch-file loaders read
+through the native threaded batch readers, or numpy where the native
+library does not build.
 """
 
 import glob
@@ -19,6 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..native import fastx as native
 from ..ops import hll_build, smh_build
 from ..ops.hashes import umin, wang_hash64
 from ..ops.kmers import canonical_kmers
@@ -100,27 +104,33 @@ class SketchBank:
         )
 
     @classmethod
-    def from_sketch_files(cls, files, criterion=None, aux_bytes=256):
+    def from_sketch_files(cls, files, criterion=None, aux_bytes=256,
+                          io_threads=16):
         """Load .hll (+ .hll_{p_aux} / .smh{m}) files like the reference's
         selection binaries (src/selection.cpp:122-256): hll_a / hll_an read
         the aux HLL at p_aux = ctz(aux_bytes), smh_a the SMH of
         aux_bytes / 8 buckets.
 
-        Reads with the numpy readers of utils/formats; the threaded
-        native loader is a later slice (ROADMAP.md queue 1)."""
+        Reads on `io_threads` threads with the native batch readers
+        (the reference reads one gz file per genome per sketch on one
+        thread), or with the numpy readers of utils/formats where the
+        native library does not build: the same bytes either way."""
         if criterion not in (None, "smh_a", "hll_a", "hll_an"):
             raise NotImplementedError(
                 f"loading aux sketches for {criterion!r} is not ported yet "
                 "(ROADMAP.md queue 1)")
-        regs = load_hll_bank([f + ".hll" for f in files])
+        regs = load_hll_bank([f + ".hll" for f in files], PRIMARY_P,
+                             io_threads)
         aux_kind = aux = aux_param = None
         if criterion in ("hll_a", "hll_an"):
             p_aux = _ctz(aux_bytes)
-            aux = load_hll_bank([f + f".hll_{p_aux}" for f in files])
+            aux = load_hll_bank([f + f".hll_{p_aux}" for f in files], p_aux,
+                                io_threads)
             aux_kind, aux_param = "hll", p_aux
         elif criterion == "smh_a":
             m = aux_bytes // 8
-            aux = np.stack([formats.read_smh(f + f".smh{m}") for f in files])
+            aux = load_smh_bank([f + f".smh{m}" for f in files], m,
+                                io_threads)
             aux_kind, aux_param = "smh", m
         return cls(names=list(files), regs=regs, aux_kind=aux_kind, aux=aux,
                    aux_param=aux_param)
@@ -211,11 +221,30 @@ class SketchBank:
         )
 
 
-def load_hll_bank(paths):
-    """Stacked uint8 (N, 2^p) registers from .hll files (the numpy reader;
-    the JAX package's threaded native loader is ROADMAP.md queue 1,
-    item 11)."""
+def load_hll_bank(paths, p, io_threads=16):
+    """Stacked uint8 (N, 2^p) registers from .hll files: the native
+    threaded batch reader on `io_threads` threads, or the numpy reader
+    where the native library does not build or the batch reader refuses a
+    file (a missing one, or one of another p: the numpy reader then
+    raises or reads it as it is, as the JAX package's loader does)."""
+    if native.available():
+        try:
+            return native.read_hll_batch(paths, p, threads=io_threads)
+        except IOError:
+            pass
     return np.stack([formats.read_hll(f)[1] for f in paths])
+
+
+def load_smh_bank(paths, m, io_threads=16):
+    """Stacked uint64 (N, m) SuperMinHash buckets from .smh{m} files, read
+    like load_hll_bank (a file of another bucket count goes to the numpy
+    reader)."""
+    if native.available():
+        try:
+            return native.read_smh_batch(paths, m, threads=io_threads)
+        except IOError:
+            pass
+    return np.stack([formats.read_smh(f) for f in paths])
 
 
 def _norm_npz(path):
@@ -362,55 +391,112 @@ def _decode(path):
     return codes, time.perf_counter() - t0
 
 
+def _decoded(files, threads):
+    """(codes, decode seconds) of each file in order, decoded on `threads`
+    threads at most 2 * threads files ahead of the caller, so a corpus of
+    10^5 genomes is never all in memory at once."""
+    pool = ThreadPoolExecutor(max_workers=threads)
+    ahead = deque()
+    try:
+        todo = iter(files)
+        for f in todo:
+            ahead.append(pool.submit(_decode, f))
+            if len(ahead) == 2 * threads:
+                break
+        while ahead:
+            done = ahead.popleft()
+            f = next(todo, None)
+            if f is not None:
+                ahead.append(pool.submit(_decode, f))
+            yield done.result()
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _build_bank_native(files, aux_kind, aux_param, k, io_threads, st):
+    """The native single-pass host builder (native/fastx.cpp) on a pool of
+    io_threads threads, one file a task; each ctypes call releases the
+    interpreter lock, so the pool runs like the reference's OpenMP loop.
+    The bank's bytes equal the device path's."""
+    if not native.available():
+        raise ImportError("backend='native' needs the native fastx library: "
+                          + native.info()["error"])
+    p_aux = aux_param if aux_kind == "hll" else 0
+    m = aux_param if aux_kind == "smh" else 0
+
+    def one(f):
+        regs, regs_aux, smh, n_kmers = native.build_sketches(
+            f, k=k, p=PRIMARY_P, p_aux=p_aux, m=m)
+        return regs, (regs_aux if aux_kind == "hll" else smh), n_kmers
+
+    with ThreadPoolExecutor(max_workers=io_threads) as pool:
+        results = list(pool.map(one, files))
+    st["kmers"] = sum(n for _, _, n in results)
+    return SketchBank(
+        names=list(files), regs=np.stack([r for r, _, _ in results]),
+        aux_kind=aux_kind, aux_param=aux_param,
+        aux=(np.stack([a for _, a, _ in results])
+             if aux_kind is not None else None))
+
+
 def build_bank_from_files(files, criterion=None, aux_bytes=256, k=DEFAULT_K,
-                          backend="auto", device=None, stats=None):
+                          io_threads=8, backend="auto", device=None,
+                          stats=None):
     """Build a SketchBank from FASTA/FASTQ files (parity: build_sketch).
 
-    Host FASTA decode runs on one background thread while the device
-    builds the sketches: genomes up to the pack budget go PACK_GENOMES to
-    a device pass, at most two passes in flight before the oldest is
-    fetched; larger genomes stream through sketch_codes_device. The bank's
-    bytes equal the JAX package's build_bank_from_files(..., backend=
-    "device").
+    backend:
+      "device" (and "auto") - host FASTA decode on io_threads threads
+        (utils/fasta.fasta_codes: the native reader, which releases the
+        interpreter lock) while the device builds the sketches: genomes up
+        to the pack budget go PACK_GENOMES to a device pass, at most two
+        passes in flight before the oldest is fetched; larger genomes
+        stream through sketch_codes_device. Where the native reader does
+        not build, the pure-Python reader decodes on one thread: it holds
+        the interpreter lock for each line, and a pool of 8 built a
+        0.31 Gbp corpus 4.4x slower than one thread on the H100 machine's
+        host (PERF.md).
+      "native" - the C++ single-pass host builder on io_threads threads;
+        raises ImportError where the native library does not build.
+    "auto" is the device pipeline, unlike the JAX package, whose "auto"
+    sends corpora under 32 MiB to the host builder to spare a remote
+    TPU's per-dispatch latency. The bank's bytes are the same on every
+    backend and equal the JAX package's.
 
-    One decode thread, not a pool: the pure-Python reader holds the
-    interpreter lock for each line, so more threads only contend for it
-    and starve the thread that drives the device (on the H100 machine's
-    8-core host a pool of 8 built a 0.31 Gbp corpus 4.4x slower than one
-    thread; PERF.md). The JAX package's io_threads serves its native
-    reader, which is not ported (ROADMAP.md queue 1, item 11).
-
-    backend: "device" (or "auto", which resolves to it) is this path.
-    "native" (the JAX package's C++ single-pass builder) is not ported:
-    it raises NotImplementedError.
-    device: torch device of the sketch builds; None means CUDA.
-    stats: optional dict, filled with the build's stage seconds:
+    device: torch device of the device pipeline; None means CUDA.
+    stats: optional dict, filled with backend ("device" or "native"),
+    decoder ("native" or "python"), io_threads (the decode or build
+    threads used), genomes, and for the native backend kmers (k-mers
+    consumed); for the device pipeline the stage seconds
       decode_secs   main-thread wait for decoded files (host decode the
                     device work did not hide)
-      decode_busy_secs  per-file decode walls summed (the decode thread)
+      decode_busy_secs  per-file decode walls summed (the decode threads)
       pack_secs     pack assembly, upload, launches and the fetch of
                     finished packs (includes their device time)
       chunked_secs  the per-genome chunked path, device time included
       fetch_secs    stacking the fetched rows into the bank arrays
       smh_fallbacks packs that took the full SuperMinHash pass
-    and counts: genomes, codes (decoded stream length: bases plus one
-    reset per record), packs, chunked_genomes.
+    and counts: codes (decoded stream length: bases plus one reset per
+    record), packs, chunked_genomes.
     """
-    if backend == "native":
-        raise NotImplementedError(
-            "backend='native' (the C++ single-pass builder) is not ported "
-            "to the torch package yet: ROADMAP.md queue 1, item 11")
-    if backend not in ("auto", "device"):
+    if backend not in ("auto", "device", "native"):
         raise ValueError(f"unknown backend {backend!r}")
+    aux_kind, aux_param = aux_spec(criterion, aux_bytes)
+    st = {} if stats is None else stats
+    if backend == "native":
+        st.update(backend="native", decoder="native",
+                  io_threads=io_threads, genomes=len(files))
+        return _build_bank_native(files, aux_kind, aux_param, k, io_threads,
+                                  st)
     dev = resolve(device)
     torch.empty(0, device=dev)  # a missing card raises here, not mid-build
-    aux_kind, aux_param = aux_spec(criterion, aux_bytes)
     pack_codes = PACK_CODES
     if aux_kind == "smh":
         pack_codes = min(PACK_CODES, SMH_CANDIDATES // aux_param)
 
-    st = {} if stats is None else stats
-    st.update(decode_secs=0.0, decode_busy_secs=0.0, pack_secs=0.0,
+    decoder = fasta.decoder()
+    threads = io_threads if decoder == "native" else 1
+    st.update(backend="device", decoder=decoder, io_threads=threads,
+              decode_secs=0.0, decode_busy_secs=0.0, pack_secs=0.0,
               chunked_secs=0.0, fetch_secs=0.0, smh_fallbacks=0,
               genomes=len(files), codes=0, packs=0, chunked_genomes=0)
     regs_list = [None] * len(files)
@@ -448,32 +534,30 @@ def build_bank_from_files(files, criterion=None, aux_bytes=256, k=DEFAULT_K,
         st["packs"] += 1
         pack, pack_size = [], 0
 
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        decoded = pool.map(_decode, files)
+    t_wait = time.perf_counter()
+    for i, (codes, busy) in enumerate(_decoded(files, threads)):
+        st["decode_secs"] += time.perf_counter() - t_wait
+        st["decode_busy_secs"] += busy
+        st["codes"] += int(codes.size)
+        if codes.size > pack_codes:
+            t0 = time.perf_counter()
+            regs, aux = sketch_codes_device(codes, k, PRIMARY_P, aux_kind,
+                                            aux_param, dev)
+            regs_list[i] = regs.cpu().numpy()
+            aux_list[i] = as_np(aux) if aux is not None else None
+            st["chunked_secs"] += time.perf_counter() - t0
+            st["chunked_genomes"] += 1
+        else:
+            if (pack_size + codes.size > pack_codes
+                    or len(pack) == PACK_GENOMES):
+                flush()
+            pack.append((i, codes))
+            pack_size += codes.size
         t_wait = time.perf_counter()
-        for i, (codes, busy) in enumerate(decoded):
-            st["decode_secs"] += time.perf_counter() - t_wait
-            st["decode_busy_secs"] += busy
-            st["codes"] += int(codes.size)
-            if codes.size > pack_codes:
-                t0 = time.perf_counter()
-                regs, aux = sketch_codes_device(codes, k, PRIMARY_P, aux_kind,
-                                                aux_param, dev)
-                regs_list[i] = regs.cpu().numpy()
-                aux_list[i] = as_np(aux) if aux is not None else None
-                st["chunked_secs"] += time.perf_counter() - t0
-                st["chunked_genomes"] += 1
-            else:
-                if (pack_size + codes.size > pack_codes
-                        or len(pack) == PACK_GENOMES):
-                    flush()
-                pack.append((i, codes))
-                pack_size += codes.size
-            t_wait = time.perf_counter()
-        flush()
-        t0 = time.perf_counter()
-        retire(drain=True)
-        st["pack_secs"] += time.perf_counter() - t0
+    flush()
+    t0 = time.perf_counter()
+    retire(drain=True)
+    st["pack_secs"] += time.perf_counter() - t0
 
     t0 = time.perf_counter()
     regs = np.stack(regs_list)

@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernels at first use.
+"""Build and load the port's CUDA kernels and its host library at first
+use.
 
 Each kernel source csrc/<name>.cu is compiled by `nvcc` for sm_90a into a
 shared library of its own with a plain C interface, under
@@ -6,6 +7,8 @@ cuda_selection_criteria_tpu_torch/build/ (listed in .gitignore), which
 ctypes loads. A library's name carries a hash of its source and of the
 shared headers (csrc/*.cuh), so an edited kernel is rebuilt and a stale one
 is never loaded. build() starts one nvcc per missing library, all at once.
+build_host() compiles the host C++ library (native/fastx.cpp) with g++ into
+the same directory, named by a hash of its source, flags and host CPU.
 Compiles only from the sources in this package; nothing is downloaded.
 """
 
@@ -13,6 +16,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import time
@@ -22,6 +26,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX = "g++"
+GXX_FLAGS = ["-O3", "-std=c++17", "-march=native", "-fPIC", "-Wall",
+             "-shared"]
+GXX_LIBS = ["-lz", "-lpthread"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -119,3 +127,48 @@ def library(name):
         fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def _host_cpu():
+    """The host CPU's model and feature flags: code built with
+    -march=native on one CPU may not run on another, and a checkout (its
+    build directory included) can be copied to another machine."""
+    try:
+        with open("/proc/cpuinfo") as fh:
+            return "".join(line for line in fh
+                           if line.startswith(("model name", "flags")))
+    except OSError:
+        return platform.machine()
+
+
+def build_host(source, name):
+    """Compile the C++ source with g++ into BUILD_DIR/lib{name}_{hash}.so,
+    unless a library of the same source, flags and host CPU exists.
+
+    Written under a temporary name and renamed into place, so processes
+    that build the same library at once never load a partial file.
+    Returns (library path, build seconds, compiler log); seconds is 0.0
+    and the log empty for a library that already existed. Raises
+    RuntimeError when g++ is missing or fails (no zlib.h, for one)."""
+    h = hashlib.sha1()
+    with open(source, "rb") as fh:
+        h.update(fh.read())
+    h.update(repr((GXX_FLAGS, GXX_LIBS)).encode())
+    h.update(_host_cpu().encode())
+    path = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
+    if os.path.exists(path):
+        return path, 0.0, ""
+    gxx = shutil.which(GXX)
+    if gxx is None:
+        raise RuntimeError(f"{GXX} not found: the host library {name} "
+                           "builds only where a C++ compiler is installed")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{path}.tmp{os.getpid()}"
+    cmd = [gxx, *GXX_FLAGS, source, "-o", tmp, *GXX_LIBS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {name}:\n{log}")
+    os.replace(tmp, path)
+    return path, time.perf_counter() - t0, log

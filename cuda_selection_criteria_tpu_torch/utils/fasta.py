@@ -1,6 +1,7 @@
 """FASTA/FASTQ ingestion: gzipped (or plain) files -> 2-bit base-code
-streams. Copy of cuda_selection_criteria_tpu/utils/fasta.py's pure-Python
-reader, with the same output byte for byte.
+streams. fasta_codes decodes with the native reader (native/fastx.cpp) when
+its library builds, else with fasta_codes_py, the pure-Python reader copied
+from cuda_selection_criteria_tpu/utils/fasta.py; both give the same bytes.
 
 Replaces the reference's SeqAn SeqFileIn + per-base switch
 (src/build_sketch.cpp:43-92) with a host-side byte translation producing
@@ -12,14 +13,15 @@ A reset sentinel is emitted for every non-ACGT sequence character (N, IUPAC
 ambiguity codes, ...) and one per record boundary - both reset the
 reference scanner's rolling window (src/build_sketch.cpp:80, record loop at
 :53). Newlines/CR inside a record are dropped (SeqAn concatenates sequence
-lines). The JAX package's native C++ reader is not ported yet (ROADMAP.md
-queue 1, item 11).
+lines).
 """
 
 import gzip
 import io
 
 import numpy as np
+
+from ..native import fastx
 
 SENTINEL = np.uint8(4)
 
@@ -75,6 +77,18 @@ def fasta_codes_py(path):
     return np.concatenate(chunks)
 
 
+def decoder():
+    """The reader fasta_codes uses in this process: "native" or "python"."""
+    return "native" if fastx.available() else "python"
+
+
 def fasta_codes(path):
-    """FASTA/FASTQ -> uint8 code array (the pure-Python reader)."""
-    return fasta_codes_py(path)
+    """FASTA/FASTQ -> uint8 code array: the native reader when its library
+    builds (it releases the interpreter lock, so threads decode in
+    parallel), else the pure-Python reader. A file without a record or a
+    base gives the Python reader's empty array (the native reader returns
+    its lone leading reset; both give no k-mer)."""
+    if not fastx.available():
+        return fasta_codes_py(path)
+    codes = fastx.fasta_codes(path)
+    return codes[:0] if codes.size == 1 else codes

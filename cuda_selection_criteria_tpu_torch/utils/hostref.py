@@ -11,6 +11,7 @@ import math
 
 import numpy as np
 
+from ..native import fastx
 from ..ops.criteria import smh_band_params, zs_series
 from ..ops.estimators import sigma
 
@@ -178,6 +179,24 @@ def pair_union_histograms_np(regs, ii, kk, block=64):
     return out
 
 
+def hist_backend():
+    """The path pair_union_histograms takes in this process: "native" or
+    "numpy"."""
+    return "native" if fastx.available() else "numpy"
+
+
+def pair_union_histograms(regs, ii, kk):
+    """Histograms of max(regs[i], regs[k]) for index-paired rows, (B, 64)
+    int64 exact counts: the native fused gather + max + histogram
+    (fastx.pair_union_hist, each register byte read once) when its library
+    builds, else pair_union_histograms_np. A register value >= 64 or a row
+    index out of range raises ValueError on the native path."""
+    regs = np.asarray(regs)
+    if regs.dtype == np.uint8 and fastx.available():
+        return fastx.pair_union_hist(regs, ii, kk)
+    return pair_union_histograms_np(regs, ii, kk)
+
+
 def union_size(regs_a, regs_b, p):
     return ertl_mle_scalar(histogram(np.maximum(regs_a, regs_b)), p)
 
@@ -231,7 +250,7 @@ class PairOracle:
                     f"oracle's tau={tau}; pass the oracle's tau to "
                     "device_hist_fn")
         self.hist_fn = hist_fn or (
-            lambda ii, kk: pair_union_histograms_np(self.regs, ii, kk)
+            lambda ii, kk: pair_union_histograms(self.regs, ii, kk)
         )
         if criterion in ("smh_a", "smh_only"):
             self.n_rows, self.n_bands = smh_band_params(aux_param, float(tau))
@@ -308,7 +327,7 @@ class PairOracle:
             keep = []
             for c0 in range(0, sel.size, batch):
                 sub = sel[c0:c0 + batch]
-                t_hat = ertl_mle_batch(pair_union_histograms_np(
+                t_hat = ertl_mle_batch(pair_union_histograms(
                     self.aux, ii[sub], kk[sub]), self.aux_param)
                 with np.errstate(invalid="ignore"):
                     if crit == "hll_a":

@@ -119,7 +119,8 @@ def test_build_bank_matches_jax(corpus, tmp_path, crit, aux_bytes):
     jb = jbank.build_bank_from_files(jfiles, crit, aux_bytes,
                                      backend="device")
     stats = {}
-    tb = tbank.build_bank_from_files(tfiles, crit, aux_bytes, device="cpu",
+    tb = tbank.build_bank_from_files(tfiles, crit, aux_bytes,
+                                     backend="device", device="cpu",
                                      stats=stats)
     np.testing.assert_array_equal(tb.regs, jb.regs)
     assert tb.aux.dtype == jb.aux.dtype
@@ -139,10 +140,12 @@ def test_build_bank_matches_jax(corpus, tmp_path, crit, aux_bytes):
 def test_build_bank_chunked_and_packed_paths_agree(corpus, monkeypatch):
     """Genomes above the pack budget take the per-genome chunked path: the
     bank is the same either way."""
-    packed = tbank.build_bank_from_files(corpus, "smh_a", 256, device="cpu")
+    packed = tbank.build_bank_from_files(corpus, "smh_a", 256,
+                                         backend="device", device="cpu")
     monkeypatch.setattr(tbank, "PACK_CODES", 1024)
     stats = {}
-    chunked = tbank.build_bank_from_files(corpus, "smh_a", 256, device="cpu",
+    chunked = tbank.build_bank_from_files(corpus, "smh_a", 256,
+                                          backend="device", device="cpu",
                                           stats=stats)
     assert stats["chunked_genomes"] == 6
     np.testing.assert_array_equal(chunked.regs, packed.regs)
@@ -185,19 +188,21 @@ def test_build_sketch_cli_matches_jax(corpus, tmp_path, capsys):
                                 "are hll_a, hll_an and smh_a.")
 
 
-def test_build_refuses_native_and_missing_card(corpus, tmp_path):
-    """No silent fallback: backend="native" is not ported, and the default
-    device is CUDA, which raises on a machine without a card."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tbank.build_bank_from_files(corpus, "smh_a", backend="native",
-                                    device="cpu")
-    lst = _list(corpus, tmp_path / "list.txt")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_cli.main(["-l", lst, "-c", "hll_a", "--backend", "native"])
+def test_build_refuses_missing_card(corpus, tmp_path):
+    """No silent fallback: the default device is CUDA, which raises on a
+    machine without a card, for backend "auto" (the device pipeline, never
+    the host builder) and "device", in the function and the CLI; an
+    unknown backend raises. (backend="native": tests/test_torch_native.py.)"""
+    with pytest.raises(ValueError, match="unknown backend"):
+        tbank.build_bank_from_files(corpus, "smh_a", backend="host")
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
+    for backend in ("auto", "device"):
+        with pytest.raises((AssertionError, RuntimeError)):
+            tbank.build_bank_from_files(corpus, "smh_a", backend=backend)
+    lst = _list(corpus, tmp_path / "list.txt")
     with pytest.raises((AssertionError, RuntimeError)):
-        tbank.build_bank_from_files(corpus, "smh_a")
+        build_cli.main(["-l", lst, "-c", "hll_a"])
 
 
 def _stdout(main, argv, capsys):
@@ -213,8 +218,8 @@ def built_list(corpus, tmp_path_factory):
     d = tmp_path_factory.mktemp("built")
     files = _copy(corpus, d / "fa")
     lst = _list(files, d / "list.txt")
-    assert build_cli.main(["-l", lst, "-a", "32", "-c", "smh_a", "--device",
-                           "cpu"]) == 0
+    assert build_cli.main(["-l", lst, "-a", "32", "-c", "smh_a", "--backend",
+                           "device", "--device", "cpu"]) == 0
     return lst, files
 
 

@@ -96,7 +96,8 @@ def test_import_leaves_jax_out():
     mods = ["cuda_selection_criteria_tpu_torch"] + [
         f"cuda_selection_criteria_tpu_torch.{m}" for m in (
             "cli.build_sketch", "cli.selection", "cli.time_smh",
-            "models.bank", "models.hll", "models.smh", "ops._build",
+            "models.bank", "models.hll", "models.smh", "native",
+            "native.fastx", "ops._build",
             "ops.criteria", "ops.estimators", "ops.hashes", "ops.hll_build",
             "ops.kmers", "ops.pairwise", "ops.screen", "ops.smh_build",
             "parallel.scheduler", "parallel.screened", "parallel.selection",

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1 screen_fused, K2 weighted_cdf_sum) and their
 card paths against their plain versions, bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
-torch ops and the dense engine (indicator products, the ERTL-MLE) on the
-card against the same ops on the CPU and the host oracle.
+torch ops (fed by the native FASTA reader) and the dense engine (indicator
+products, the ERTL-MLE) on the card against the same ops on the CPU, the
+native host builder and the host oracle.
 
 Needs an NVIDIA card: every test skips without one (the kernels have no CPU
 mode). Imports neither JAX nor the reference package, so it also runs on
@@ -23,6 +24,7 @@ import torch
 from cuda_selection_criteria_tpu_torch.models import SketchBank
 from cuda_selection_criteria_tpu_torch.models import bank as tbank
 from cuda_selection_criteria_tpu_torch.models.bank import host_cards
+from cuda_selection_criteria_tpu_torch.native import fastx
 from cuda_selection_criteria_tpu_torch.ops import (estimators, pairwise,
                                                   screen)
 from cuda_selection_criteria_tpu_torch.parallel import screened
@@ -390,7 +392,8 @@ def test_build_on_cuda_matches_cpu(cuda, tmp_path, crit, aux_bytes):
                                    np.random.default_rng(aux_bytes))
     stats = {}
     banks = {dev: tbank.build_bank_from_files(
-        files[dev], crit, aux_bytes, device=dev if dev == "cpu" else cuda,
+        files[dev], crit, aux_bytes, backend="device",
+        device=dev if dev == "cpu" else cuda,
         stats=stats if dev == "cuda" else None) for dev in ("cpu", "cuda")}
     np.testing.assert_array_equal(banks["cuda"].regs, banks["cpu"].regs)
     np.testing.assert_array_equal(banks["cuda"].aux, banks["cpu"].aux)
@@ -405,6 +408,29 @@ def test_build_on_cuda_matches_cpu(cuda, tmp_path, crit, aux_bytes):
         for sfx in (".hll", f".hll_{param}" if kind == "hll"
                     else f".smh{param}"):
             assert filecmp.cmp(a + sfx, b + sfx, shallow=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crit,aux_bytes", [("smh_a", 256), ("hll_a", 256),
+                                            ("hll_an", 512)])
+def test_build_native_decoder_on_cuda_matches_cpu_and_native(
+        cuda, tmp_path, crit, aux_bytes):
+    """The device pipeline on the card fed by the native FASTA reader on 4
+    threads gives the CPU build's bank and the native host builder's."""
+    assert fastx.available(), fastx.info()["error"]
+    files = _fasta_corpus(str(tmp_path), np.random.default_rng(9))
+    stats = {}
+    got = tbank.build_bank_from_files(files, crit, aux_bytes, io_threads=4,
+                                      backend="device", device=cuda,
+                                      stats=stats)
+    assert (stats["backend"], stats["decoder"], stats["io_threads"]) == (
+        "device", "native", 4)
+    for want in (tbank.build_bank_from_files(files, crit, aux_bytes,
+                                             backend="device", device="cpu"),
+                 tbank.build_bank_from_files(files, crit, aux_bytes,
+                                             io_threads=4, backend="native")):
+        np.testing.assert_array_equal(got.regs, want.regs)
+        np.testing.assert_array_equal(got.aux, want.aux)
 
 
 @pytest.mark.cuda
