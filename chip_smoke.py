@@ -13,7 +13,10 @@ Phases (any failure exits non-zero, without the final result line):
                 g++ builds the host library native/fastx.cpp (libfastx)
                 meanwhile: seconds, compiler and zlib versions; the run
                 fails if it does not build
-  3. kernel   - K1 vs its plain version, bit-equal hits and counts: p=8
+  3. kernel   - K1 vs its plain version, bit-equal hits and counts,
+                each single-bank case through both entry points
+                (screen_hits_fused, and the strip entry with one bank on
+                both sides and bases 0): p=8
                 (ti=64, every gate combination, with and without zero
                 registers, n_real < n, a truncated value list); planes
                 padded to one pipeline stage (p=5) and 8 bins (p=9); a
@@ -23,7 +26,15 @@ Phases (any failure exits non-zero, without the final result line):
                 two configurations, dense (the hll_a primary call: CB, no
                 bands) and gated (smh_a: CB and LSH bands), each timed
                 beside its plain version, its bound and torch._int_mm
-                counting the same CDFs. K2 vs its plain version, bit-equal
+                counting the same CDFs. K1's strip variant (the ring's
+                screen) vs its plain version: strips of 192 and 256 rows
+                at p=8, the column strip after, level with and before the
+                row strip and the triangle's edge inside a block, n_real
+                inside the column strip, every gate combination, with and
+                without zeros; and 64 tile pairs at p=14, ti=1024 between
+                two 4096-row strips of the hll bench bank, timed beside
+                its plain version, its bound and torch._int_mm with a
+                column bank. K2 vs its plain version, bit-equal
                 S and Z: p_aux = 5, 6, 8 (ti=64, tj=64 and 128, a separate
                 column bank, with and without zeros, a truncated value
                 list); p = 5, 7, 8, 9, 10, 14 with 1, 2, 3, 5 and 13 bins
@@ -83,9 +94,26 @@ Phases (any failure exits non-zero, without the final result line):
                 error; a checkpointed screened sweep cut to two records
                 and a torn line resumes to the same pairs with fewer K1
                 launches
+  9. multi    - the multi-device engines on a mesh that names the card four
+                times (four virtual devices: strips with non-zero bases):
+                select_pairs_ring and select_pairs_screened_sharded for
+                smh_a and hll_a on the phase 5 and 6 banks (K1's strip
+                variant and K2 launched), the ring for smh_a on N=65536
+                genomes (1 GiB of registers, strips of 256 MiB) read one
+                chunk a wave, with a position's masks within chunk_tiles *
+                ti^2 bytes and the card's allocator at each read within
+                the four positions' masks, each with
+                the checks of phase 5 and lines equal to the screened
+                engine's, walls and stage splits; the selection CLI with
+                --engine ring, --engine sharded, --sharded and --engine
+                dense-sharded on phase 4's files equal to the host
+                reference; select_pairs_multihost over 3 explicit tile
+                slices, merged, equal to the screened engine
 
 The last two lines are a JSON record of the kernels (launches on the main
-paths, times, bounds, library times) and the result line
+paths of phases 5 to 7, times, bounds, library times, and the launches of
+phase 9's ring and tile-sharded runs in records of their own) and the
+result line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -152,18 +180,97 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def kernel_vs_plain(torch, screen, args, kw):
-    """Launch K1 and its plain version on the same card tensors; return the
-    max |difference| over hits and counts (must be 0)."""
-    got = screen.screen_hits_fused(*args, **kw)
-    want = screen._screen_hits_fused_plain(*args, **kw)
-    torch.cuda.synchronize()
+def max_err(torch, got, want):
+    """max |difference| over the hits and counts of two K1 results."""
     err = 0
     for g, w in zip(got, want):
         check(g.shape == w.shape and g.dtype == w.dtype, "shape/dtype")
         err = max(err, int((g.to(torch.int64) - w.to(torch.int64))
                            .abs().max()))
-    return err, int(got[1].sum())
+    return err
+
+
+def kernel_vs_plain(torch, screen, args, kw):
+    """Launch K1 through both entry points (screen_hits_fused, and the strip
+    entry with one bank on both sides and bases 0) and its plain version on
+    the same card tensors; return the max |difference| over hits and
+    counts (must be 0) and the hits."""
+    got = screen.screen_hits_fused(*args, **kw)
+    regs, rows, cols, e, fp = args
+    strip = screen.screen_hits_fused_strips(regs, regs, rows, cols, e, e, fp,
+                                            fp, 0, 0, **kw)
+    want = screen._screen_hits_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return (max(max_err(torch, got, want), max_err(torch, strip, want)),
+            int(got[1].sum()))
+
+
+# K1's strip cases: a 192-row row strip and a 256-row column strip, with
+# (row_base, col_base) putting the column strip after, level with and
+# before the row strip, and the triangle's edge inside a 128-edge block
+STRIP_BASES = {"below": (0, 192), "equal": (64, 64), "above": (256, 192),
+               "edge in block": (96, 64)}
+
+
+def strip_inputs(screened, seed, lo, n_r, n_c):
+    """((regs, e, fp) of the row strip, of the column strip) at p=8: rows
+    of the column strip copy rows (and fingerprints) of the row strip."""
+    rows = edge_inputs(screened, seed, lo, 11, n_r, 8)
+    cols = edge_inputs(screened, seed + 1, lo, 11, n_c, 8)
+    for r, c in ((7, 5), (70, 130), (150, 250), (100, 64)):
+        for a, b in zip(cols, rows):
+            a[c] = b[r]
+    return rows, cols
+
+
+def strips_vs_plain(torch, screen, args, kw):
+    """K1's strip entry and its plain version on the same card tensors:
+    (max |difference|, hits)."""
+    got = screen.screen_hits_fused_strips(*args, **kw)
+    want = screen._screen_hits_fused_strips_plain(*args, **kw)
+    torch.cuda.synchronize()
+    return max_err(torch, got, want), int(got[1].sum())
+
+
+def phase_kernel_strips(torch, screen, screened, dev):
+    """K1's strip variant against its plain version, bit-equal, at p=8:
+    distinct strips of 192 and 256 rows, every base placement, n_real
+    inside the column strip, every gate combination, with and without zero
+    registers (ti=64); and ti=128 with large cardinalities, where the
+    triangle's edge alone bounds the hits inside a block."""
+    worst = 0
+    cases = []
+    for label, bases in STRIP_BASES.items():
+        for use_cb in (True, False):
+            for use_smh in (True, False):
+                for lo in (0, 2):
+                    cases.append((label, bases, use_cb, use_smh, lo, 64))
+        cases.append((label, bases, True, False, 0, 128))
+    for label, (row_base, col_base), use_cb, use_smh, lo, ti in cases:
+        n_r, n_c = (192, 256) if ti == 64 else (256, 384)
+        rows, cols = strip_inputs(screened, 200 + use_cb + 2 * use_smh, lo,
+                                  n_r, n_c)
+        if ti == 128:
+            rows[1][:] = cols[1][:] = 1.0e6
+        r_t, c_t = (([0, 1, 2, 0, 2], [0, 3, 1, 2, 3]) if ti == 64
+                    else ([0, 0], [0, 1]))
+        t = [torch.from_numpy(x).to(dev) for x in (*rows, *cols)]
+        args = (t[0], t[3], torch.tensor(r_t, dtype=torch.int32, device=dev),
+                torch.tensor(c_t, dtype=torch.int32, device=dev), t[1], t[4],
+                t[2], t[5], row_base, col_base)
+        vals = screen.bank_values(np.concatenate([rows[0], cols[0]]))
+        kw = dict(n_real=col_base + (150 if ti == 64 else 200),
+                  tau_scr=0.4 if ti == 64 else 0.9, tau_cb=0.35, p=8,
+                  values=vals, ti=ti, n_bands=4, use_cb=use_cb,
+                  use_smh=use_smh)
+        err, hits = strips_vs_plain(torch, screen, args, kw)
+        print(f"  K1 strips {label} (bases {row_base}, {col_base}) ti={ti} "
+              f"cb={use_cb} smh={use_smh} zeros={lo == 0}: hits={hits} "
+              f"max_abs_err={err}")
+        check(err == 0, f"K1 strips {label}: kernel != plain")
+        check(ti == 64 or hits > 0, f"K1 strips {label} ti=128: no hits")
+        worst = max(worst, err)
+    return worst
 
 
 def phase_kernel_p8(torch, screen, screened, dev):
@@ -325,6 +432,57 @@ def k1_config(torch, screen, label, args, kw, card):
           f" ms ({bound_by}), share of the bound {bound_ms / ms:.3f}; "
           f"library (torch._int_mm, {nbins} x {len(rows)} calls) "
           f"{library_ms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def k1_strips_config(torch, screen, plan, card):
+    """K1's strip variant on the ring's shape: 64 tile pairs at p=14,
+    ti=1024 between two 4096-row strips of the hll bench bank (rows
+    4096-8191 against rows 8192-12287, its 16 tile pairs four times; the
+    hll_a primary call: CB, no bands), against its plain version
+    (bit-equal), timed beside it, its bound and torch._int_mm with a
+    column bank; the bound as in k1_config."""
+    ti, r = 1024, 1 << 14
+    rows = slice(4096, 8192)
+    cols = slice(8192, 12288)
+    rr, cc = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
+    r_t = torch.from_numpy(np.tile(rr.ravel(), 4).astype(np.int32)).to(
+        plan.d_regs.device)
+    c_t = torch.from_numpy(np.tile(cc.ravel(), 4).astype(np.int32)).to(
+        plan.d_regs.device)
+    args = (plan.d_regs[rows], plan.d_regs[cols], r_t, c_t, plan.d_e[rows],
+            plan.d_e[cols], plan.d_fp[rows], plan.d_fp[cols], 4096, 8192)
+    kw = dict(n_real=plan.n, tau_scr=plan.tau_scr, tau_cb=plan.tau_cb, p=14,
+              values=plan.values, ti=ti, n_bands=1, use_cb=True,
+              use_smh=False)
+    err, hits = strips_vs_plain(torch, screen, args, kw)
+    nbins = len(kw["values"]) - 1
+    print(f"  K1 strips dense (hll_a primary) p=14 ti={ti} tiles={len(r_t)} "
+          f"bins={nbins}: hits={hits} max_abs_err={err}")
+    check(err == 0, "K1 strips dense: kernel != plain")
+    check(hits > 0, "K1 strips dense: the comparison saw no hits")
+    plain_ms = cuda_ms(torch, lambda: screen._screen_hits_fused_strips_plain(
+        *args, **kw), 2)
+    ms = cuda_ms(torch, lambda: screen.screen_hits_fused_strips(*args, **kw),
+                 5)
+    g = screen._strip_gates(r_t, c_t, args[4], args[5], args[6], args[7],
+                            4096, 8192, kw["n_real"], kw["tau_scr"],
+                            kw["tau_cb"], ti, 1, True, False)[2]
+    gated = int(g.sum())
+    del g
+    bound_ms, bound_by = bound(
+        gated * nbins * r / B1_COMPARISONS_PER_S,
+        (len(r_t) * ti * ti + 8 * ti * r) / HBM_BYTES_PER_S)
+    library_ms = int_mm_ms(torch, args[0], r_t, c_t, kw["values"], ti, ti,
+                           regs_cols=args[1])
+    ms2 = cuda_ms(torch, lambda: screen.screen_hits_fused_strips(*args, **kw),
+                  5)
+    print(f"  [{card}] K1 strips dense: {ms:.3f} / {ms2:.3f} ms (two turns) "
+          f"vs plain {plain_ms:.3f} ms per launch; {gated} of "
+          f"{len(r_t) * ti * ti} pairs pass the gates; bound {bound_ms:.3f} "
+          f"ms ({bound_by}), share of the bound {bound_ms / ms:.3f}; library "
+          f"(torch._int_mm, {nbins} x {len(r_t)} calls) {library_ms:.3f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
@@ -1091,6 +1249,168 @@ def phase_checkpoint(torch, screen, screened, bank, params, dev, card):
           "the resumed sweep did not skip the recorded spans")
 
 
+def reset_launches(screen):
+    for fn in (screen.screen_hits_fused, screen.screen_hits_fused_strips,
+               screen.screen_s_z):
+        fn.launches = 0
+
+
+def read_launches(screen):
+    """{kernel: launches} since reset_launches; K1's two entry points launch
+    the same kernel, "strips" counts the strip entry alone."""
+    return {"screen_fused": screen.screen_hits_fused.launches
+            + screen.screen_hits_fused_strips.launches,
+            "strips": screen.screen_hits_fused_strips.launches,
+            "weighted_cdf_sum": screen.screen_s_z.launches}
+
+
+def multi_device_run(torch, screen, engine, bank, params, mesh, dev, card,
+                     label, **kw):
+    """One run of a multi-device engine (ring or tile-sharded) on `mesh`,
+    with the launch counts set to 0 just before it: (pairs, stats,
+    launches). Its walls measure the engine on virtual devices of one card,
+    not multi-card scaling."""
+    reset_launches(screen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    out = engine(bank, params, mesh=mesh, stats=stats, device=dev, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches(screen)
+    split = ", ".join(f"{k[:-5]} {v:.3f} s" for k, v in stats.items()
+                      if k.endswith("_secs"))
+    counts = ", ".join(f"{k} {v}" for k, v in stats.items()
+                       if not k.endswith("_secs"))
+    print(f"  [{card}] {label} -c {params.criterion} N={bank.n} on "
+          f"{len(mesh.devices())} virtual devices of one card: wall "
+          f"{wall:.3f} s ({split}); {counts}; {len(out)} pairs; launches "
+          f"K1 {launches['screen_fused']} (strips {launches['strips']}), K2 "
+          f"{launches['weighted_cdf_sum']}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return out, stats, launches
+
+
+def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
+                       card):
+    """Phase 9: the multi-device engines on four virtual devices of the one
+    card (a mesh that names cuda:0 four times: strips with non-zero bases,
+    the same tensors rotating): the ring and the tile-sharded engine on the
+    phase 5 (smh_a) and 6 (hll_a) banks, the ring on a 65536-genome bank
+    within its mask-memory bound, the selection CLI's multi-device engines
+    on phase 4's files, and three explicit multi-host tile slices, merged.
+    Returns {engine: {kernel: launches}}, each engine's launches summed
+    over its runs, each run's read right after its own reset."""
+    screen, ring, screened, mesh_mod = (mods["screen"], mods["ring"],
+                                        mods["screened"], mods["mesh"])
+    mesh4 = mesh_mod.row_mesh(["cuda:0"] * 4)
+    print(f"  mesh {mesh4}: cuda:0 four times, four virtual devices of one "
+          "card")
+    total = {engine: {"screen_fused": 0, "strips": 0, "weighted_cdf_sum": 0}
+             for engine in ("ring", "sharded")}
+
+    def add(engine, launches):
+        for k in total[engine]:
+            total[engine][k] += launches[k]
+
+    for crit in ("smh_a", "hll_a"):
+        bank, picks = banks[crit]
+        params = mods["SelectionParams"](tau=0.9, criterion=crit)
+        out, stats, lr = multi_device_run(
+            torch, screen, ring.select_pairs_ring, bank, params, mesh4, dev,
+            card, "ring")
+        check(lr["strips"] > 0, f"ring -c {crit} never launched K1's strip "
+              "variant")
+        check(crit == "smh_a" or lr["weighted_cdf_sum"] > 0,
+              f"ring -c {crit} never launched K2")
+        check(stats["steps_run"] > 1, f"ring -c {crit} ran one step only")
+        mods["verify_pairs"](bank, [(i, i + 1) for i in picks], out, crit)
+        check(out == screened_out[crit], f"ring -c {crit} != the screened "
+              "engine's pairs")
+        add("ring", lr)
+        out, _, ls = multi_device_run(
+            torch, screen, screened.select_pairs_screened_sharded, bank,
+            params, mesh4, dev, card, "tile-sharded")
+        check(ls["screen_fused"] > 0, f"sharded -c {crit} never launched K1")
+        check(crit == "smh_a" or ls["weighted_cdf_sum"] > 0,
+              f"sharded -c {crit} never launched K2")
+        mods["verify_pairs"](bank, [(i, i + 1) for i in picks], out, crit)
+        check(out == screened_out[crit], f"sharded -c {crit} != the screened "
+              "engine's pairs")
+        add("sharded", ls)
+
+    t0 = time.perf_counter()
+    big, big_picks = mods["bench_bank"](65536, np.random.default_rng(0x65536),
+                                        600)
+    print(f"  bench bank N=65536 p=14 (1 GiB of registers, strips of 256 "
+          f"MiB) with {len(big_picks)} planted pairs made in "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    params = mods["SelectionParams"](tau=0.9, criterion="smh_a")
+    # one chunk a wave: each of the four positions holds at most one
+    # launch's masks when the counts are read
+    out, stats, lr = multi_device_run(torch, screen, ring.select_pairs_ring,
+                                      big, params, mesh4, dev, card, "ring",
+                                      wave=1)
+    peak = torch.cuda.max_memory_allocated()
+    ti = screened.auto_tile(big.n // 4)
+    launch_bytes = stats["chunk_tiles"] * ti * ti
+    bank_bytes = big.n * (1 << big.p)
+    print(f"  ring N=65536, wave 1: masks held by one position at a read "
+          f"{stats['max_device_mask_bytes']} bytes (bound wave * chunk_tiles "
+          f"* ti^2 = {launch_bytes}); the card's allocator at a read, beyond "
+          f"the step loop's start: {stats['max_wave_alloc_bytes']} bytes "
+          f"(bound 4 positions * {launch_bytes} + 1 MiB of counts and tile "
+          f"ids); peak allocated over the whole run {peak} bytes = registers "
+          f"{bank_bytes} + {peak - bank_bytes} (uploads, gate pass, K1 "
+          "planes, confirm)")
+    check(stats["max_device_mask_bytes"] <= launch_bytes,
+          "ring N=65536: a position held more than one wave of masks")
+    check(stats["max_wave_alloc_bytes"] <= 4 * launch_bytes + (1 << 20),
+          "ring N=65536: the card held more than the four positions' masks "
+          "at a read")
+    check(lr["strips"] > 0, "ring N=65536 never launched K1's strips")
+    mods["verify_pairs"](big, [(i, i + 1) for i in big_picks], out, "smh_a")
+    t0 = time.perf_counter()
+    single = mods["select_pairs"](big, params, device=dev)
+    print(f"  [{card}] screened engine N=65536 on the card itself: "
+          f"{time.perf_counter() - t0:.3f} s, {len(single)} pairs")
+    check(out == single, "ring N=65536 != the screened engine's pairs")
+    add("ring", lr)
+    del big
+
+    base = ["-l", lst, "-a", "256", "-h", "0.9", "--device", "cuda"]
+    for crit, flags in (("smh_a", ["--engine", "ring"]),
+                        ("hll_a", ["--engine", "ring"]),
+                        ("smh_a", ["--engine", "sharded"]),
+                        ("hll_an", ["--engine", "sharded"]),
+                        ("cb", ["--sharded"]),
+                        ("smh_a", ["--engine", "dense-sharded"]),
+                        ("hll_a", ["--engine", "dense-sharded"])):
+        got, secs = cli_lines(mods["cli"], base + ["-c", crit] + flags)
+        print(f"  [{card}] selection {' '.join(flags)} -c {crit} (every "
+              f"CUDA device: {torch.cuda.device_count()}): {len(got)} lines "
+              f"in {secs:.2f} s, equal to the host reference: "
+              f"{got == ref4[crit]}")
+        check(got == ref4[crit], f"selection {' '.join(flags)} -c {crit} "
+              "differs from the host reference")
+
+    bank, _ = banks["smh_a"]
+    params = mods["SelectionParams"](tau=0.9, criterion="smh_a")
+    t0 = time.perf_counter()
+    shards = [mods["distributed"].select_pairs_multihost(
+        bank, params, ti=1024, device=dev, process_index=i, process_count=3)
+        for i in range(3)]
+    merged = mods["distributed"].merge_multihost_results(shards)
+    print(f"  [{card}] select_pairs_multihost, 3 explicit slices of the "
+          f"phase 5 bank: {[len(x) for x in shards]} pairs, merged "
+          f"{len(merged)} in {time.perf_counter() - t0:.3f} s, equal to the "
+          f"screened engine's: {merged == screened_out['smh_a']}")
+    check(merged == screened_out["smh_a"],
+          "merged multi-host slices != the screened engine's pairs")
+    return total
+
+
 def main():
     try:
         import torch
@@ -1110,8 +1430,8 @@ def main():
     from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import (_build, estimators,
                                                       pairwise, screen)
-    from cuda_selection_criteria_tpu_torch.parallel import (scheduler,
-                                                            screened)
+    from cuda_selection_criteria_tpu_torch.parallel import (
+        distributed, mesh, ring, scheduler, screened)
     from cuda_selection_criteria_tpu_torch.parallel.selection import (
         SelectionParams, format_results, select_pairs)
     from cuda_selection_criteria_tpu_torch.utils import formats, hostref
@@ -1155,7 +1475,8 @@ def main():
 
     print("== phase 3: kernel vs plain", flush=True)
     max_err = max(phase_kernel_p8(torch, screen, screened, dev),
-                  phase_kernel_edges(torch, screen, screened, dev))
+                  phase_kernel_edges(torch, screen, screened, dev),
+                  phase_kernel_strips(torch, screen, screened, dev))
     t0 = time.perf_counter()
     rng = np.random.default_rng(0xBE7C)
     bank, picks = bench_bank(models, synth, 16384, rng, 300)
@@ -1190,8 +1511,9 @@ def main():
              p=14, values=hplan.values, ti=1024, n_bands=1, use_cb=True,
              use_smh=False), card)}
     k1["gated"] = k1_config(torch, screen, "gated (smh_a)", args, kw, card)
+    k1["strips"] = k1_strips_config(torch, screen, hplan, card)
     max_err = max(max_err, k1["dense"]["max_abs_err"],
-                  k1["gated"]["max_abs_err"])
+                  k1["gated"]["max_abs_err"], k1["strips"]["max_abs_err"])
 
     k2_err = max(phase_k2_small(torch, screen, dev),
                  phase_k2_edges(torch, screen, dev))
@@ -1321,6 +1643,7 @@ def main():
                                   dev, card)
     check(launches["screen_fused"] > 0, "main path never launched K1")
     verify_pairs(hostref, bank, [(i, i + 1) for i in picks], out, "smh_a")
+    screened_out = {"smh_a": out}  # phase 9 holds the other engines to it
     device_profile(torch, lambda: select_pairs(bank, params, device=dev),
                    card, "warm select_pairs -c smh_a")
 
@@ -1353,6 +1676,7 @@ def main():
               f"-c {crit} never launched K1 and K2")
         verify_pairs(hostref, hbank, [(i, i + 1) for i in hpicks], out,
                      crit)
+        screened_out[crit] = out
         for name in launches:
             launches[name] += hl[name]
     device_profile(torch, lambda: select_pairs(hbank, hparams, device=dev),
@@ -1385,7 +1709,6 @@ def main():
     t8 = time.perf_counter()
     phase_dense_cli(models, cli, hostref, format_results, names, lst, ref4,
                     dev, card)
-    tmp4.cleanup()
     mods = dict(screen=screen, pairwise=pairwise, estimators=estimators,
                 hostref=hostref, select_pairs=select_pairs,
                 SelectionParams=SelectionParams)
@@ -1396,19 +1719,40 @@ def main():
     phase_checkpoint(torch, screen, screened, bank, params, dev, card)
     print(f"  phase 8 took {time.perf_counter() - t8:.1f} s")
 
+    print("== phase 9: multi-device engines, four virtual devices of one card",
+          flush=True)
+    t9 = time.perf_counter()
+    mods.update(ring=ring, screened=screened, mesh=mesh, cli=cli,
+                distributed=distributed,
+                verify_pairs=lambda *a: verify_pairs(hostref, *a),
+                bench_bank=lambda n, rng, k: bench_bank(models, synth, n, rng,
+                                                        k))
+    md = phase_multi_device(torch, mods, {"smh_a": (bank, picks),
+                                          "hll_a": (hbank, hpicks)},
+                            screened_out, lst, ref4, dev, card)
+    tmp4.cleanup()
+    print(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
-    # K1's headline numbers are the dense launch's; the gated launch's ride
-    # beside them under "gated"
+    # K1's headline numbers are the dense launch's; the gated launch's and
+    # the strip variant's (with its launches in the phase 9 ring runs) ride
+    # beside them. `launches` counts the main paths of phases 5 to 7; the
+    # phase 9 engines' launches stand in their own records.
     measured = {
         "screen_fused": dict(
             {key: k1["dense"][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}, max_abs_err=max_err, gated=k1["gated"]),
+                "library_ms")}, max_abs_err=max_err, gated=k1["gated"],
+            strips=dict(k1["strips"], launches=md["ring"]["strips"]),
+            ring=dict(launches=md["ring"]["screen_fused"]),
+            sharded=dict(launches=md["sharded"]["screen_fused"])),
         "weighted_cdf_sum": dict(
             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
             bound_ms=k2_bound_ms, bound_by=k2_bound_by,
-            library_ms=k2_library_ms)}
+            library_ms=k2_library_ms,
+            ring=dict(launches=md["ring"]["weighted_cdf_sum"]),
+            sharded=dict(launches=md["sharded"]["weighted_cdf_sum"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

@@ -8,8 +8,11 @@ exact HLL-union confirmation, and prints `fileA fileB jaccard` lines in the
 reference's sorted-row order. Port of cuda_selection_criteria_tpu/cli/
 selection.py, for every criterion: smh_a, smh_only (the smh_a band gate
 without CB, loading the same .smh files), hll_a, hll_an, cb and baseline,
-and the single-device engines (screened, dense); the multi-device ones
-(--sharded, --engine sharded|dense-sharded|ring) are not ported.
+and every engine: screened, dense, and the multi-device ones over every
+CUDA device (--device cuda) or the named device alone: sharded (the
+screened cascade with its tiles split over the devices), dense-sharded or
+--sharded (the dense rows x regs mesh) and ring (the bank split into strips
+that circulate).
 
 Defaults mirror src/selection.cpp:76-82: tau=0.9, aux=256 bytes.
 """
@@ -35,17 +38,25 @@ def main(argv=None):
     ap.add_argument("--precision", default="bf16", choices=["bf16", "int8"],
                     help="dense engine's indicator products: bf16 (an f32 "
                          "matmul) or int8 (torch._int_mm); both exact")
+    ap.add_argument("--sharded", action="store_true",
+                    help="the dense multi-device mesh engine (shorthand for "
+                         "--engine dense-sharded)")
     ap.add_argument("--engine", default="auto",
-                    choices=["auto", "screened", "dense"],
+                    choices=["auto", "screened", "dense", "sharded",
+                             "dense-sharded", "ring"],
                     help="selection engine: auto (screened on CUDA, dense "
                          "on the CPU), screened (the certified screen "
-                         "cascade), dense (blockwise exact MLE)")
+                         "cascade), dense (blockwise exact MLE), sharded "
+                         "(the screened cascade, tiles split over the "
+                         "devices), dense-sharded (rows x regs mesh), ring "
+                         "(bank split into circulating strips)")
     ap.add_argument("--checkpoint", default=None,
                     help="screen sweep progress file: a run that a fault "
                          "ends resumes here instead of recomputing the "
                          "completed spans")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (default cuda; cpu runs "
+                    help="torch device to run on (default cuda: for the "
+                         "multi-device engines every CUDA device; cpu runs "
                          "the kernels' plain versions)")
     args = ap.parse_args(argv)
     if args.block is not None and args.block <= 0:
@@ -62,7 +73,10 @@ def main(argv=None):
         return 0
 
     from ..models import SketchBank
-    from ..parallel.screened import select_pairs_screened
+    from ..parallel.mesh import select_pairs_sharded
+    from ..parallel.ring import select_pairs_ring
+    from ..parallel.screened import (select_pairs_screened,
+                                     select_pairs_screened_sharded)
     from ..parallel.selection import (SelectionParams, format_results,
                                       select_pairs)
     from ..utils.filelist import load_file_list
@@ -86,7 +100,20 @@ def main(argv=None):
         precision=args.precision,
         engine=args.engine,
     )
-    if args.engine == "screened":
+    engine = "dense-sharded" if args.sharded else args.engine
+    if engine == "dense-sharded":
+        def run():
+            return select_pairs_sharded(bank, params, device=args.device)
+    elif engine == "sharded":
+        # -b is the screen tile here (the reference's -b is its CUDA
+        # kernel's block size: the same knob, the same default)
+        def run():
+            return select_pairs_screened_sharded(
+                bank, params, ti=args.block or 512, device=args.device)
+    elif engine == "ring":
+        def run():
+            return select_pairs_ring(bank, params, device=args.device)
+    elif engine == "screened":
         def run():
             return select_pairs_screened(bank, params, ti=args.block,
                                          device=args.device,

@@ -18,6 +18,13 @@
 //           (smh) some equal LSH band fingerprint.
 // Outputs int8 hits (T, ti, ti) and int32 per-tile hit counts (T,).
 //
+// Rows and columns may come from two banks (the ring engine's strip
+// variant, `screen_hits_fused_strips` of the same file): row tiles index the
+// row bank, its e and fp, column tiles the column bank, its e and fp, each in
+// local ids; the triangle and tail gates compare the global ids row_base +
+// local row and col_base + local column. One bank with bases 0 is the
+// single-bank screen.
+//
 // Bound on the card. The counts are (K-1) * R register comparisons a pair
 // that passes the gates: 7.4e12 for the first 64 tiles of the bench
 // triangle at ti = 1024, p = 14, 7 bins, where 96% of the pairs pass. As
@@ -84,15 +91,18 @@ static_assert(kAhead < kStages - 1, "a stage is refilled after its mma");
 // grid (ceil(ti/128), ceil(ti/128), T); block (256,); dynamic shared
 // memory kAtom + kRingBytes (+ kSlotBytes with want_z).
 __global__ void __launch_bounds__(kThreads, 1)
-screen_kernel(const uint32_t* __restrict__ planes, int nbins, int Wp,
+screen_kernel(const uint32_t* __restrict__ planes_r,
+              const uint32_t* __restrict__ planes_c, int nbins, int Wp,
               const float* __restrict__ weights, float tail, int want_z,
               float two_m, float two_m2,
               const int* __restrict__ row_tiles,
               const int* __restrict__ col_tiles, int ti,
-              const float* __restrict__ e, float one_tau,
-              const int* __restrict__ fp, int n_bands, int n_real,
-              float tau_cb, int use_cb, int use_smh,
-              int8_t* __restrict__ hits, int* __restrict__ counts) {
+              const float* __restrict__ e_r, const float* __restrict__ e_c,
+              float one_tau, const int* __restrict__ fp_r,
+              const int* __restrict__ fp_c, int n_bands, long long n_real,
+              long long row_base, long long col_base, float tau_cb,
+              int use_cb, int use_smh, int8_t* __restrict__ hits,
+              int* __restrict__ counts) {
   extern __shared__ uint8_t smem[];
   // e' = e / (1 + tau_scr) of the block's rows, then its columns (0 past
   // the tile edge), IEEE-rounded as the plain version's tensor division
@@ -109,6 +119,7 @@ screen_kernel(const uint32_t* __restrict__ planes, int nbins, int Wp,
   const int t = blockIdx.z;
   const int lr0 = blockIdx.y * kEdge;  // block offset inside the tile
   const int lc0 = blockIdx.x * kEdge;
+  // local ids: they index the planes, e and fp of their own side's bank
   const long long rbase = (long long)row_tiles[t] * ti + lr0;
   const long long cbase = (long long)col_tiles[t] * ti + lc0;
   const int n_rows = min(kEdge, ti - lr0);  // rows and columns of the block
@@ -119,7 +130,7 @@ screen_kernel(const uint32_t* __restrict__ planes, int nbins, int Wp,
     const int l = tid & (kEdge - 1);
     const bool col = tid >= kEdge;
     e_s[tid] = l < (col ? n_cols : n_rows)
-                   ? __fdiv_rn(e[(col ? cbase : rbase) + l], one_tau)
+                   ? __fdiv_rn(col ? e_c[cbase + l] : e_r[rbase + l], one_tau)
                    : 0.0f;
   }
   __syncthreads();
@@ -128,7 +139,8 @@ screen_kernel(const uint32_t* __restrict__ planes, int nbins, int Wp,
   for (int p = 0; p < kPairs; ++p) {
     const int lr = thread_row(tid, pair_ri(p));
     const int lc = thread_col(tid, pair_ci(p));
-    const long long gi = rbase + lr, gj = cbase + lc;
+    // global ids: the triangle and the tail of real rows
+    const long long gi = row_base + rbase + lr, gj = col_base + cbase + lc;
     const float r = e_s[lr], c = e_s[kEdge + lc];
     bool g = lr < n_rows && lc < n_cols && gi < gj && gj < n_real && c > 0.0f;
     if (use_cb) g = g && r >= __fmul_rn(tau_cb, c);
@@ -141,12 +153,12 @@ screen_kernel(const uint32_t* __restrict__ planes, int nbins, int Wp,
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
         const int lr = thread_row(tid, k);
-        fr[k] = lr < n_rows ? fp[(rbase + lr) * n_bands + b] : 0;
+        fr[k] = lr < n_rows ? fp_r[(rbase + lr) * n_bands + b] : 0;
       }
 #pragma unroll
       for (int k = 0; k < 32; ++k) {
         const int lc = thread_col(tid, k);
-        fc[k] = lc < n_cols ? fp[(cbase + lc) * n_bands + b] : 0;
+        fc[k] = lc < n_cols ? fp_c[(cbase + lc) * n_bands + b] : 0;
       }
 #pragma unroll
       for (int p = 0; p < kPairs; ++p)
@@ -180,7 +192,8 @@ screen_kernel(const uint32_t* __restrict__ planes, int nbins, int Wp,
     const int side = i >> 2, row = (tid >> 3) + 32 * (i & 3);
     // rows past the tile edge read the block's first row: dead pairs
     const int l = row < (side ? n_cols : n_rows) ? row : 0;
-    src[i] = planes + ((side ? cbase : rbase) + l) * nbins * Wp + slot * 4;
+    src[i] = (side ? planes_c + (cbase + l) * nbins * Wp
+                   : planes_r + (rbase + l) * nbins * Wp) + slot * 4;
     dst[i] = side * kSideBytes + swz(row, slot);
   }
   auto load_stage = [&](int s) {
@@ -298,20 +311,30 @@ screen_kernel(const uint32_t* __restrict__ planes, int nbins, int Wp,
 }  // namespace
 
 // Launches the pack stage and the screen on `stream`; returns the
-// cudaError_t of the launches. `planes` is caller-allocated scratch of
-// n_rows * nbins * Wp uint32, Wp = max(R/32, 32) (ops/screen.plane_words),
-// and `counts` must be zeroed by the caller. Nothing is allocated here.
+// cudaError_t of the launches. `planes` / `planes_cols` are caller-allocated
+// scratch of n_rows / n_cols * nbins * Wp uint32, Wp = max(R/32, 32)
+// (ops/screen.plane_words); with planes_cols == planes (the caller's sign
+// that regs_cols is regs) the column side reads `planes` and the bank is
+// packed once; distinct scratch always gets regs_cols packed into it. `counts` must be zeroed by the
+// caller. Nothing is allocated here.
 extern "C" int csc_screen_fused(
-    const void* regs, long long n_rows, int R, const void* thr,
-    const void* weights, int nbins, float tail, int want_z, float two_m,
-    float two_m2, void* planes, int Wp, const void* row_tiles,
-    const void* col_tiles, int n_tiles, int ti, const void* e,
-    float one_tau, const void* fp, int n_bands, int n_real, float tau_cb,
-    int use_cb, int use_smh, void* hits, void* counts, void* stream) {
+    const void* regs, long long n_rows, const void* regs_cols,
+    long long n_cols, int R, const void* thr, const void* weights, int nbins,
+    float tail, int want_z, float two_m, float two_m2, void* planes,
+    void* planes_cols, int Wp, const void* row_tiles, const void* col_tiles,
+    int n_tiles, int ti, const void* e, const void* e_cols, float one_tau,
+    const void* fp, const void* fp_cols, int n_bands, long long n_real,
+    long long row_base, long long col_base, float tau_cb, int use_cb,
+    int use_smh, void* hits, void* counts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       launch_pack_planes(regs, n_rows, R, Wp, thr, nbins, planes, st);
   if (err != cudaSuccess) return (int)err;
+  if (planes_cols != planes) {
+    err = launch_pack_planes(regs_cols, n_cols, R, Wp, thr, nbins,
+                             planes_cols, st);
+    if (err != cudaSuccess) return (int)err;
+  }
   const int smem = kAtom + kRingBytes + (want_z ? kSlotBytes : 0);
   err = cudaFuncSetAttribute(screen_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -320,11 +343,14 @@ extern "C" int csc_screen_fused(
   const int nb = (ti + kEdge - 1) / kEdge;
   dim3 grid(nb, nb, n_tiles);
   screen_kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const uint32_t*>(planes), nbins, Wp,
-      static_cast<const float*>(weights), tail, want_z, two_m, two_m2,
-      static_cast<const int*>(row_tiles), static_cast<const int*>(col_tiles),
-      ti, static_cast<const float*>(e), one_tau,
-      static_cast<const int*>(fp), n_bands, n_real, tau_cb, use_cb, use_smh,
+      static_cast<const uint32_t*>(planes),
+      static_cast<const uint32_t*>(planes_cols),
+      nbins, Wp, static_cast<const float*>(weights), tail, want_z, two_m,
+      two_m2, static_cast<const int*>(row_tiles),
+      static_cast<const int*>(col_tiles), ti, static_cast<const float*>(e),
+      static_cast<const float*>(e_cols), one_tau,
+      static_cast<const int*>(fp), static_cast<const int*>(fp_cols), n_bands,
+      n_real, row_base, col_base, tau_cb, use_cb, use_smh,
       static_cast<int8_t*>(hits), static_cast<int*>(counts));
   return (int)cudaGetLastError();
 }

@@ -39,10 +39,12 @@ _LL = ctypes.c_longlong
 # kernel name (csrc/<name>.cu) -> (C entry point, its ctypes argtypes)
 KERNELS = {
     "screen_fused": ("csc_screen_fused", [
-        _P, _LL, _I, _P,         # regs, n_rows, R, thr
-        _P, _I, _F, _I, _F, _F,  # weights, nbins, tail, want_z, 2m, 2m^2
-        _P, _I, _P, _P, _I, _I,  # planes, Wp, row/col tiles, n_tiles, ti
-        _P, _F, _P, _I, _I, _F,  # e, one_tau, fp, n_bands, n_real, tau_cb
+        _P, _LL, _P, _LL, _I,    # regs, n_rows, regs_cols, n_cols, R
+        _P, _P, _I, _F, _I,      # thr, weights, nbins, tail, want_z
+        _F, _F, _P, _P, _I,      # 2m, 2m^2, planes, planes_cols, Wp
+        _P, _P, _I, _I,          # row/col tiles, n_tiles, ti
+        _P, _P, _F, _P, _P, _I,  # e, e_cols, one_tau, fp, fp_cols, n_bands
+        _LL, _LL, _LL, _F,       # n_real, row_base, col_base, tau_cb
         _I, _I, _P, _P, _P,      # use_cb, use_smh, hits, counts, stream
     ]),
     "weighted_cdf_sum": ("csc_weighted_cdf_sum", [

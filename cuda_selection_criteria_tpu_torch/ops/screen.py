@@ -9,11 +9,12 @@ b_0 < ... < b_{K-1}, the dyadic telescope gives
 
 and the screen keeps a pair when the certified MLE lower bound
 t_lb = 2m(m-Z)/(3S-Z) cannot exclude J >= tau (DESIGN.md "Screen
-certificate"). screen_hits_fused (K1, csrc/screen_fused.cu) and
-screen_s_z (K2, the raw S and Z; csrc/weighted_cdf_sum.cu) run their
-hand-written CUDA kernels on CUDA tensors and their plain PyTorch versions
-on CPU tensors; each plain version is also its kernel's reference on the
-card.
+certificate"). screen_hits_fused (K1, csrc/screen_fused.cu), its strip
+variant screen_hits_fused_strips (the same kernel with rows and columns
+from two banks, the ring engine's screen) and screen_s_z (K2, the raw S
+and Z; csrc/weighted_cdf_sum.cu) run their hand-written CUDA kernels on
+CUDA tensors and their plain PyTorch versions on CPU tensors; each plain
+version is also its kernel's reference on the card.
 """
 
 import functools
@@ -94,6 +95,18 @@ def _cdf_sum(a, b, thresholds, weights, want_z):
         if k == 0 and want_z:
             z = d
     return s, z
+
+
+def _launch(name, dev, *args):
+    """Calls kernel library `name`'s C entry point with `args` and dev's
+    current stream, with dev the current device (a launch and its
+    shared-memory attribute go to the current device, which must own the
+    stream); raises if the launch failed."""
+    with torch.cuda.device(dev):
+        err = getattr(_build.library(name), _build.KERNELS[name][0])(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
 def _check(who, cond, msg):
@@ -216,18 +229,15 @@ def screen_s_z(regs, row_tiles, col_tiles, p, values, ti=512, tj=512,
                             dtype=torch.int32, device=dev))
     s = torch.empty((n_tiles, ti, tj), dtype=torch.float32, device=dev)
     z = torch.empty_like(s) if want_z else None
-    err = _build.library("weighted_cdf_sum").csc_weighted_cdf_sum(
-        regs.data_ptr(), regs.shape[0],
-        None if regs_cols is None else regs_cols.data_ptr(),
-        0 if regs_cols is None else regs_cols.shape[0], r, thr.data_ptr(),
-        w.data_ptr(), nbins, float(tail), int(want_z), planes.data_ptr(),
-        None if planes_c is None else planes_c.data_ptr(), row_words,
-        row_tiles.data_ptr(), col_tiles.data_ptr(), n_tiles, ti, tj,
-        s.data_ptr(), None if z is None else z.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"weighted_cdf_sum kernel launch failed: "
-                           f"cudaError_t {err}")
+    _launch("weighted_cdf_sum", dev,
+            regs.data_ptr(), regs.shape[0],
+            None if regs_cols is None else regs_cols.data_ptr(),
+            0 if regs_cols is None else regs_cols.shape[0], r,
+            thr.data_ptr(), w.data_ptr(), nbins, float(tail), int(want_z),
+            planes.data_ptr(),
+            None if planes_c is None else planes_c.data_ptr(), row_words,
+            row_tiles.data_ptr(), col_tiles.data_ptr(), n_tiles, ti, tj,
+            s.data_ptr(), None if z is None else z.data_ptr())
     screen_s_z.launches += 1
     return s, z
 
@@ -242,56 +252,92 @@ def tile_ids(row_tiles, col_tiles, ti):
             col_tiles.to(torch.int64)[:, None] * ti + lane)
 
 
-def band_hit(fp, ii, jj, n_bands):
-    """bool (T, ti, ti): some LSH band fingerprint of row i equals row j's."""
+def band_hit(fp, ii, jj, n_bands, fp_cols=None):
+    """bool (T, ti, ti): some LSH band fingerprint of row i equals row j's.
+    Rows index fp, columns fp_cols (default: fp)."""
     fp_a = fp[ii]  # (T, ti, n_bands) int32
-    fp_b = fp[jj]
+    fp_b = (fp if fp_cols is None else fp_cols)[jj]
     hit = fp_a[:, :, None, 0] == fp_b[:, None, :, 0]
     for band in range(1, n_bands):
         hit |= fp_a[:, :, None, band] == fp_b[:, None, :, band]
     return hit
 
 
-def _fused_gates(row_tiles, col_tiles, e, fp, n_real, tau_scr, tau_cb, ti,
-                 n_bands, use_cb, use_smh):
-    """(e'_rows, e'_cols, gates) of the fused screen, comparison for
-    comparison as the reference's _fused_gates: e' = e/(1+tau_scr) in f32,
-    then triangle, n_real tail, empty columns, CB and LSH bands."""
-    ii, jj = tile_ids(row_tiles, col_tiles, ti)
-    one_tau = np.float32(1.0) + np.float32(tau_scr)
-    e32 = e.to(torch.float32)
-    # tensor / tensor: a CUDA division by a scalar multiplies by its
-    # reciprocal, which rounds differently from the kernel's __fdiv_rn
-    e_p = e32 / torch.full_like(e32, float(one_tau))
-    e_r = e_p[ii]
-    e_c = e_p[jj]
-    g = (ii[:, :, None] < jj[:, None, :]) & (jj[:, None, :] < n_real)
+def pair_gates(e_r, e_c, fp_rows, fp_cols, rl, cl, row_base, col_base,
+               n_real, tau_cb, n_bands, use_cb, use_smh):
+    """bool (T, ti, ti) cheap gates of a tile list over a row strip and a
+    column strip: i < j and j < n_real on the global ids row_base + rl and
+    col_base + cl, a non-empty column, CB on the gathered cardinalities e_r
+    / e_c (T, ti), and LSH bands on the local ids. One bank is the strip
+    pair with both sides the same and bases 0."""
+    gi = rl + int(row_base)
+    gj = cl + int(col_base)
+    g = (gi[:, :, None] < gj[:, None, :]) & (gj[:, None, :] < n_real)
     g &= e_c[:, None, :] > 0
     if use_cb:
         g &= e_r[:, :, None] >= float(np.float32(tau_cb)) * e_c[:, None, :]
     if use_smh:
-        g &= band_hit(fp, ii, jj, n_bands)
-    return e_r, e_c, g
+        g &= band_hit(fp_rows, rl, cl, n_bands, fp_cols)
+    return g
 
 
-def _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp, n_real,
-                             tau_scr, tau_cb, p, values, ti, n_bands, use_cb,
-                             use_smh):
-    """Plain PyTorch version of K1 (the reference's _screen_fused_call +
-    _fused_gates): (int8 hits (T, ti, ti), int32 counts (T,))."""
+def _strip_gates(r_tiles, c_tiles, e_rows, e_cols, fp_rows, fp_cols,
+                 row_base, col_base, n_real, tau_scr, tau_cb, ti, n_bands,
+                 use_cb, use_smh):
+    """(e'_rows, e'_cols, gates) of the fused screen over a row strip and a
+    column strip, comparison for comparison as the reference's
+    screen_hits_fused_strips: local tile ids index each side's e and fp,
+    e' = e/(1+tau_scr) in f32, then pair_gates on e'. One bank with bases
+    0 is the reference's _fused_gates."""
+    rl, cl = tile_ids(r_tiles, c_tiles, ti)
+    one_tau = float(np.float32(1.0) + np.float32(tau_scr))
+
+    def scaled(e):
+        # tensor / tensor: a CUDA division by a scalar multiplies by its
+        # reciprocal, which rounds differently from the kernel's __fdiv_rn
+        e32 = e.to(torch.float32)
+        return e32 / torch.full_like(e32, one_tau)
+
+    ep_rows = scaled(e_rows)
+    ep_cols = ep_rows if e_cols is e_rows else scaled(e_cols)
+    e_r = ep_rows[rl]
+    e_c = ep_cols[cl]
+    return e_r, e_c, pair_gates(e_r, e_c, fp_rows, fp_cols, rl, cl, row_base,
+                                col_base, n_real, tau_cb, n_bands, use_cb,
+                                use_smh)
+
+
+def _fused_gates(row_tiles, col_tiles, e, fp, n_real, tau_scr, tau_cb, ti,
+                 n_bands, use_cb, use_smh):
+    """(e'_rows, e'_cols, gates) of the single-bank fused screen (the
+    reference's _fused_gates): _strip_gates with one bank and bases 0."""
+    return _strip_gates(row_tiles, col_tiles, e, e, fp, fp, 0, 0, n_real,
+                        tau_scr, tau_cb, ti, n_bands, use_cb, use_smh)
+
+
+def _screen_hits_fused_strips_plain(regs_rows, regs_cols, r_tiles, c_tiles,
+                                    e_rows, e_cols, fp_rows, fp_cols,
+                                    row_base, col_base, n_real, tau_scr,
+                                    tau_cb, p, values, ti, n_bands, use_cb,
+                                    use_smh):
+    """Plain PyTorch version of K1 over a row strip and a column strip (the
+    reference's screen_hits_fused_strips: _screen_fused_call behind the
+    strip gates): (int8 hits (T, ti, ti), int32 counts (T,))."""
     values, weights, tail, want_z = telescope(p, values)
     if len(values) < 2:
         raise ValueError("the fused screen needs >= 2 present values")
     m_f = np.float32(1 << p)
     two_m = float(np.float32(2.0) * m_f)
     two_m2 = float(np.float32(2.0) * m_f * m_f)
-    e_r, e_c, g = _fused_gates(row_tiles, col_tiles, e, fp, n_real, tau_scr,
+    e_r, e_c, g = _strip_gates(r_tiles, c_tiles, e_rows, e_cols, fp_rows,
+                               fp_cols, row_base, col_base, n_real, tau_scr,
                                tau_cb, ti, n_bands, use_cb, use_smh)
-    hits = torch.empty((len(row_tiles), ti, ti), dtype=torch.int8,
-                       device=regs.device)
-    for t, (r, c) in enumerate(zip(row_tiles.tolist(), col_tiles.tolist())):
-        s, z = _cdf_sum(regs[r * ti:(r + 1) * ti], regs[c * ti:(c + 1) * ti],
-                        values[:-1], weights, want_z)
+    hits = torch.empty((len(r_tiles), ti, ti), dtype=torch.int8,
+                       device=regs_rows.device)
+    for t, (r, c) in enumerate(zip(r_tiles.tolist(), c_tiles.tolist())):
+        s, z = _cdf_sum(regs_rows[r * ti:(r + 1) * ti],
+                        regs_cols[c * ti:(c + 1) * ti], values[:-1], weights,
+                        want_z)
         s = s + float(tail)
         e_sum = e_r[t][:, None] + e_c[t][None, :]
         if want_z:
@@ -300,6 +346,17 @@ def _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp, n_real,
             h = 3.0 * s * e_sum >= two_m2
         hits[t] = (h & g[t]).to(torch.int8)
     return hits, hits.sum((1, 2), dtype=torch.int32)
+
+
+def _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp, n_real,
+                             tau_scr, tau_cb, p, values, ti, n_bands, use_cb,
+                             use_smh):
+    """Plain PyTorch version of K1 on one bank (the reference's
+    _screen_fused_call + _fused_gates): the strip version with both sides
+    the same and bases 0."""
+    return _screen_hits_fused_strips_plain(
+        regs, regs, row_tiles, col_tiles, e, e, fp, fp, 0, 0, n_real,
+        tau_scr, tau_cb, p, values, ti, n_bands, use_cb, use_smh)
 
 
 K1_STAGE_WORDS = 32  # plane words of a row that one pipeline stage holds
@@ -323,6 +380,66 @@ def plane_row_words(p, nbins):
     return -(-nbins * w // K1_STAGE_WORDS) * K1_STAGE_WORDS
 
 
+def _check_side(who, regs, e, fp, n_bands, dev, names):
+    """The cardinalities and fingerprints of one side's bank."""
+    _check(who, e.device == dev and e.dtype == torch.float32
+           and e.shape == (regs.shape[0],) and e.is_contiguous(),
+           f"{names[0]} must be contiguous float32 (N_pad,)")
+    _check(who, fp.device == dev and fp.dtype == torch.int32
+           and fp.shape == (regs.shape[0], n_bands) and fp.is_contiguous(),
+           f"{names[1]} must be contiguous int32 (N_pad, n_bands)")
+
+
+def _launch_fused(who, regs, regs_cols, row_tiles, col_tiles, e, e_cols, fp,
+                  fp_cols, row_base, col_base, n_real, tau_scr, tau_cb, p,
+                  values, ti, n_bands, use_cb, use_smh, names):
+    """Checks the arguments of K1 and launches csc_screen_fused on the
+    current stream: (hits, counts). names: the row side's (bank, e, fp)
+    names in the messages. A column bank that is the row bank (the same
+    tensor object) is packed once: the column plane scratch is then the row
+    scratch, and the kernel packs a second bank only when the two scratch
+    pointers differ."""
+    dev = regs.device
+    values, weights, tail, want_z = telescope(p, values)
+    r = 1 << p
+    same = regs_cols is regs
+    _check(who, len(values) >= 2, "needs >= 2 present values")
+    _check(who, 0 <= values[0] and values[-1] <= 255, "values outside uint8")
+    _check_bank(who, regs, dev, r, ti, names[0])
+    if not same:
+        _check_bank(who, regs_cols, dev, r, ti, "regs_cols")
+    n_tiles = _check_tiles(who, row_tiles, col_tiles, dev)
+    _check_side(who, regs, e, fp, n_bands, dev, names[1:])
+    _check_side(who, regs_cols, e_cols, fp_cols, n_bands, dev,
+                ("e_cols", "fp_cols"))
+    _check(who, dev.type == "cuda", f"unsupported device {dev}")
+
+    nbins = len(weights)
+    thr, w = _device_telescope(dev, p, values)
+    wp = plane_words(p)
+    planes = torch.empty((regs.shape[0], nbins, wp), dtype=torch.int32,
+                         device=dev)
+    planes_c = planes if same else torch.empty(
+        (regs_cols.shape[0], nbins, wp), dtype=torch.int32, device=dev)
+    hits = torch.empty((n_tiles, ti, ti), dtype=torch.int8, device=dev)
+    counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    m_f = np.float32(r)
+    one_tau = np.float32(1.0) + np.float32(tau_scr)
+    _launch("screen_fused", dev,
+            regs.data_ptr(), regs.shape[0],
+            regs_cols.data_ptr(),
+            regs_cols.shape[0], r, thr.data_ptr(), w.data_ptr(), nbins,
+            float(tail), int(want_z), float(np.float32(2.0) * m_f),
+            float(np.float32(2.0) * m_f * m_f), planes.data_ptr(),
+            planes_c.data_ptr(), wp, row_tiles.data_ptr(),
+            col_tiles.data_ptr(), n_tiles, ti, e.data_ptr(),
+            e_cols.data_ptr(), float(one_tau), fp.data_ptr(),
+            fp_cols.data_ptr(), n_bands, int(n_real), int(row_base),
+            int(col_base), float(np.float32(tau_cb)), int(use_cb),
+            int(use_smh), hits.data_ptr(), counts.data_ptr())
+    return hits, counts
+
+
 def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
                       tau_cb, p, values, ti, n_bands, use_cb, use_smh):
     """Fused screen over a (row, col) tile list: (int8 hits (T, ti, ti),
@@ -332,7 +449,8 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
     hand-written kernel (csrc/screen_fused.cu: gates first, blocks with no
     live pair skipped, CDF counts as 1-bit tensor-core mma over bit-planes
     of plane_words(p) words) on the current stream or raise; there is no
-    fallback. Needs >= 2 present values.
+    fallback. Needs >= 2 present values. It is the strip call
+    (screen_hits_fused_strips) with both sides the same and bases 0.
 
     Args:
       regs: uint8 (N_pad, 2^p) sorted, padded register bank.
@@ -347,45 +465,43 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
         return _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp,
                                         n_real, tau_scr, tau_cb, p, values,
                                         ti, n_bands, use_cb, use_smh)
-    who = "screen_hits_fused"
-    dev = regs.device
-    values, weights, tail, want_z = telescope(p, values)
-    r = 1 << p
-    _check(who, len(values) >= 2, "needs >= 2 present values")
-    _check(who, 0 <= values[0] and values[-1] <= 255, "values outside uint8")
-    _check_bank(who, regs, dev, r, ti, "regs")
-    n_tiles = _check_tiles(who, row_tiles, col_tiles, dev)
-    _check(who, e.device == dev and e.dtype == torch.float32
-           and e.shape == (regs.shape[0],) and e.is_contiguous(),
-           "e must be contiguous float32 (N_pad,)")
-    _check(who, fp.device == dev and fp.dtype == torch.int32
-           and fp.shape == (regs.shape[0], n_bands) and fp.is_contiguous(),
-           "fp must be contiguous int32 (N_pad, n_bands)")
-    _check(who, dev.type == "cuda", f"unsupported device {dev}")
-
-    nbins = len(weights)
-    thr, w = _device_telescope(dev, p, values)
-    wp = plane_words(p)
-    planes = torch.empty((regs.shape[0], nbins, wp), dtype=torch.int32,
-                         device=dev)
-    hits = torch.empty((n_tiles, ti, ti), dtype=torch.int8, device=dev)
-    counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    m_f = np.float32(r)
-    one_tau = np.float32(1.0) + np.float32(tau_scr)
-    err = _build.library("screen_fused").csc_screen_fused(
-        regs.data_ptr(), regs.shape[0], r, thr.data_ptr(), w.data_ptr(),
-        nbins, float(tail), int(want_z), float(np.float32(2.0) * m_f),
-        float(np.float32(2.0) * m_f * m_f), planes.data_ptr(), wp,
-        row_tiles.data_ptr(), col_tiles.data_ptr(), n_tiles, ti,
-        e.data_ptr(), float(one_tau), fp.data_ptr(), n_bands, int(n_real),
-        float(np.float32(tau_cb)), int(use_cb), int(use_smh),
-        hits.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"screen_fused kernel launch failed: "
-                           f"cudaError_t {err}")
+    out = _launch_fused("screen_hits_fused", regs, regs, row_tiles,
+                        col_tiles, e, e, fp, fp, 0, 0, n_real, tau_scr,
+                        tau_cb, p, values, ti, n_bands, use_cb, use_smh,
+                        ("regs", "e", "fp"))
     screen_hits_fused.launches += 1
-    return hits, counts
+    return out
 
 
 screen_hits_fused.launches = 0
+
+
+def screen_hits_fused_strips(regs_rows, regs_cols, r_tiles, c_tiles, e_rows,
+                             e_cols, fp_rows, fp_cols, row_base, col_base,
+                             n_real, tau_scr, tau_cb, p, values, ti, n_bands,
+                             use_cb, use_smh):
+    """Fused screen over a row strip and a column strip (the ring engine's
+    screen step): (int8 hits (T, ti, ti), int32 counts (T,)).
+
+    r_tiles / c_tiles are local tile indices inside each strip; they index
+    regs_rows, e_rows, fp_rows and regs_cols, e_cols, fp_cols. The triangle
+    and n_real gates use the global ids row_base + local and col_base +
+    local. CPU tensors run _screen_hits_fused_strips_plain; CUDA tensors
+    launch K1 (csrc/screen_fused.cu) or raise, with no fallback. Passing
+    the row strip's tensors as the column strip's packs its planes once.
+    """
+    if regs_rows.device.type == "cpu":
+        return _screen_hits_fused_strips_plain(
+            regs_rows, regs_cols, r_tiles, c_tiles, e_rows, e_cols, fp_rows,
+            fp_cols, row_base, col_base, n_real, tau_scr, tau_cb, p, values,
+            ti, n_bands, use_cb, use_smh)
+    out = _launch_fused("screen_hits_fused_strips", regs_rows, regs_cols,
+                        r_tiles, c_tiles, e_rows, e_cols, fp_rows, fp_cols,
+                        row_base, col_base, n_real, tau_scr, tau_cb, p,
+                        values, ti, n_bands, use_cb, use_smh,
+                        ("regs_rows", "e_rows", "fp_rows"))
+    screen_hits_fused_strips.launches += 1
+    return out
+
+
+screen_hits_fused_strips.launches = 0

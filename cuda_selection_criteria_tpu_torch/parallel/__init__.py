@@ -1,2 +1,3 @@
-"""Selection engines: pair-block scheduling, the screened single-device
-engine and the engine dispatcher."""
+"""Selection engines: pair-block scheduling, the screened engine (single
+device and tile-sharded), the dense engines (single device and mesh), the
+ring engine, the multi-host tile slices and the engine dispatcher."""

@@ -25,13 +25,20 @@ from ..ops import criteria, pairwise
 from ..utils.device import as_tensor, resolve
 from ..utils.hostref import PairOracle
 from . import scheduler
+from .mesh import mesh_devices
+from .ring import select_pairs_ring
 from .screened import (make_device_hist_fn, reject_delta_for,
                        select_pairs_screened)
 
 Z_SCORE_DEFAULT = 1.96  # src/selection.cpp:76
 ORDER_N_DEFAULT = 1  # src/selection.cpp:77
 
-ENGINES = ("auto", "screened", "dense")
+ENGINES = ("auto", "screened", "dense", "ring")
+
+# The auto engine leaves the screened engine for the ring when the padded
+# register bank exceeds this share of one card's memory on a host of
+# several cards (the reference's replication threshold).
+RING_BANK_SHARE = 0.55
 
 
 @dataclass(frozen=True)
@@ -62,8 +69,9 @@ class SelectionParams:
     # Numeric slack on the certified screen threshold (parallel.screened):
     # covers only f32 rounding of the screen statistic.
     screen_delta: float = 1e-3
-    # "auto" runs the screened engine on CUDA when adjudicating, else the
-    # dense engine; "screened" / "dense" force one.
+    # "auto" runs the screened engine on CUDA when adjudicating (the ring
+    # past one card's memory on several cards), else the dense engine;
+    # "screened" / "dense" / "ring" force one.
     engine: str = "auto"
 
     def resolve_dtype(self, device=None):
@@ -148,7 +156,9 @@ def select_pairs(bank, params, device=None, stats=None, checkpoint=None):
     """All-pairs selection on a SketchBank; returns reference-ordered
     [(name_i, name_j, jacc)] (src/selection.cpp:297-300).
 
-    device: where the engine runs; None means CUDA (utils/device.resolve).
+    device: where the engine runs; None means CUDA (utils/device.resolve);
+    for the ring None or "cuda" means every CUDA device
+    (parallel/mesh.resolve_mesh).
     stats: optional dict of stage walls and counts (each engine's own).
     checkpoint: sweep progress file of the screened engine."""
     if params.engine not in ENGINES:
@@ -161,6 +171,14 @@ def select_pairs(bank, params, device=None, stats=None, checkpoint=None):
         # the screened engine always ends in exact host adjudication
         on_cuda = resolve(device).type == "cuda"
         engine = "screened" if on_cuda and params.adjudicate else "dense"
+        # past replication the bank itself must be split over the cards
+        if (engine == "screened" and mesh_devices(device) is None
+                and torch.cuda.device_count() > 1):
+            total = torch.cuda.get_device_properties(0).total_memory
+            if bank.n * bank.regs.shape[1] > RING_BANK_SHARE * total:
+                engine = "ring"
+    if engine == "ring":
+        return select_pairs_ring(bank, params, stats=stats, device=device)
     if engine == "screened":
         return select_pairs_screened(bank, params, device=device, stats=stats,
                                      checkpoint=checkpoint)

@@ -45,13 +45,13 @@ from cuda_selection_criteria_tpu_torch.utils import synth  # noqa: E402
 MMA = ("          wgmma_b1(acc[b], smem_desc(sa + kk * 32), "
        "smem_desc(sb + kk * 32));")
 LOAD = "  auto load_stage = [&](int s) {\n"
-PACK = "  if (err != cudaSuccess) return (int)err;\n  const int smem"
+PACK = "  const int smem = kAtom + kRingBytes"
 VARIANTS = {
     "base": [],
     "no_mma": [(MMA, "          ;")],
     "no_load": [(LOAD, LOAD + "    return;\n")],
     "no_load_no_mma": [(MMA, "          ;"), (LOAD, LOAD + "    return;\n")],
-    "pack_only": [(PACK, "  return (int)err;\n  const int smem")],
+    "pack_only": [(PACK, "  return (int)err;\n" + PACK)],
 }
 
 

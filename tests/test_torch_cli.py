@@ -81,6 +81,23 @@ def test_cli_dense_engine_matches_screened(sketch_list, crit, precision,
     assert len(want.splitlines()) >= 3
 
 
+@pytest.mark.parametrize("engine", [["--engine", "ring"],
+                                    ["--engine", "sharded", "-b", "64"],
+                                    ["--engine", "dense-sharded"],
+                                    ["--sharded"]])
+@pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline", "smh_only"])
+def test_cli_multi_device_engines_match_jax(sketch_list, crit, engine,
+                                            capsys):
+    """--engine ring|sharded|dense-sharded and --sharded on a CPU device
+    print the reference CLI's lines (which equal the host reference's,
+    test_cli_output_matches_jax_and_host)."""
+    argv = ["-l", sketch_list, "-a", "256", "-h", "0.9", "-c", crit]
+    want = _stdout(jcli.main, argv, capsys)
+    assert _stdout(cli.main, argv + ["--device", "cpu"] + engine,
+                   capsys) == want
+    assert len(want.splitlines()) >= 3
+
+
 def test_cli_messages_match_jax(capsys):
     for argv in (["-x"], ["-c", "nope"], ["-b", "0", "-c", "smh_a"]):
         assert _stdout(cli.main, argv, capsys) == \
@@ -100,6 +117,7 @@ def test_import_leaves_jax_out():
             "native.fastx", "ops._build",
             "ops.criteria", "ops.estimators", "ops.hashes", "ops.hll_build",
             "ops.kmers", "ops.pairwise", "ops.screen", "ops.smh_build",
+            "parallel.distributed", "parallel.mesh", "parallel.ring",
             "parallel.scheduler", "parallel.screened", "parallel.selection",
             "utils.device", "utils.fasta", "utils.filelist", "utils.formats",
             "utils.hostref", "utils.profiling", "utils.resilience",

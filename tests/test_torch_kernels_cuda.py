@@ -571,3 +571,190 @@ def test_scalar_divisor_on_cuda(cuda):
     np.testing.assert_array_equal(
         estimators.ertl_mle(torch.from_numpy(hists).to(cuda), 14).cpu()
         .numpy(), estimators.ertl_mle(torch.from_numpy(hists), 14).numpy())
+
+
+# Strip cases of K1 (the ring's screen step): a row strip of 192 rows and a
+# column strip of 256, distinct banks, with (row_base, col_base) putting the
+# column strip after, level with and before the row strip, and the triangle's
+# edge inside a 128-edge block.
+STRIP_BASES = {"below": (0, 192), "equal": (64, 64), "above": (256, 192),
+               "edge_in_block": (96, 64)}
+STRIP_TILES = (np.array([0, 1, 2, 0, 2], np.int32),
+               np.array([0, 3, 1, 2, 3], np.int32))
+
+
+def _strip_inputs(seed, lo, n_r=192, n_c=256, p=8):
+    """(regs, e, fp) of an n_r-row strip and an n_c-row strip, with rows of
+    the column strip that copy rows (and fingerprints) of the row strip."""
+    regs_r, e_r, fp_r = _inputs(seed, lo, 11, n_r, p)
+    regs_c, e_c, fp_c = _inputs(seed + 1, lo, 11, n_c, p)
+    for r, c in ((7, 5), (70, 130), (150, 250), (100, 64)):
+        regs_c[c], fp_c[c], e_c[c] = regs_r[r], fp_r[r], e_r[r]
+    return (regs_r, e_r, fp_r), (regs_c, e_c, fp_c)
+
+
+def _strip_compare(dev, rows_side, cols_side, bases, n_real, vals, p, ti,
+                   use_cb, use_smh, tau_scr=0.4, tau_cb=0.35,
+                   tiles=STRIP_TILES):
+    (regs_r, e_r, fp_r), (regs_c, e_c, fp_c) = [
+        [torch.from_numpy(np.asarray(x)).to(dev) for x in side]
+        for side in (rows_side, cols_side)]
+    r_t, c_t = [torch.from_numpy(x).to(dev) for x in tiles]
+    args = (regs_r, regs_c, r_t, c_t, e_r, e_c, fp_r, fp_c, *bases, n_real,
+            tau_scr, tau_cb, p, vals, ti, fp_r.shape[1], use_cb, use_smh)
+    before = screen.screen_hits_fused_strips.launches
+    got = screen.screen_hits_fused_strips(*args)
+    want = screen._screen_hits_fused_strips_plain(*args)
+    torch.cuda.synchronize()
+    assert screen.screen_hits_fused_strips.launches == before + 1
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+    return int(got[1].sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bases", list(STRIP_BASES))
+@pytest.mark.parametrize("use_cb,use_smh", [
+    (True, True), (True, False), (False, True), (False, False),
+])
+@pytest.mark.parametrize("with_zeros", [True, False])
+def test_strip_kernel_matches_plain(cuda, bases, use_cb, use_smh,
+                                    with_zeros):
+    """K1's strip variant against its plain version, bit-equal: local ids
+    index each strip's bank, e and fp; the triangle and n_real (inside the
+    column strip) take global ids."""
+    rows_side, cols_side = _strip_inputs(200 + use_cb + 2 * use_smh,
+                                         0 if with_zeros else 2)
+    vals = screen.bank_values(np.concatenate([rows_side[0], cols_side[0]]))
+    row_base, col_base = STRIP_BASES[bases]
+    _strip_compare(cuda, rows_side, cols_side, (row_base, col_base),
+                   col_base + 150, vals, 8, 64, use_cb, use_smh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bases", list(STRIP_BASES))
+def test_strip_kernel_edge_inside_blocks(cuda, bases):
+    """ti = 128 (one block a tile) with every cardinality large, so the
+    triangle and the tail alone decide which pairs pass: the hits stop at
+    the global triangle's edge inside the block."""
+    rows_side, cols_side = _strip_inputs(230, 0, 256, 384)
+    for side in (rows_side, cols_side):
+        side[1][:] = 1.0e6
+    vals = screen.bank_values(np.concatenate([rows_side[0], cols_side[0]]))
+    hits = _strip_compare(cuda, rows_side, cols_side, STRIP_BASES[bases],
+                          STRIP_BASES[bases][1] + 200, vals, 8, 128, True,
+                          False, tau_scr=0.9,
+                          tiles=(np.array([0, 0], np.int32),
+                                 np.array([0, 1], np.int32)))
+    assert hits > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_cb,use_smh", [(True, True), (False, False)])
+def test_single_bank_through_strip_entry(cuda, use_cb, use_smh):
+    """The single-bank K1 cases through the strip entry point (both sides
+    the same tensors, bases 0): bit-equal to screen_hits_fused and to the
+    plain version."""
+    regs, e, fp = _inputs(31 + use_cb + 2 * use_smh, 0, 11, 192, 8)
+    t = [torch.from_numpy(x).to(cuda) for x in (regs, e, fp)]
+    rows = torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=cuda)
+    cols = torch.tensor([0, 2, 1, 2], dtype=torch.int32, device=cuda)
+    vals = screen.bank_values(regs)
+    kw = dict(n_real=187, tau_scr=0.4, tau_cb=0.35, p=8, values=vals, ti=64,
+              n_bands=4, use_cb=use_cb, use_smh=use_smh)
+    got = screen.screen_hits_fused_strips(t[0], t[0], rows, cols, t[1], t[1],
+                                          t[2], t[2], 0, 0, **kw)
+    one = screen.screen_hits_fused(t[0], rows, cols, t[1], t[2], **kw)
+    want = screen._screen_hits_fused_plain(t[0], rows, cols, t[1], t[2],
+                                           **kw)
+    for g, o, w in zip(got, one, want):
+        assert torch.equal(g, o) and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_r,n_c", [(128, 256), (256, 128)])
+def test_strip_views_of_one_bank(cuda, n_r, n_c):
+    """Two views of one bank that start at the same address but hold
+    different row counts are two strips: the column view gets its own
+    planes (the kernel packs a second bank whenever the wrapper hands it a
+    second scratch), so column tiles past the row view read its rows."""
+    regs, e, fp = _inputs(240, 0, 11, 256, 8)
+    bank = [torch.from_numpy(x).to(cuda) for x in (regs, e, fp)]
+    short, long_ = [0, 1, 0], [2, 3, 3]
+    rows, cols = [torch.tensor(t, dtype=torch.int32, device=cuda) for t in (
+        (short, long_) if n_r < n_c else (long_, short))]
+    r_side = [x[:n_r] for x in bank]
+    c_side = [x[:n_c] for x in bank]
+    assert r_side[0].data_ptr() == c_side[0].data_ptr()
+    # the column strip placed after the row strip: every pair is i < j
+    args = (r_side[0], c_side[0], rows, cols, r_side[1], c_side[1],
+            r_side[2], c_side[2], 0, n_r, n_r + n_c, 0.4, 0.35, 8,
+            screen.bank_values(regs), 64, 4, True, True)
+    got = screen.screen_hits_fused_strips(*args)
+    want = screen._screen_hits_fused_strips_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1][1]) > 0  # tiles 1 and 3: one side past row 128
+
+
+@pytest.mark.cuda
+def test_ring_wave_bounds_device_memory_on_cuda(cuda):
+    """The ring's counts are read every `wave` chunks: on four virtual
+    devices of the card, what the allocator holds at a read beyond the
+    step loop's start stays within the four positions' masks (plus counts
+    and tile ids), and the lines are the CPU mesh's."""
+    from cuda_selection_criteria_tpu_torch.parallel import mesh, ring
+
+    bank = _engine_bank("cb")
+    params = SelectionParams(tau=0.5, criterion="cb")
+    stats = {}
+    got = ring.select_pairs_ring(bank, params, mesh=mesh.row_mesh([cuda] * 4),
+                                 ti=64, chunk_tiles=2, stats=stats, wave=1)
+    want = ring.select_pairs_ring(bank, params,
+                                  mesh=mesh.row_mesh(["cpu"] * 4), ti=64,
+                                  chunk_tiles=2, wave=1)
+    assert got == want and len(got) >= 12
+    masks = 4 * 2 * 64 * 64
+    assert 0 < stats["max_device_mask_bytes"] <= 2 * 64 * 64
+    assert 0 < stats["max_wave_alloc_bytes"] <= masks + (1 << 20)
+
+
+def _engine_bank(crit, n=300):
+    rng = np.random.default_rng(8)
+    if crit.startswith("hll"):
+        regs, aux = synth.synthetic_hll_banks(n, rng.integers(400, 900, n),
+                                              (10, 6), rng)
+        synth.plant_near_duplicates(regs, aux, rng, 12)
+        return SketchBank(names=[f"g{i}" for i in range(n)], regs=regs, p=10,
+                          aux_kind="hll", aux=aux, aux_param=6)
+    regs = synth.synthetic_regs(n, rng.integers(400, 900, n), 10, rng)
+    aux = synth.synthetic_aux(n, 16, rng)
+    synth.plant_near_duplicates(regs, aux, rng, 12)
+    return SketchBank(names=[f"g{i}" for i in range(n)], regs=regs, p=10,
+                      aux_kind="smh", aux=aux, aux_param=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crit", ["smh_a", "cb", "hll_a"])
+def test_multi_device_engines_on_cuda_match_cpu(cuda, crit):
+    """The ring (K1's strip variant, four virtual devices of one card, so
+    strips with non-zero bases), the tile-sharded engine and the dense mesh
+    on the card, each equal to the same engine on CPU devices."""
+    from cuda_selection_criteria_tpu_torch.parallel import mesh, ring
+
+    bank = _engine_bank(crit)
+    params = SelectionParams(tau=0.5, criterion=crit)
+    strips = screen.screen_hits_fused_strips.launches
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        runs.append((
+            ring.select_pairs_ring(bank, params, mesh=mesh.row_mesh([dev] * 4),
+                                   ti=64, chunk_tiles=4),
+            screened.select_pairs_screened_sharded(
+                bank, params, mesh=mesh.row_mesh([dev] * 4), ti=128,
+                chunk=4),
+            mesh.select_pairs_sharded(bank, params,
+                                      mesh=mesh.make_mesh(2, 2, [dev] * 4))))
+    assert screen.screen_hits_fused_strips.launches > strips
+    assert runs[0] == runs[1]
+    assert runs[0][0] == runs[0][1] == runs[0][2] and len(runs[0][0]) >= 12

@@ -35,8 +35,9 @@ def test_gate_counts_matches_jax(use_cb, use_smh):
     rows, cols = np.triu_indices(4)
     rows, cols = rows.astype(np.int32), cols.astype(np.int32)
     tau_cb = np.float32(0.8)
-    got = screened._gate_counts(
-        torch.from_numpy(e), torch.from_numpy(fp), torch.from_numpy(rows),
+    e_t, fp_t = torch.from_numpy(e), torch.from_numpy(fp)
+    got = screened._strip_gate_counts(
+        e_t, e_t, fp_t, fp_t, 0, 0, torch.from_numpy(rows),
         torch.from_numpy(cols), n - 7, tau_cb, n_bands, ti, use_cb, use_smh)
     want = jscreened._gate_counts(
         jnp.asarray(e), jnp.asarray(fp), jnp.asarray(rows),
@@ -215,9 +216,14 @@ def test_unported_criteria_and_engines_raise():
     with pytest.raises(ValueError, match="does not support"):
         screened.ScreenPlan(bank, SelectionParams(tau=0.2, criterion="nope"),
                             64, device="cpu")
+    # the ring is an engine of select_pairs; the CLI's other
+    # multi-device engines are called directly, not through engine=
     with pytest.raises(ValueError, match="unknown engine"):
-        select_pairs(bank, SelectionParams(tau=0.2, engine="ring"),
+        select_pairs(bank, SelectionParams(tau=0.2, engine="dense-sharded"),
                      device="cpu")
+    assert select_pairs(bank, SelectionParams(tau=0.2, engine="ring"),
+                        device="cpu") == select_pairs(
+        bank, SelectionParams(tau=0.2, engine="screened"), device="cpu")
 
 
 def test_default_device_is_cuda():
