@@ -109,11 +109,25 @@ Phases (any failure exits non-zero, without the final result line):
                 dense-sharded on phase 4's files equal to the host
                 reference; select_pairs_multihost over 3 explicit tile
                 slices, merged, equal to the screened engine
+ 10. l5       - the reference's experiment protocols
+                (cuda_selection_criteria_tpu_torch/experiments): the
+                differential at tau=0.01 (compare_engines: smh_a, hll_a
+                and baseline on a prefix of phase 4's files against the
+                scalar host engine, 0 mismatches, every delta 0, every
+                pair phase 4 emitted at 0.9 there; then selection -c
+                baseline -h 0.01 on all of phase 4's files equal to the
+                pooled oracle, with its candidates, screen and confirm
+                walls and confirm pairs/s); the timing sweep
+                (run_time_experiment, both arms, m 64 and 512, blocks 256
+                and 512) on phase 7's corpus, every row present; the
+                confirm stage's rates (confirm_throughput) on the phase 5
+                bank with 2^20 pairs: host and device-assisted at
+                tau=-100, the reject bound off and on at 0.9, outputs equal
 
 The last two lines are a JSON record of the kernels (launches on the main
 paths of phases 5 to 7, times, bounds, library times, and the launches of
-phase 9's ring and tile-sharded runs in records of their own) and the
-result line
+phase 9's ring and tile-sharded runs and of phase 10 in records of their
+own) and the result line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -589,6 +603,22 @@ def oracle_all_pairs(oracle, n, threads=8):
         return [x for part in parts for x in part]
 
 
+def all_pairs_lines(hostref, format_results, fbank, **kw):
+    """The host reference's output lines for `fbank`: PairOracle.
+    confirm_pairs (kw: criterion, tau, apply_cb) over every i<k pair of
+    the sorted bank on the pool, the same f64 cascade as select_pairs_host
+    (tests/test_torch_hostref.py holds them equal) without its 2.1M scalar
+    MLE loops at N=2048."""
+    order = fbank.sorted_by_cardinality()
+    oracle = pooled_oracle(
+        hostref, fbank.regs[order], np.trunc(fbank.cards[order]),
+        aux=None if fbank.aux is None else fbank.aux[order],
+        aux_param=fbank.aux_param, **kw)
+    names = fbank.names
+    return format_results([(names[order[i]], names[order[k]], j)
+                           for i, k, j in oracle_all_pairs(oracle, fbank.n)])
+
+
 def bench_bank(models, synth, n, rng, n_dups):
     """The reference bench's headline bank (bench.py:86-149): n genomes of
     2048 hashes at p=14, m=32 uniform SMH buckets, plus planted pairs."""
@@ -909,10 +939,12 @@ def build_label(crit, st):
             f"(decoder {st['decoder']}, threads {st['io_threads']})")
 
 
-def phase_fasta(torch, dev, card, corpus_kw):
+def phase_fasta(torch, dev, card, corpus_kw, tmp_dir):
     """Phase 7: FASTA -> build_sketch -> selection and time_smh on a
-    synthetic bacterial corpus. Returns ({kernel: launches on the
-    selection runs}, max |card - cpu| of the build)."""
+    synthetic bacterial corpus written under tmp_dir (phase 10 times the
+    reference's sweep on it). Returns ({kernel: launches on the
+    selection runs}, max |card - cpu| of the build, the corpus's file
+    list)."""
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import build_sketch
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
@@ -925,7 +957,7 @@ def phase_fasta(torch, dev, card, corpus_kw):
     from cuda_selection_criteria_tpu_torch.utils import fasta, hostref
 
     launches = {"screen_fused": 0, "weighted_cdf_sum": 0}
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.nullcontext(tmp_dir) as tmp:
         t0 = time.perf_counter()
         files, near, far, bases = write_corpus(tmp, **corpus_kw)
         print(f"  corpus: {len(files)} files ({len(files) - 28} genomes, 16 "
@@ -1073,7 +1105,7 @@ def phase_fasta(torch, dev, card, corpus_kw):
         k1_row = log.lines[3][1] - log.lines[2][1]
         print(f"  K1 launches in the smh_a_kernel row: {k1_row}")
         check(k1_row > 0, "time_smh's smh_a_kernel row never launched K1")
-    return launches, build_err
+    return launches, build_err, lst
 
 
 def cli_lines(cli, argv):
@@ -1094,15 +1126,10 @@ def phase_dense_cli(models, cli, hostref, format_results, names, lst, ref4,
     the screened engine's lines (phase 4 held them equal to the same
     reference; smh_only runs here)."""
     base = ["-l", lst, "-a", "256", "-h", "0.9", "--device", str(dev)]
-    fbank = models.SketchBank.from_sketch_files(names, criterion="smh_a")
-    order = fbank.sorted_by_cardinality()
-    oracle = pooled_oracle(
-        hostref, fbank.regs[order], np.trunc(fbank.cards[order]),
-        aux=fbank.aux[order], aux_param=32, criterion="smh_only", tau=0.9,
-        apply_cb=False)
-    ref4["smh_only"] = format_results(
-        [(names[order[i]], names[order[k]], j)
-         for i, k, j in oracle_all_pairs(oracle, len(names))])
+    ref4["smh_only"] = all_pairs_lines(
+        hostref, format_results,
+        models.SketchBank.from_sketch_files(names, criterion="smh_a"),
+        criterion="smh_only", tau=0.9, apply_cb=False)
     got, _ = cli_lines(cli, base + ["-c", "smh_only", "--engine",
                                     "screened"])
     check(got == ref4["smh_only"], "screened -c smh_only differs from the "
@@ -1411,6 +1438,236 @@ def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
     return total
 
 
+# Phase 10a's prefix of phase 4's files: the scalar host engine's three
+# runs at tau=0.01 (every CB-live pair through a Python MLE loop) set its
+# wall, which grows as the square of the prefix: 93.8 s at 512 files and
+# 70.5 s at 384 on the H100 machine's host, so about 60 s at 352.
+L5_PREFIX = 352
+L5_PAIRS = 1 << 20  # phase 10c's pairs, each protocol
+
+
+def launch_sum(total, got):
+    for name in total:
+        total[name] += got[name]
+
+
+def host_profile(fn, card, label, top=8):
+    """fn() under cProfile: its wall and the functions with the most own
+    time (a builtin, numpy or torch call is an entry of its own; a ctypes
+    call into libfastx counts as its Python caller's own time)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(fn)
+    wall = time.perf_counter() - t0
+    st = pstats.Stats(prof)
+    rows = sorted(((v[2], v[3], v[0], k) for k, v in st.stats.items()),
+                  reverse=True)
+    print(f"  [{card}] host profile of {label}: wall {wall:.3f} s "
+          f"(cProfile on); own time, cumulative, calls:")
+    for tt, ct, calls, (path, line, name) in rows[:top]:
+        print(f"    {tt:8.3f} s {ct:8.3f} s {calls:7d}x  "
+              f"{os.path.basename(path)}:{line}({name})")
+
+
+def baseline_breakdown(torch, mods, fbank, tau, dev, card):
+    """Where selection -c baseline -h tau's time goes on phase 4's bank:
+    K1's launch over the schedule (CUDA events), a torch.profiler trace of
+    the warm select_pairs run (device busy time, idle share, top device
+    items), and cProfile of the screen stage (K1, hit extraction, the
+    candidate list) and of the confirm (device histograms, host MLE)."""
+    screened = mods["screened"]
+    params = mods["SelectionParams"](tau=tau, criterion="baseline")
+    plan = screened.ScreenPlan(fbank, params, screened.auto_tile(fbank.n),
+                               device=dev)
+    rows, cols = plan.schedule()
+    k1_ms = cuda_ms(torch, lambda: plan.screen_chunk(rows, cols), 3)
+    print(f"  [{card}] K1 over the {len(rows)} scheduled tiles of "
+          f"{plan.ti} (one launch): {k1_ms:.3f} ms")
+    device_profile(torch, lambda: mods["select_pairs"](fbank, params,
+                                                        device=dev),
+                   card, f"warm select_pairs -c baseline -h {tau} "
+                   f"N={fbank.n}", top=6)
+    box = {}
+    host_profile(lambda: box.update(cand=plan.screen_tiles(rows, cols)),
+                 card, f"the screen stage (screen_tiles, "
+                 f"{len(rows)} tiles)")
+    host_profile(lambda: plan.confirm(box["cand"]), card,
+                 f"the confirm stage ({len(box['cand'])} candidates)")
+
+
+def phase_l5(torch, mods, names4, lst4, ref4, lst7, bank, picks, dev, card):
+    """Phase 10: the reference's experiment protocols on the card (layer L5,
+    cuda_selection_criteria_tpu_torch/experiments). 10a the differential at
+    tau=0.01 on a prefix of phase 4's files (smh_a, hll_a, baseline against
+    the scalar host engine) and selection -c baseline -h 0.01 on all of
+    them against the pooled oracle; 10b the timing sweep on phase 7's
+    corpus, both arms; 10c the confirm stage's rates on the phase 5 bank
+    with 2^20 pairs, the default and the reject protocol. Returns
+    {kernel: launches} of the phase."""
+    from cuda_selection_criteria_tpu_torch.experiments import (
+        compare_engines, confirm_throughput, run_time_experiment)
+
+    screen, hostref, cli = mods["screen"], mods["hostref"], mods["cli"]
+    fmt = mods["format_results"]
+    launches = {"screen_fused": 0, "weighted_cdf_sum": 0}
+    out_dir = os.path.dirname(lst4)
+
+    print(f"  10a: the differential at tau=0.01 on the first {L5_PREFIX} "
+          f"of phase 4's files", flush=True)
+    prefix = names4[:L5_PREFIX]
+    in_prefix = set(prefix)
+    t10a = time.perf_counter()
+    for crit in ("smh_a", "hll_a", "baseline"):
+        fbank = compare_engines.load_bank(prefix, crit, 256)
+        reset_launches(screen)
+        st = {}
+        got, host = compare_engines.run_both(
+            fbank, mods["SelectionParams"](tau=0.01, criterion=crit), dev,
+            stats=st)
+        got_l = read_launches(screen)
+        rows, n_bad = compare_engines.compare_rows(got, host)
+        compare_engines.write_rows(
+            os.path.join(out_dir, f"comparacion_cuda_host_{crit}.csv"), rows,
+            dev)
+        deltas = compare_engines.estimator_deltas(fbank, host, dev)
+        print(f"  [{card}] compare_engines -c {crit} -t 0.01 N={fbank.n}: "
+              f"pairs={len(rows)} mismatches={n_bad}; device select_pairs "
+              f"{st['device_secs']:.3f} s ({st['candidates']} candidates "
+              f"of {fbank.n * (fbank.n - 1) // 2} pairs, screen "
+              f"{st['screen_secs']:.3f} s, confirm {st['confirm_secs']:.3f}"
+              f" s), scalar host {st['host_secs']:.1f} s; K1 launches "
+              f"{got_l['screen_fused']}, K2 launches "
+              f"{got_l['weighted_cdf_sum']}; estimator-delta max="
+              f"{deltas.max():.3e} mean={deltas.mean():.3e} over_ref_eps="
+              f"{(deltas > compare_engines.EPS).sum()}/{len(deltas)}")
+        check(n_bad == 0, f"compare_engines -c {crit}: {n_bad} mismatches")
+        check(all(r[3] == "0.00e+00" for r in rows),
+              f"compare_engines -c {crit}: a nonzero delta")
+        # every pair of the prefix that phase 4 emitted at 0.9 is emitted
+        # at 0.01; hll_a and baseline pass far more (the smh_a bands of
+        # unrelated synthetic genomes never collide: its planted pairs)
+        at_09 = {tuple(sorted(ln.split()[:2])) for ln in ref4[crit]}
+        at_09 = {k for k in at_09 if k[0] in in_prefix and k[1] in in_prefix}
+        print(f"    {len(at_09)} of phase 4's {len(ref4[crit])} pairs at "
+              f"tau=0.9 lie in the prefix")
+        check(at_09 <= {tuple(r[0].split("|")) for r in rows},
+              f"compare_engines -c {crit}: a pair emitted at 0.9 is missing "
+              "at 0.01")
+        check(crit == "smh_a" or len(rows) > len(ref4[crit]),
+              f"compare_engines -c {crit}: {len(rows)} pairs at tau=0.01, "
+              f"not above phase 4's {len(ref4[crit])} at 0.9")
+        check(got_l["screen_fused"] > 0, f"-c {crit} never launched K1")
+        if crit == "hll_a":
+            check(got_l["weighted_cdf_sum"] > 0, "-c hll_a never launched K2")
+        launch_sum(launches, got_l)
+    print(f"  10a differential took {time.perf_counter() - t10a:.1f} s")
+
+    reset_launches(screen)
+    st = {}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-l", lst4, "-h", "0.01", "-c", "baseline",
+                       "--device", str(dev)], stats=st)
+    t_cli = time.perf_counter() - t0
+    got_l = read_launches(screen)
+    check(rc == 0, f"selection -c baseline -h 0.01 exit {rc}")
+    got = buf.getvalue().splitlines()
+    bank4 = mods["SketchBank"].from_sketch_files(names4)
+    t0 = time.perf_counter()
+    want = all_pairs_lines(hostref, fmt, bank4, criterion="baseline",
+                           tau=0.01, apply_cb=False)
+    t_ref = time.perf_counter() - t0
+    n4 = len(names4)
+    print(f"  [{card}] selection -c baseline -h 0.01 N={n4}: {len(got)} "
+          f"lines in {t_cli:.2f} s; candidates {st['candidates']} of "
+          f"{n4 * (n4 - 1) // 2} pairs, screen_secs {st['screen_secs']:.3f}"
+          f", confirm_secs {st['confirm_secs']:.3f}, confirm pairs/s "
+          f"{st['candidates'] / st['confirm_secs']:.6g} (plan "
+          f"{st['plan_secs']:.3f} s, prune {st['prune_secs']:.3f} s, tiles "
+          f"{st['tiles_live']}); K1 launches {got_l['screen_fused']}; host "
+          f"reference (pooled oracle, all pairs) {len(want)} lines in "
+          f"{t_ref:.1f} s")
+    check(got == want, "selection -c baseline -h 0.01 differs from the "
+          "host reference")
+    check(len(got) > len(ref4["baseline"]), "baseline at 0.01 emitted no "
+          "more than at 0.9")
+    check(got_l["screen_fused"] > 0, "baseline -h 0.01 never launched K1")
+    launch_sum(launches, got_l)
+    reset_launches(screen)
+    baseline_breakdown(torch, mods, bank4, 0.01, dev, card)
+    launch_sum(launches, read_launches(screen))
+
+    print("  10b: the timing sweep on phase 7's corpus", flush=True)
+    files7 = [ln.strip() for ln in open(lst7) if ln.strip()]
+    reset_launches(screen)
+    t0 = time.perf_counter()
+    host_rows = run_time_experiment.host_arm_rows(files7, 0.9, [64, 512], 1)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev_rows = run_time_experiment.device_arm_rows(lst7, 0.9, [64, 512],
+                                                   [256, 512], 1, dev)
+    t_dev = time.perf_counter() - t0
+    got_l = read_launches(screen)
+    csv_path = os.path.join(out_dir, "experimento_smh_comparativo.csv")
+    run_time_experiment.write_csv(csv_path, host_rows + dev_rows)
+    with open(csv_path) as fh:
+        table = [ln.rstrip("\n") for ln in fh]
+    print(f"  [{card}] run_time_experiment -l <{len(files7)} files> "
+          f"--mh-sizes 64 512 --blocks 256 512 --reps 1: host arm "
+          f"{t_host:.2f} s, cuda arm {t_dev:.2f} s; K1 launches "
+          f"{got_l['screen_fused']}; {os.path.basename(csv_path)}:")
+    for line in table:
+        print("    " + line)
+    kinds = ("smh_a", "CB+smh_a", "smh_a_kernel", "CB+smh_a_kernel")
+    want_rows = sorted(
+        [("host", "0", str(m), "1", c) for m in (64, 512)
+         for c in ("build_smh", "smh_a", "CB+smh_a")]
+        + [("cuda", str(b), str(m), "1", c) for b in (256, 512)
+           for m in (64, 512) for c in ("build_smh",) + kinds])
+    body = [ln.split(",") for ln in table[1:]]
+    check(table[0] == ",".join(run_time_experiment.HEADER),
+          f"timing CSV header {table[0]}")
+    check(sorted(tuple(r[:5]) for r in body) == want_rows,
+          "timing CSV rows are not the full set of both arms")
+    check(all(float(r[5]) > 0.0 for r in body), "a nonpositive time")
+    check(got_l["screen_fused"] > 0, "the timing sweep never launched K1")
+    launch_sum(launches, got_l)
+    # the device arm's build at m=512: the stage split of one build
+    st = {}
+    t0 = time.perf_counter()
+    mods["build_bank_from_files"](files7, criterion="smh_a", aux_bytes=4096,
+                                  device=dev, stats=st)
+    print(f"  [{card}] build_bank_from_files -c smh_a -a 4096 (m=512) on "
+          f"the device: {time.perf_counter() - t0:.2f} s; decode wait "
+          f"{st['decode_secs']:.2f} s, pack {st['pack_secs']:.2f} s "
+          f"({st['packs']} packs), chunked {st['chunked_secs']:.2f} s "
+          f"({st['chunked_genomes']} genomes), fetch "
+          f"{st['fetch_secs']:.3f} s, {st['smh_fallbacks']} SMH fallbacks")
+
+    print(f"  10c: confirm throughput on the phase 5 bank, {L5_PAIRS} pairs",
+          flush=True)
+    rng = np.random.default_rng(10)
+    ii, kk = confirm_throughput.random_pairs(bank.n, L5_PAIRS, rng)
+    t0 = time.perf_counter()
+    res, _, _ = confirm_throughput.confirm_rates(bank, ii, kk, dev, reps=1)
+    print(f"  [{card}] confirm_throughput (tau=-100, every pair through "
+          f"the full union-MLE; {time.perf_counter() - t0:.1f} s): "
+          f"{json.dumps(res)}")
+    check(res["native_hist"], "the host rate was not the native one")
+    lo, hi = confirm_throughput.reject_pairs(bank, picks, L5_PAIRS, rng)
+    t0 = time.perf_counter()
+    res, out = confirm_throughput.reject_rates(bank, lo, hi, dev, reps=1)
+    print(f"  [{card}] confirm_throughput --reject (tau=0.9; "
+          f"{time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
+    check(len(out) > 0 and res["reject_fraction"] > 0.5,
+          "the reject workload emitted nothing or rejected too little")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -1614,16 +1871,9 @@ def main():
         fbank = models.SketchBank.from_sketch_files(
             names, criterion=None if crit in ("cb", "baseline") else crit)
         if crit == "baseline":
-            # select_pairs_host would run 2.1M scalar MLE loops here;
-            # the vectorized oracle is the same f64 cascade
-            # (tests/test_torch_hostref.py holds them equal)
-            order = fbank.sorted_by_cardinality()
-            oracle = pooled_oracle(
-                hostref, fbank.regs[order], np.trunc(fbank.cards[order]),
-                criterion="baseline", tau=0.9, apply_cb=False)
-            want = format_results(
-                [(names[order[i]], names[order[k]], j)
-                 for i, k, j in oracle_all_pairs(oracle, n4)])
+            want = all_pairs_lines(hostref, format_results, fbank,
+                                   criterion="baseline", tau=0.9,
+                                   apply_cb=False)
             how = ("PairOracle.confirm_pairs over all pairs, 8 threads, "
                    f"{hostref.hist_backend()} union histograms")
         else:
@@ -1700,7 +1950,10 @@ def main():
     print("== phase 7: FASTA -> build_sketch -> selection, time_smh",
           flush=True)
     t7 = time.perf_counter()
-    fl, build_err = phase_fasta(torch, dev, card, {"seed": 0xFA57A})
+    # the corpus stays for phase 10b
+    tmp7 = tempfile.TemporaryDirectory()
+    fl, build_err, lst7 = phase_fasta(torch, dev, card, {"seed": 0xFA57A},
+                                      tmp7.name)
     for name in launches:
         launches[name] += fl[name]
     print(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
@@ -1730,15 +1983,25 @@ def main():
     md = phase_multi_device(torch, mods, {"smh_a": (bank, picks),
                                           "hll_a": (hbank, hpicks)},
                             screened_out, lst, ref4, dev, card)
-    tmp4.cleanup()
     print(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    print("== phase 10: the reference's experiment protocols (L5)",
+          flush=True)
+    t10 = time.perf_counter()
+    mods.update(format_results=format_results, SketchBank=models.SketchBank,
+                build_bank_from_files=models.bank.build_bank_from_files)
+    l5 = phase_l5(torch, mods, names, lst, ref4, lst7, bank, picks, dev,
+                  card)
+    tmp4.cleanup()
+    tmp7.cleanup()
+    print(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     # K1's headline numbers are the dense launch's; the gated launch's and
     # the strip variant's (with its launches in the phase 9 ring runs) ride
     # beside them. `launches` counts the main paths of phases 5 to 7; the
-    # phase 9 engines' launches stand in their own records.
+    # phase 9 engines' and phase 10's launches stand in their own records.
     measured = {
         "screen_fused": dict(
             {key: k1["dense"][key] for key in (
@@ -1746,13 +2009,15 @@ def main():
                 "library_ms")}, max_abs_err=max_err, gated=k1["gated"],
             strips=dict(k1["strips"], launches=md["ring"]["strips"]),
             ring=dict(launches=md["ring"]["screen_fused"]),
-            sharded=dict(launches=md["sharded"]["screen_fused"])),
+            sharded=dict(launches=md["sharded"]["screen_fused"]),
+            l5=dict(launches=l5["screen_fused"])),
         "weighted_cdf_sum": dict(
             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
             bound_ms=k2_bound_ms, bound_by=k2_bound_by,
             library_ms=k2_library_ms,
             ring=dict(launches=md["ring"]["weighted_cdf_sum"]),
-            sharded=dict(launches=md["sharded"]["weighted_cdf_sum"]))}
+            sharded=dict(launches=md["sharded"]["weighted_cdf_sum"]),
+            l5=dict(launches=l5["weighted_cdf_sum"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

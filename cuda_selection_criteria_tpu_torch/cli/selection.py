@@ -21,7 +21,9 @@ import argparse
 import sys
 
 
-def main(argv=None):
+def main(argv=None, stats=None):
+    """Run the CLI on argv; `stats` (optional dict) receives the engine's
+    stage walls and counts (every engine but dense-sharded)."""
     ap = argparse.ArgumentParser(prog="selection", description=__doc__,
                                  add_help=False)
     ap.add_argument("-x", action="store_true", dest="usage")
@@ -109,19 +111,21 @@ def main(argv=None):
         # kernel's block size: the same knob, the same default)
         def run():
             return select_pairs_screened_sharded(
-                bank, params, ti=args.block or 512, device=args.device)
+                bank, params, ti=args.block or 512, device=args.device,
+                stats=stats)
     elif engine == "ring":
         def run():
-            return select_pairs_ring(bank, params, device=args.device)
+            return select_pairs_ring(bank, params, device=args.device,
+                                     stats=stats)
     elif engine == "screened":
         def run():
             return select_pairs_screened(bank, params, ti=args.block,
-                                         device=args.device,
+                                         device=args.device, stats=stats,
                                          checkpoint=args.checkpoint)
     else:
         def run():
             return select_pairs(bank, params, device=args.device,
-                                checkpoint=args.checkpoint)
+                                stats=stats, checkpoint=args.checkpoint)
     results = run_with_transient_retry(run)
     for line in format_results(results):
         print(line)

@@ -113,6 +113,9 @@ def test_import_leaves_jax_out():
     mods = ["cuda_selection_criteria_tpu_torch"] + [
         f"cuda_selection_criteria_tpu_torch.{m}" for m in (
             "cli.build_sketch", "cli.selection", "cli.time_smh",
+            "experiments", "experiments.compare_engines",
+            "experiments.confirm_throughput",
+            "experiments.run_time_experiment",
             "models.bank", "models.hll", "models.smh", "native",
             "native.fastx", "ops._build",
             "ops.criteria", "ops.estimators", "ops.hashes", "ops.hll_build",
