@@ -123,11 +123,22 @@ Phases (any failure exits non-zero, without the final result line):
                 confirm stage's rates (confirm_throughput) on the phase 5
                 bank with 2^20 pairs: host and device-assisted at
                 tau=-100, the reject bound off and on at 0.9, outputs equal
+ 11. scale    - the at-scale validation harnesses
+                (cuda_selection_criteria_tpu_torch/experiments):
+                validate_screened (smh_a, tau 0.8, N=512) and
+                validate_hllaux (hll_a and hll_an, N=256: K2) exactly equal
+                to the scalar host reference; the planted bench bank at
+                N=131072 (2 GiB of registers, 128 planted pairs, tau 0.9,
+                ti 1024) through validate_131k_scale.run: stage walls, the
+                gate prune's split, peak device memory beside the card's,
+                host RAM, the planted pairs recovered and phase 5's checks;
+                validate_ring_scale.run on the same bank on one strip and on
+                two strips of the card (K1's strip entry), pairs equal
 
 The last two lines are a JSON record of the kernels (launches on the main
 paths of phases 5 to 7, times, bounds, library times, and the launches of
-phase 9's ring and tile-sharded runs and of phase 10 in records of their
-own) and the result line
+phase 9's ring and tile-sharded runs, of phase 10 and of phase 11 in
+records of their own) and the result line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -1668,6 +1679,109 @@ def phase_l5(torch, mods, names4, lst4, ref4, lst7, bank, picks, dev, card):
     return launches
 
 
+# Phase 11's sizes. 11a's differentials run the scalar host engine, whose
+# wall grows as N^2 (validate_screened's host reference: 3.3 s at N=512,
+# 20.7 s at the reference script's default 1024 on the H100 machine's
+# host), so both run at an N that still holds every planted cluster (about
+# 70 genomes) and keeps the whole script under 10 minutes; 11b's bank is
+# the replication-scale one, never cut.
+SCALE_SCREENED_N = 512
+SCALE_HLLAUX_N = 256
+SCALE_N = 131072  # 2 GiB of registers at p=14
+
+
+def phase_scale(torch, mods, dev, card):
+    """Phase 11: the at-scale validation harnesses
+    (cuda_selection_criteria_tpu_torch/experiments). 11a validate_screened
+    (smh_a, tau 0.8) and validate_hllaux (hll_a, hll_an: K2) on the card,
+    each exactly equal to the scalar host reference; 11b the planted bench
+    bank at N=131,072 through validate_131k_scale.run (stage walls, gate
+    split, peak device memory) with phase 5's checks; 11c
+    validate_ring_scale.run on the same bank object, on one strip (every
+    visible card) and on two strips (two virtual devices of the card, so
+    K1's strip entry runs at this scale), pairs equal to 11b's. Returns
+    {kernel: launches} summed over the phase's runs, each read right after
+    its own reset."""
+    screen, v131, vring = (mods["screen"], mods["validate_131k_scale"],
+                           mods["validate_ring_scale"])
+    total = {"screen_fused": 0, "strips": 0, "weighted_cdf_sum": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    print(f"  11a: validate_screened -n {SCALE_SCREENED_N} and "
+          f"validate_hllaux -n {SCALE_HLLAUX_N} on the card", flush=True)
+    for harness, argv in (
+            (mods["validate_screened"], ["-n", str(SCALE_SCREENED_N)]),
+            (mods["validate_hllaux"], ["-n", str(SCALE_HLLAUX_N)])):
+        reset_launches(screen)
+        t0 = time.perf_counter()
+        rc = harness.main(argv + ["--device", str(dev)])
+        launches = read_launches(screen)
+        print(f"  [{card}] {harness.__name__.rsplit('.', 1)[-1]} "
+              f"{' '.join(argv)}: exit {rc} in "
+              f"{time.perf_counter() - t0:.1f} s; launches K1 "
+              f"{launches['screen_fused']}, K2 "
+              f"{launches['weighted_cdf_sum']}", flush=True)
+        check(rc == 0, f"{harness.__name__} does not match the host "
+              "reference")
+        check(launches["screen_fused"] > 0, f"{harness.__name__} never "
+              "launched K1")
+        add(launches)
+    check(total["weighted_cdf_sum"] > 0, "validate_hllaux never launched K2")
+
+    print(f"  11b: validate_131k_scale.run, N={SCALE_N}", flush=True)
+    bank, picks, bank_secs = v131.make_bank(SCALE_N)
+    print(f"  planted bench bank N={SCALE_N} ({bank.regs.nbytes / 2**30:.2f} "
+          f"GiB of registers) with {len(picks)} planted pairs made in "
+          f"{bank_secs:.1f} s (host)", flush=True)
+    params = mods["SelectionParams"](tau=0.9, criterion="smh_a")
+    reset_launches(screen)
+    record, pairs = v131.run(bank, params, ti=1024, device=dev)
+    launches = read_launches(screen)
+    record.update(v131.planted_check(pairs, len(picks)), bank_secs=bank_secs)
+    print("  " + json.dumps(record), flush=True)
+    print(f"  [{card}] screened N={SCALE_N}: total {record['total_secs']:.3f} "
+          f"s (with the gate and screen warm-ups "
+          f"{record['total_with_warmup_secs']:.3f} s), "
+          f"{record['triangle_pairs_per_sec']:.6g} pairs/s over the full "
+          f"triangle; launches K1 {launches['screen_fused']}; peak device "
+          f"memory {record['peak_allocated_bytes'] / 2**30:.3f} GiB of "
+          f"{record['device_total_bytes'] / 2**30:.1f} GiB; host peak "
+          f"resident set {record['host_peak_rss_bytes'] / 2**30:.2f} GiB of "
+          f"{record['host_total_bytes'] / 2**30:.1f} GiB")
+    check(record["planted_recovered"], "validate_131k_scale: planted pairs "
+          "not recovered")
+    check(launches["screen_fused"] > 0, "validate_131k_scale never launched "
+          "K1")
+    mods["verify_pairs"](bank, [(i, i + 1) for i in picks], pairs, "smh_a")
+    add(launches)
+
+    print("  11c: validate_ring_scale.run on the same bank", flush=True)
+    for label, mesh in (
+            ("one strip (every visible card)", None),
+            ("two strips (two virtual devices of the card)",
+             mods["mesh"].row_mesh(["cuda:0"] * 2))):
+        reset_launches(screen)
+        rrec, rpairs = vring.run(bank, params, mesh=mesh, device=dev)
+        launches = read_launches(screen)
+        rrec.update(v131.planted_check(rpairs, len(picks)))
+        print("  " + json.dumps(rrec), flush=True)
+        print(f"  [{card}] ring N={SCALE_N}, {label}: total "
+              f"{rrec['total_secs']:.3f} s, {len(rpairs)} pairs; launches K1 "
+              f"{launches['screen_fused']} (strips {launches['strips']}); "
+              f"peak device memory "
+              f"{rrec['peak_allocated_bytes'] / 2**30:.3f} GiB")
+        check(rpairs == pairs, f"ring N={SCALE_N} ({label}) != the screened "
+              "harness's pairs")
+        check(launches["screen_fused"] > 0, f"ring N={SCALE_N} ({label}) "
+              "never launched K1")
+        add(launches)
+    check(total["strips"] > 0, "phase 11 never launched K1's strip entry")
+    return total
+
+
 def main():
     try:
         import torch
@@ -1996,28 +2110,45 @@ def main():
     tmp7.cleanup()
     print(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
+    print("== phase 11: the at-scale validation harnesses, N=131072",
+          flush=True)
+    t11 = time.perf_counter()
+    from cuda_selection_criteria_tpu_torch.experiments import (
+        validate_131k_scale, validate_hllaux, validate_ring_scale,
+        validate_screened)
+    mods.update(validate_131k_scale=validate_131k_scale,
+                validate_ring_scale=validate_ring_scale,
+                validate_screened=validate_screened,
+                validate_hllaux=validate_hllaux)
+    scale = phase_scale(torch, mods, dev, card)
+    print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     # K1's headline numbers are the dense launch's; the gated launch's and
     # the strip variant's (with its launches in the phase 9 ring runs) ride
     # beside them. `launches` counts the main paths of phases 5 to 7; the
-    # phase 9 engines' and phase 10's launches stand in their own records.
+    # phase 9 engines', phase 10's and phase 11's launches stand in their
+    # own records.
     measured = {
         "screen_fused": dict(
             {key: k1["dense"][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}, max_abs_err=max_err, gated=k1["gated"],
-            strips=dict(k1["strips"], launches=md["ring"]["strips"]),
+            strips=dict(k1["strips"], launches=md["ring"]["strips"],
+                        scale=dict(launches=scale["strips"])),
             ring=dict(launches=md["ring"]["screen_fused"]),
             sharded=dict(launches=md["sharded"]["screen_fused"]),
-            l5=dict(launches=l5["screen_fused"])),
+            l5=dict(launches=l5["screen_fused"]),
+            scale=dict(launches=scale["screen_fused"])),
         "weighted_cdf_sum": dict(
             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
             bound_ms=k2_bound_ms, bound_by=k2_bound_by,
             library_ms=k2_library_ms,
             ring=dict(launches=md["ring"]["weighted_cdf_sum"]),
             sharded=dict(launches=md["sharded"]["weighted_cdf_sum"]),
-            l5=dict(launches=l5["weighted_cdf_sum"]))}
+            l5=dict(launches=l5["weighted_cdf_sum"]),
+            scale=dict(launches=scale["weighted_cdf_sum"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

@@ -11,6 +11,21 @@ verification), each a module with a main(argv) that runs as
                          device-assisted, and the reject-bound workload
                          (one JSON line)
 
+and the at-scale validation harnesses:
+
+  validate_131k_scale  - the screened cascade stage by stage on the planted
+                         bench bank (N=131,072 by default: 2 GiB of
+                         registers; one JSON line of walls and memory)
+  validate_ring_scale  - the ring engine on the same bank
+  validate_screened    - smh_a (any criterion) on a planted-cluster bank
+                         built by the device build ops, exactly equal to
+                         the scalar host reference
+  validate_hllaux      - hll_a and hll_an on its aux-HLL twin (K2)
+  confirm_thread_sweep - the host confirm loop's pairs/s against threads
+                         (confirm_threads.csv)
+
 Ports of experiments/{compare_engines,run_time_experiment,
-confirm_throughput}.py of the JAX package; they default to --device cuda.
+confirm_throughput,validate_131k_scale,validate_ring_scale,
+validate_screened_tpu,validate_hllaux_tpu,confirm_thread_sweep}.py of the
+JAX package; they default to --device cuda.
 """

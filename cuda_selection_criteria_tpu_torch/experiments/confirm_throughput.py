@@ -36,9 +36,6 @@ import time
 import numpy as np
 import torch
 
-BENCH_SEED = 0xBE7C  # the bench bank's draws (utils/synth, bench.py:109)
-BENCH_ITEMS = 2048
-
 
 def random_bank(n, seed=2, p=14):
     """The default protocol's bank: uniform registers 0..27 and sorted
@@ -66,8 +63,8 @@ def reject_bank(n, rng):
     from ..models import SketchBank
     from ..utils import synth
 
-    regs = synth.synthetic_regs(n, BENCH_ITEMS, 14,
-                                np.random.default_rng(BENCH_SEED))
+    regs = synth.synthetic_regs(n, synth.BENCH_ITEMS, synth.BENCH_P,
+                                np.random.default_rng(synth.BENCH_SEED))
     picks = rng.choice(n - 1, size=min(1024, n // 4), replace=False)
     for i in picks:
         regs[i + 1] = regs[i]

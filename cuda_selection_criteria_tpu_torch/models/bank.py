@@ -48,11 +48,15 @@ def _ctz(x):
 
 def host_cards(regs, p):
     """f64 ERTL-MLE cardinality per register row, bit-identical to the
-    reference's scalar report() (utils/hostref.ertl_mle_batch)."""
-    n = regs.shape[0]
-    offs = (np.arange(n, dtype=np.int64)[:, None] * 64
-            + regs.astype(np.int64))
-    hists = np.bincount(offs.ravel(), minlength=n * 64).reshape(n, 64)
+    reference's scalar report() (utils/hostref.ertl_mle_batch). The row
+    histograms are counted 2048 rows at a time: a whole-bank offset array
+    would be a temporary of 8 bytes a register."""
+    hists = np.zeros((regs.shape[0], 64), np.int64)
+    for g0 in range(0, regs.shape[0], 2048):
+        sub = regs[g0:g0 + 2048].astype(np.int32)
+        sub += (np.arange(sub.shape[0], dtype=np.int32) * 64)[:, None]
+        hists[g0:g0 + 2048] = np.bincount(
+            sub.ravel(), minlength=sub.shape[0] * 64).reshape(-1, 64)
     return ertl_mle_batch(hists, p)
 
 

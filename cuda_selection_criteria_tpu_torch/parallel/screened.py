@@ -429,7 +429,9 @@ def _upload_sorted(arr, order, n_pad, device):
 class ScreenPlan:
     """Everything the screen cascade needs, prepared once per bank/params:
     the sorted+padded arrays, the device-resident bank, and the
-    conservative thresholds."""
+    conservative thresholds. upload_secs is the wall of the register
+    banks' uploads and device gathers inside __init__ (the reference plan's
+    upload_secs; on CUDA it ends in a synchronize)."""
 
     VALID = ("smh_a", "smh_only", "cb", "baseline", "hll_a", "hll_an")
 
@@ -475,7 +477,9 @@ class ScreenPlan:
             self.d_fp = torch.zeros((n_pad, 1), dtype=torch.int32,
                                     device=self.device)
 
+        t_up = time.perf_counter()
         self.d_regs = _upload_sorted(bank.regs, order, n_pad, self.device)
+        self.upload_secs = self._uploaded(t_up)
 
         # Truncated telescope: a one-sided (overestimating) harmonic sum
         # with fewer bins (ops/screen.truncate_values).
@@ -494,8 +498,10 @@ class ScreenPlan:
             coef = hll_aux_threshold_coef(crit, self.tau, zs, params.order_n)
             if coef is not None:
                 self.coef_aux = np.float32(coef * (1.0 + SCREEN_DELTA_AUX))
+                t_up = time.perf_counter()
                 self.d_aux_regs = _upload_sorted(bank.aux, order, n_pad,
                                                  self.device)
+                self.upload_secs += self._uploaded(t_up)
                 # present values are permutation-invariant: the sorted
                 # real rows hold those of the unsorted aux bank
                 self.values_aux = screen.truncate_values(
@@ -505,6 +511,12 @@ class ScreenPlan:
         # CB margin: the screen divides in f32; relax by 1e-5 relative and
         # let the oracle apply the exact f64 comparison.
         self.tau_cb = np.float32(self.tau * (1.0 - 1e-5))
+
+    def _uploaded(self, t0):
+        """Seconds since t0, once the device has finished the upload."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
 
     @property
     def regs_s(self):
@@ -525,19 +537,38 @@ class ScreenPlan:
             self.e_s, self.tau, self.ti, use_cb_skip=self.use_cb)
         return rows.astype(np.int32), cols.astype(np.int32)
 
-    def prune_tiles(self, rows, cols, chunk=256):
+    def prune_tiles(self, rows, cols, chunk=256, stats=None):
         """Cascade stage 1: keep the tiles in which some pair passes the
-        cheap gates; one device-to-host copy for the whole stage."""
+        cheap gates; one device-to-host copy for the whole stage.
+
+        stats: optional dict, filled with the reference's keys for the
+        stage's wall split: gate_chunks, gate_first_dispatch_secs (the
+        first chunk's launches), gate_dispatch_secs (every chunk's) and
+        gate_fetch_secs (the one count read). CUDA launches are
+        asynchronous, so the device's time lands in whichever half waits
+        for it: the fetch, or the dispatch once the launches wait on the
+        card (they do over a large bank's many chunks). The tiles kept are
+        the same with or without stats."""
         if len(rows) <= 1 or not (self.use_cb or self.use_smh):
             return rows, cols
         counts = []
+        t0 = time.perf_counter()
+        t_first = None
         for c0 in range(0, len(rows), chunk):
             counts.append(_strip_gate_counts(
                 self.d_e, self.d_e, self.d_fp, self.d_fp, 0, 0,
                 self._tiles(rows[c0:c0 + chunk]),
                 self._tiles(cols[c0:c0 + chunk]), self.n, self.tau_cb,
                 self.n_bands, self.ti, self.use_cb, self.use_smh))
+            if t_first is None:
+                t_first = time.perf_counter() - t0
+        t_disp = time.perf_counter() - t0
         live = torch.cat(counts).cpu().numpy() > 0
+        if stats is not None:
+            stats.update(gate_chunks=len(counts),
+                         gate_first_dispatch_secs=t_first,
+                         gate_dispatch_secs=t_disp,
+                         gate_fetch_secs=time.perf_counter() - t0 - t_disp)
         return rows[live], cols[live]
 
     def screen_chunk(self, r_chunk, c_chunk):

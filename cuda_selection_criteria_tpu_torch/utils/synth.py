@@ -10,6 +10,15 @@ u64, so band fingerprints of unrelated genomes practically never collide.
 
 import numpy as np
 
+from ..models.bank import host_cards
+
+# The reference bench's bank (bench.py:50-60, 86-149): its seed, hashes per
+# genome, precision and SMH buckets.
+BENCH_SEED = 0xBE7C
+BENCH_ITEMS = 2048
+BENCH_P = 14
+BENCH_M = 32
+
 
 def synthetic_regs(n, items, p, rng, chunk=1024):
     """uint8 (n, 2^p) registers of n genomes; `items` is the number of
@@ -42,14 +51,13 @@ def _reduce_hashes(h, valid, p):
     g = h.shape[0]
     idx = (h >> np.uint64(64 - p)).astype(np.int64)
     v = ((h << np.uint64(1)) | np.uint64(1)) << np.uint64(p - 1)
-    # bit length by shift halving (exact, no float rounding)
-    bl = np.zeros(v.shape, np.uint8)
-    for sh in (32, 16, 8, 4, 2, 1):
-        big = v >> np.uint64(sh)
-        take = big != 0
-        bl[take] += np.uint8(sh)
-        v = np.where(take, big, v)
-    rank = np.uint8(64) - bl  # clz + 1, since v > 0
+    # bit length of v > 0 from the exponent of its top non-zero 32-bit half:
+    # a uint32 converts to f64 exactly, so frexp's exponent is its bit length
+    hi = (v >> np.uint64(32)).astype(np.uint32)
+    top = hi != 0
+    _, bl = np.frexp(np.where(top, hi, v.astype(np.uint32)).astype(
+        np.float64))
+    rank = (65 - 32 * top - bl).astype(np.uint8)  # clz + 1
     rank[~valid] = 0
     flat = np.arange(g)[:, None] * (1 << p) + idx
     sub = np.zeros(g * (1 << p), np.uint8)
@@ -77,3 +85,18 @@ def plant_near_duplicates(regs, aux, rng, n_pairs, bumps=4):
         regs[i + 1, rng.integers(0, regs.shape[1], bumps)] += 1
         aux[i + 1] = aux[i]
     return picks
+
+
+def bench_bank(n, items=BENCH_ITEMS):
+    """(regs uint8 (n, 2^14), aux uint64 (n, 32), e float64 (n,)) of the
+    reference bench's synthetic bank (bench.py:86-149, build_synthetic_bank),
+    draw for draw: default_rng(0xBE7C), the registers of 1024 genomes at a
+    time, the SMH buckets drawn after every register row, and
+    e = trunc(models.bank.host_cards) of the registers. Equal to the bench's
+    bank for n below 1024 or a multiple of it (the only sizes it builds);
+    no file cache."""
+    rng = np.random.default_rng(BENCH_SEED)
+    regs = synthetic_regs(n, items, BENCH_P, rng)
+    aux = synthetic_aux(n, BENCH_M, rng)
+    e = np.trunc(host_cards(regs, BENCH_P))
+    return regs, aux, e
