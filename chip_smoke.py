@@ -121,7 +121,7 @@ Phases (any failure exits non-zero, without the final result line):
                 (run_time_experiment, both arms, m 64 and 512, blocks 256
                 and 512) on phase 7's corpus, every row present; the
                 confirm stage's rates (confirm_throughput) on the phase 5
-                bank with 2^20 pairs: host and device-assisted at
+                bank with 2^19 pairs: host and device-assisted at
                 tau=-100, the reject bound off and on at 0.9, outputs equal
  11. scale    - the at-scale validation harnesses
                 (cuda_selection_criteria_tpu_torch/experiments):
@@ -130,15 +130,30 @@ Phases (any failure exits non-zero, without the final result line):
                 to the scalar host reference; the planted bench bank at
                 N=131072 (2 GiB of registers, 128 planted pairs, tau 0.9,
                 ti 1024) through validate_131k_scale.run: stage walls, the
-                gate prune's split, peak device memory beside the card's,
-                host RAM, the planted pairs recovered and phase 5's checks;
-                validate_ring_scale.run on the same bank on one strip and on
-                two strips of the card (K1's strip entry), pairs equal
+                gate prune's split, the slab-pipelined upload's split
+                (upload_stats), the plan stage's peak device memory within
+                the padded bank + 0.5 GiB, the whole run's peak beside the
+                card's, host RAM, the planted pairs recovered and phase 5's
+                checks; validate_ring_scale.run on the same bank on one
+                strip and on two strips of the card (K1's strip entry),
+                pairs equal
+ 12. bench    - the bench protocol (experiments/bench.py, kernel_tuning.py,
+                scale_sweep.py): the card's measured copy bandwidth and the
+                baseline it gives (2 x 16 KiB read a pair); bench.record at
+                N=16384, ti=1024 (headline: K1's chunk function with its
+                gates, the count fetch and the hit extraction, reps back to
+                back; raw: K2 at p=14; tc_util; vs_baseline), the headline
+                sweep's per-tile counts equal to K1's plain version's; K2
+                at p=14, ti = tj = 1024 on 64 tiles of the bench triangle
+                bit-equal to its plain version, timed beside it, its bound
+                and torch._int_mm; three kernel_tuning configurations;
+                scale_sweep at N=4096
 
 The last two lines are a JSON record of the kernels (launches on the main
-paths of phases 5 to 7, times, bounds, library times, and the launches of
-phase 9's ring and tile-sharded runs, of phase 10 and of phase 11 in
-records of their own) and the result line
+paths of phases 5 to 7, times, bounds, library times, K2's p=14 record,
+and the launches of phase 9's ring and tile-sharded runs, of phase 10, of
+phase 11 and of phase 12's bench in records of their own) and the result
+line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -167,14 +182,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
                          "b1 wgmma.mma_async m64n128k256 .and.popc, the "
                          "bins' mma depths four a pipeline stage"),
 }
-# Rates for the bounds. Register comparisons (one bin of one register of one
-# pair) a second of wgmma.mma_async m64n128k256 .b1 .and.popc, the fastest
-# route experiments/hopper_mma_probe.py measured on an NVIDIA H100 80GB HBM3
-# at 700 W (b1 mma.sync: 5.19e15): above the int8 tensor cores' published
-# 1,979e12 ops/s (989.5e12 comparisons), so the bounds use it. Device
-# memory: the published 3.35 TB/s.
-B1_COMPARISONS_PER_S = 7.889e15
-HBM_BYTES_PER_S = 3.35e12
+
+
+def rates():
+    """(B1_COMPARISONS_PER_S, HBM_BYTES_PER_S) of the port's utils/hopper:
+    the bounds' rates, the bench's too (read once the package is on the
+    path)."""
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+    return hopper.B1_COMPARISONS_PER_S, hopper.HBM_BYTES_PER_S
 
 
 def check(cond, msg):
@@ -428,7 +443,8 @@ def k1_config(torch, screen, label, args, kw, card):
     The bound counts 2^p comparisons a bin for each pair that passes the
     gates (the plain _fused_gates on the same inputs) at
     B1_COMPARISONS_PER_S, against the bytes: the int8 hits written once and
-    2^p a distinct bank row the launch reads, at HBM_BYTES_PER_S."""
+    2^p a distinct bank row the launch reads, at HBM_BYTES_PER_S (rates())."""
+    b1, hbm = rates()
     err, hits = kernel_vs_plain(torch, screen, args, kw)
     nbins = len(kw["values"]) - 1
     print(f"  K1 {label} p={kw['p']} ti={kw['ti']} tiles={len(args[1])} "
@@ -446,9 +462,8 @@ def k1_config(torch, screen, label, args, kw, card):
     gated = int(g.sum())
     del g
     n_ids = int(torch.unique(torch.cat([rows, cols])).numel())
-    bound_ms, bound_by = bound(
-        gated * nbins * r / B1_COMPARISONS_PER_S,
-        (len(rows) * ti * ti + n_ids * ti * r) / HBM_BYTES_PER_S)
+    bound_ms, bound_by = bound(gated * nbins * r / b1,
+                               (len(rows) * ti * ti + n_ids * ti * r) / hbm)
     library_ms = int_mm_ms(torch, regs, rows, cols, kw["values"], ti, ti)
     ms2 = cuda_ms(torch, lambda: screen.screen_hits_fused(*args, **kw), 5)
     print(f"  [{card}] K1 {label}: {ms:.3f} / {ms2:.3f} ms (two turns) vs "
@@ -468,6 +483,7 @@ def k1_strips_config(torch, screen, plan, card):
     hll_a primary call: CB, no bands), against its plain version
     (bit-equal), timed beside it, its bound and torch._int_mm with a
     column bank; the bound as in k1_config."""
+    b1, hbm = rates()
     ti, r = 1024, 1 << 14
     rows = slice(4096, 8192)
     cols = slice(8192, 12288)
@@ -496,9 +512,8 @@ def k1_strips_config(torch, screen, plan, card):
                             kw["tau_cb"], ti, 1, True, False)[2]
     gated = int(g.sum())
     del g
-    bound_ms, bound_by = bound(
-        gated * nbins * r / B1_COMPARISONS_PER_S,
-        (len(r_t) * ti * ti + 8 * ti * r) / HBM_BYTES_PER_S)
+    bound_ms, bound_by = bound(gated * nbins * r / b1,
+                               (len(r_t) * ti * ti + 8 * ti * r) / hbm)
     library_ms = int_mm_ms(torch, args[0], r_t, c_t, kw["values"], ti, ti,
                            regs_cols=args[1])
     ms2 = cuda_ms(torch, lambda: screen.screen_hits_fused_strips(*args, **kw),
@@ -525,6 +540,20 @@ def k2_vs_plain(torch, screen, args, kw):
             check(g.shape == w.shape and g.dtype == w.dtype, "shape/dtype")
             err = max(err, float((g - w).abs().max()))
     return err
+
+
+def k2_bound(torch, rows, cols, values, p, ti):
+    """(bound_ms, bound_by) of one K2 launch over tiles (rows, cols) at
+    ti = tj: the comparisons (2^p a bin of each pair) at
+    B1_COMPARISONS_PER_S against the bytes, f32 S (and Z when 0 is
+    present) written once and 2^p a distinct bank row read, at
+    HBM_BYTES_PER_S."""
+    b1, hbm = rates()
+    pairs = len(rows) * ti * ti
+    n_ids = int(torch.unique(torch.cat([rows, cols])).numel())
+    out_bytes = 8 if values[0] == 0 else 4
+    return bound(pairs * (len(values) - 1) * (1 << p) / b1,
+                 (pairs * out_bytes + n_ids * ti * (1 << p)) / hbm)
 
 
 def phase_k2_small(torch, screen, dev):
@@ -1452,9 +1481,13 @@ def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
 # Phase 10a's prefix of phase 4's files: the scalar host engine's three
 # runs at tau=0.01 (every CB-live pair through a Python MLE loop) set its
 # wall, which grows as the square of the prefix: 93.8 s at 512 files and
-# 70.5 s at 384 on the H100 machine's host, so about 60 s at 352.
-L5_PREFIX = 352
-L5_PAIRS = 1 << 20  # phase 10c's pairs, each protocol
+# 70.5 s at 384 on the host of an NVIDIA H100 80GB HBM3 (700 W), and 67.0
+# s at 352 on a slower one, so about 35 s there at 256. Phase 10c's pairs,
+# each protocol: its two rates took 44.6 s at 2^20 pairs on that slower
+# host. Both are cut so that the whole script stays under 10 minutes on
+# it.
+L5_PREFIX = 256
+L5_PAIRS = 1 << 19
 
 
 def launch_sum(total, got):
@@ -1516,7 +1549,7 @@ def phase_l5(torch, mods, names4, lst4, ref4, lst7, bank, picks, dev, card):
     the scalar host engine) and selection -c baseline -h 0.01 on all of
     them against the pooled oracle; 10b the timing sweep on phase 7's
     corpus, both arms; 10c the confirm stage's rates on the phase 5 bank
-    with 2^20 pairs, the default and the reject protocol. Returns
+    with 2^19 pairs, the default and the reject protocol. Returns
     {kernel: launches} of the phase."""
     from cuda_selection_criteria_tpu_torch.experiments import (
         compare_engines, confirm_throughput, run_time_experiment)
@@ -1751,6 +1784,19 @@ def phase_scale(torch, mods, dev, card):
           f"{record['device_total_bytes'] / 2**30:.1f} GiB; host peak "
           f"resident set {record['host_peak_rss_bytes'] / 2**30:.2f} GiB of "
           f"{record['host_total_bytes'] / 2**30:.1f} GiB")
+    plan_room = record["device_bank_bytes"] + (1 << 29)
+    print(f"  [{card}] screened N={SCALE_N}: upload "
+          f"{record['upload_secs']:.3f} s, upload_stats "
+          f"{json.dumps(record['upload_stats'])}; plan-stage peak "
+          f"{record['plan_peak_allocated_bytes'] / 2**30:.3f} GiB beside "
+          f"the padded bank's {record['device_bank_bytes'] / 2**30:.3f} GiB "
+          f"(limit: the bank + 0.5 GiB); whole-run peak "
+          f"{record['peak_allocated_bytes'] / 2**30:.3f} GiB (6.005 GiB "
+          "with the whole-bank upload it replaced, NVIDIA H100 80GB HBM3, "
+          "700 W)")
+    check(record["plan_peak_allocated_bytes"] <= plan_room,
+          "validate_131k_scale: the plan stage held more than the padded "
+          "bank + 0.5 GiB on the card")
     check(record["planted_recovered"], "validate_131k_scale: planted pairs "
           "not recovered")
     check(launches["screen_fused"] > 0, "validate_131k_scale never launched "
@@ -1769,7 +1815,9 @@ def phase_scale(torch, mods, dev, card):
         rrec.update(v131.planted_check(rpairs, len(picks)))
         print("  " + json.dumps(rrec), flush=True)
         print(f"  [{card}] ring N={SCALE_N}, {label}: total "
-              f"{rrec['total_secs']:.3f} s, {len(rpairs)} pairs; launches K1 "
+              f"{rrec['total_secs']:.3f} s (upload {rrec['upload_secs']:.3f} "
+              f"s, upload_stats {json.dumps(rrec['upload_stats'])}), "
+              f"{len(rpairs)} pairs; launches K1 "
               f"{launches['screen_fused']} (strips {launches['strips']}); "
               f"peak device memory "
               f"{rrec['peak_allocated_bytes'] / 2**30:.3f} GiB")
@@ -1780,6 +1828,110 @@ def phase_scale(torch, mods, dev, card):
         add(launches)
     check(total["strips"] > 0, "phase 11 never launched K1's strip entry")
     return total
+
+
+# Phase 12's sizes: the bench's headline bank (bench.py's N_GENOMES),
+# scale_sweep's smallest default size (its next, 8192, is left out to keep
+# the script under 10 minutes on a slow host) and three kernel_tuning
+# configurations of K2 (ti:r_sub:precision[:chunkK]).
+BENCH_N = 16384
+SWEEP_SIZES = (4096,)
+TUNING_CONFIGS = ("1024:auto:int8:chunk64,1024:auto:int8:chunk16,"
+                  "512:auto:int8")
+
+
+def k2_p14_config(torch, screen, setup, card):
+    """K2 at the bench's raw width, p=14 and ti = tj = 1024, on the first
+    span of the sorted bench triangle (64 tiles, the raw sweep's first
+    launch): bit-equal to its plain version over every tile, timed beside
+    it, its bound (k2_bound) and torch._int_mm over the same CDFs."""
+    rows, cols = setup.span_tiles[setup.spans[0]]
+    args = [setup.d_regs, rows, cols]
+    kw = dict(p=14, values=setup.values, ti=1024, tj=1024)
+    nbins = len(setup.values) - 1
+    err = k2_vs_plain(torch, screen, args, kw)
+    print(f"  K2 p=14 ti=tj=1024 tiles={len(rows)} bins={nbins}: "
+          f"max_abs_err={err}")
+    check(err == 0, "K2 p=14 ti=tj=1024 kernel != plain")
+    plain_ms = cuda_ms(torch, lambda: screen._screen_s_z_plain(
+        *args, **kw), 1)
+    ms = cuda_ms(torch, lambda: screen.screen_s_z(*args, **kw), 10)
+    bound_ms, bound_by = k2_bound(torch, rows, cols, setup.values, 14, 1024)
+    library_ms = int_mm_ms(torch, setup.d_regs, rows, cols, setup.values,
+                           1024, 1024)
+    ms2 = cuda_ms(torch, lambda: screen.screen_s_z(*args, **kw), 10)
+    print(f"  [{card}] K2 p=14: {ms:.3f} / {ms2:.3f} ms (two turns) vs plain "
+          f"{plain_ms:.3f} ms per launch of {len(rows)} tiles; bound "
+          f"{bound_ms:.3f} ms ({bound_by}), share of the bound "
+          f"{bound_ms / ms:.3f}; library (torch._int_mm, {nbins} x "
+          f"{len(rows)} calls) {library_ms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_bench(torch, mods, dev, card):
+    """Phase 12: the bench protocol (cuda_selection_criteria_tpu_torch/
+    experiments/bench.py, scale_sweep.py, kernel_tuning.py) on the card:
+    the measured copy bandwidth and the baseline; bench.record at N=16384,
+    ti=1024 (headline, raw, tc_util) with its launches counted, the
+    headline sweep's per-tile counts equal to K1's plain version's; K2 at
+    p=14, ti = tj = 1024 against its plain version (k2_p14_config); three
+    kernel_tuning configurations and scale_sweep at 4096. Returns
+    ({kernel: launches} of the bench's measure, K2's p=14 record)."""
+    screen, synth, hopper = mods["screen"], mods["synth"], mods["hopper"]
+    from cuda_selection_criteria_tpu_torch.experiments import (
+        bench, kernel_tuning, scale_sweep)
+
+    hbm = hopper.measured_hbm_bytes_per_s(dev)
+    baseline = hopper.card_baseline(dev)
+    print(f"  [{card}] device-to-device copy of 2 GiB: {hbm:.6g} bytes/s "
+          f"(read + write; published {rates()[1]:.3g}); baseline "
+          f"{baseline:.6g} pairs/s (2 x 16 KiB a pair; bench.py's sm_86 "
+          "2.32e7)", flush=True)
+    check(0 < hbm <= rates()[1], "the measured copy bandwidth is not below "
+          "the published rate")
+    t0 = time.perf_counter()
+    bank = synth.bench_bank(BENCH_N)
+    print(f"  bench bank N={BENCH_N} made in {time.perf_counter() - t0:.1f} s "
+          "(host)", flush=True)
+    reset_launches(screen)
+    rec = bench.record(BENCH_N, 3, 1024, dev, bank=bank)
+    launches = read_launches(screen)
+    print("  " + json.dumps(rec), flush=True)
+    sweep_ms = (BENCH_N * (BENCH_N - 1) // 2) / rec["value"] * 1e3
+    print(f"  [{card}] bench N={BENCH_N}: headline {rec['value']:.6g} pairs/s"
+          f" ({sweep_ms:.3f} ms a sweep; vs_baseline "
+          f"{rec['vs_baseline']:.4g}), raw (K2) "
+          f"{rec['raw_kernel_pairs_per_sec']:.6g} pairs/s (raw_vs_baseline "
+          f"{rec['raw_vs_baseline']:.4g}), tc_util {rec['tc_util']:.4f}; "
+          f"launches K1 {launches['screen_fused']}, K2 "
+          f"{launches['weighted_cdf_sum']}", flush=True)
+    check(launches["screen_fused"] > 0 and launches["weighted_cdf_sum"] > 0,
+          "the bench never launched K1 and K2")
+    check(rec["value"] > 0 and rec["raw_kernel_pairs_per_sec"] > 0
+          and rec["card"] == hopper.card_line(), "malformed bench record")
+
+    setup = bench.setup(BENCH_N, ti=1024, device=dev, bank=bank)
+    counts, _ = bench.headline_collect(bench.headline_dispatch(setup))
+    want = torch.cat([screen._screen_hits_fused_plain(
+        setup.d_regs, *setup.span_tiles[span], setup.d_e, setup.d_fp,
+        setup.n, setup.tau_scr, setup.tau_cb, 14, setup.values, 1024,
+        setup.n_bands, True, True)[1] for span in setup.spans])
+    check(np.array_equal(counts, want.cpu().numpy()), "the bench's headline "
+          "counts differ from K1's plain version's")
+    print(f"  headline sweep: {len(counts)} tiles, {int(counts.sum())} hits, "
+          "per-tile counts equal to K1's plain version's")
+    k2 = k2_p14_config(torch, screen, setup, card)
+    del setup
+
+    for row in kernel_tuning.rows(TUNING_CONFIGS, BENCH_N, device=dev,
+                                  bank=bank):
+        print(f"  [{card}] kernel_tuning " + json.dumps(row), flush=True)
+        check("error" not in row, f"kernel_tuning {row['config']} failed")
+    for row in scale_sweep.rows(SWEEP_SIZES, device=dev):
+        print(f"  [{card}] scale_sweep " + json.dumps(row), flush=True)
+        check(row["pairs_per_sec"] > 0, "scale_sweep row without a rate")
+    return launches, k2
 
 
 def main():
@@ -1805,8 +1957,8 @@ def main():
         distributed, mesh, ring, scheduler, screened)
     from cuda_selection_criteria_tpu_torch.parallel.selection import (
         SelectionParams, format_results, select_pairs)
-    from cuda_selection_criteria_tpu_torch.utils import formats, hostref
-    from cuda_selection_criteria_tpu_torch.utils import synth
+    from cuda_selection_criteria_tpu_torch.utils import (formats, hopper,
+                                                        hostref, synth)
 
     t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # plain: exact f32
@@ -1899,13 +2051,8 @@ def main():
     k2_plain_ms = cuda_ms(torch, lambda: screen._screen_s_z_plain(
         *k2_args, **k2_kw), 2)
     k2_ms = cuda_ms(torch, lambda: screen.screen_s_z(*k2_args, **k2_kw), 10)
-    # f32 S (and Z when 0 is present) written once, 2^p_aux a distinct row
-    n_ids = int(torch.unique(torch.cat([hr64, hc64])).numel())
-    out_bytes = 8 if hplan.values_aux[0] == 0 else 4
-    k2_bound_ms, k2_bound_by = bound(
-        chunk * 1024 * 1024 * k2_bins * 256 / B1_COMPARISONS_PER_S,
-        (chunk * 1024 * 1024 * out_bytes + n_ids * 1024 * 256)
-        / HBM_BYTES_PER_S)
+    k2_bound_ms, k2_bound_by = k2_bound(torch, hr64, hc64, hplan.values_aux,
+                                        8, 1024)
     k2_library_ms = int_mm_ms(torch, hplan.d_aux_regs, hr64, hc64,
                               hplan.values_aux, 1024, 1024)
     k2_ms2 = cuda_ms(torch, lambda: screen.screen_s_z(*k2_args, **k2_kw), 10)
@@ -2123,13 +2270,21 @@ def main():
     scale = phase_scale(torch, mods, dev, card)
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
+    print("== phase 12: the bench protocol (bench, kernel_tuning, "
+          "scale_sweep)", flush=True)
+    t12 = time.perf_counter()
+    mods.update(synth=synth, hopper=hopper)
+    bench_launches, k2_p14 = phase_bench(torch, mods, dev, card)
+    print(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     # K1's headline numbers are the dense launch's; the gated launch's and
     # the strip variant's (with its launches in the phase 9 ring runs) ride
-    # beside them. `launches` counts the main paths of phases 5 to 7; the
-    # phase 9 engines', phase 10's and phase 11's launches stand in their
-    # own records.
+    # beside them; K2's are the p_aux=8 launch's, its p=14 launch (phase
+    # 12) beside them. `launches` counts the main paths of phases 5 to 7;
+    # the phase 9 engines', phase 10's, phase 11's and phase 12's bench
+    # launches stand in their own records.
     measured = {
         "screen_fused": dict(
             {key: k1["dense"][key] for key in (
@@ -2140,7 +2295,8 @@ def main():
             ring=dict(launches=md["ring"]["screen_fused"]),
             sharded=dict(launches=md["sharded"]["screen_fused"]),
             l5=dict(launches=l5["screen_fused"]),
-            scale=dict(launches=scale["screen_fused"])),
+            scale=dict(launches=scale["screen_fused"]),
+            bench=dict(launches=bench_launches["screen_fused"])),
         "weighted_cdf_sum": dict(
             max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
             bound_ms=k2_bound_ms, bound_by=k2_bound_by,
@@ -2148,7 +2304,9 @@ def main():
             ring=dict(launches=md["ring"]["weighted_cdf_sum"]),
             sharded=dict(launches=md["sharded"]["weighted_cdf_sum"]),
             l5=dict(launches=l5["weighted_cdf_sum"]),
-            scale=dict(launches=scale["weighted_cdf_sum"]))}
+            scale=dict(launches=scale["weighted_cdf_sum"]),
+            p14=k2_p14,
+            bench=dict(launches=bench_launches["weighted_cdf_sum"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

@@ -24,8 +24,18 @@ and the at-scale validation harnesses:
   confirm_thread_sweep - the host confirm loop's pairs/s against threads
                          (confirm_threads.csv)
 
+and the reference bench's protocol:
+
+  bench                - headline (the screened chunk function) and raw
+                         (K2 at p=14) pairs/s over the full triangle of
+                         the N=16384 bench bank, against the card's own
+                         baseline (one JSON line)
+  scale_sweep          - the bench's rates at several N
+  kernel_tuning        - K2's rate a tile size and launch width
+
 Ports of experiments/{compare_engines,run_time_experiment,
 confirm_throughput,validate_131k_scale,validate_ring_scale,
-validate_screened_tpu,validate_hllaux_tpu,confirm_thread_sweep}.py of the
-JAX package; they default to --device cuda.
+validate_screened_tpu,validate_hllaux_tpu,confirm_thread_sweep,
+scale_sweep,kernel_tuning}.py and bench.py of the JAX package; they
+default to --device cuda.
 """

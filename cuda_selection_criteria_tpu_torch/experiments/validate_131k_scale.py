@@ -45,7 +45,7 @@ from ..models.bank import host_cards
 from ..ops import screen
 from ..parallel.screened import ScreenPlan, auto_chunk, auto_tile
 from ..parallel.selection import SelectionParams
-from ..utils import synth
+from ..utils import hopper, synth
 from ..utils.device import resolve
 
 PLANT_SEED = 0x131  # the reference harness's planting draws
@@ -121,19 +121,29 @@ def run(bank, params, ti=None, chunk=None, wave=48, device=None):
     wall (plan_secs without the upload, upload_secs, schedule_secs,
     gate_warmup_secs, prune_secs, screen_warmup_secs, screen_secs,
     confirm_secs; the two warm-ups are left out of total_secs), the gate
-    prune's stats, the counts, the throughput over the full triangle, K1's
+    prune's stats, the plan's upload_stats, the device bank's bytes and
+    on CUDA plan_peak_allocated_bytes (the most the card's allocator held
+    during ScreenPlan beyond what it held when the run began), the counts,
+    the throughput over the full triangle with vs_baseline and
+    resident_vs_baseline (against utils/hopper.card_baseline, measured
+    once a process before the peak is reset; null off the card), K1's
     launches and the device memory; pairs are reference-ordered
     [(name_i, name_j, jacc)]."""
     dev = resolve(device)
+    baseline = hopper.card_baseline(dev)
     ti = auto_tile(bank.n) if ti is None else ti
     chunk = auto_chunk(ti) if chunk is None else chunk
-    if dev.type == "cuda":
+    cuda = dev.type == "cuda"
+    if cuda:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
     k1_0 = screen.screen_hits_fused.launches
     stages = {}
     t0 = time.perf_counter()
     plan = ScreenPlan(bank, params, ti, dev)
+    plan_peak = (torch.cuda.max_memory_allocated(dev) - held if cuda
+                 else None)
     stages["plan_secs"] = time.perf_counter() - t0 - plan.upload_secs
     stages["upload_secs"] = plan.upload_secs
 
@@ -184,11 +194,16 @@ def run(bank, params, ti=None, chunk=None, wave=48, device=None):
         "tiles_scheduled": n_sched, "tiles_live": len(rows),
         "candidates": len(cand), "pairs_emitted": len(pairs),
         **stages, **prune,
+        "upload_stats": plan.upload_stats,
+        "device_bank_bytes": plan.d_regs.nbytes,
+        "plan_peak_allocated_bytes": plan_peak,
         "total_secs": total,
         "total_with_warmup_secs": total + warmup,
         "triangle_pairs_per_sec": tri_pairs / total,
+        "vs_baseline": hopper.ratio(tri_pairs / total, baseline),
         "resident_secs": resident,
         "resident_pairs_per_sec": tri_pairs / resident,
+        "resident_vs_baseline": hopper.ratio(tri_pairs / resident, baseline),
         "k1_launches": screen.screen_hits_fused.launches - k1_0,
         **device_record(dev),
     }

@@ -27,18 +27,21 @@ import torch
 from ..ops import _build, screen
 from ..parallel.ring import select_pairs_ring
 from ..parallel.selection import SelectionParams
-from ..utils import synth
+from ..utils import hopper, synth
 from ..utils.device import resolve
 from .validate_131k_scale import device_record, make_bank, planted_check
 
 
 def run(bank, params, mesh=None, ti=None, chunk_tiles=None, device=None):
     """select_pairs_ring on `bank` (mesh and device as the engine takes
-    them). Returns (record, pairs): record holds the engine's stats, the
-    wall (total_secs), pairs/s over the full triangle, K1's launches on its
-    two entry points and the plan device's memory; pairs are
-    reference-ordered [(name_i, name_j, jacc)]."""
+    them). Returns (record, pairs): record holds the engine's stats
+    (upload_stats among them), the wall (total_secs), pairs/s over the
+    full triangle with vs_baseline (against utils/hopper.card_baseline,
+    measured once a process before the peak is reset; null off the card),
+    K1's launches on its two entry points and the plan device's memory;
+    pairs are reference-ordered [(name_i, name_j, jacc)]."""
     dev = resolve(device)
+    baseline = hopper.card_baseline(dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -56,6 +59,7 @@ def run(bank, params, mesh=None, ti=None, chunk_tiles=None, device=None):
         **stats,
         "total_secs": total,
         "triangle_pairs_per_sec": tri_pairs / total,
+        "vs_baseline": hopper.ratio(tri_pairs / total, baseline),
         "k1_launches": screen.screen_hits_fused.launches - k1_0[0],
         "k1_strip_launches": (screen.screen_hits_fused_strips.launches
                               - k1_0[1]),

@@ -47,10 +47,10 @@ from ..utils.hostref import PairOracle
 from .mesh import resolve_mesh
 from .screened import (SCREEN_DELTA_AUX, Strip, _screen_strip_pair,
                        _strip_aux_pass, _strip_gate_counts, _strip_post,
-                       _upload_sorted, auto_chunk, auto_tile,
-                       band_fingerprints_np, extract_hit_coords,
-                       hll_aux_threshold_coef, make_device_hist_fn,
-                       reject_delta_for, screen_tau)
+                       auto_chunk, auto_tile, band_fingerprints_np,
+                       extract_hit_coords, hll_aux_threshold_coef,
+                       make_device_hist_fn, reject_delta_for, screen_tau,
+                       upload_sorted_rows)
 
 # Tiles per gate-pass call.
 RING_GATE_CHUNK = 512
@@ -163,7 +163,9 @@ def select_pairs_ring(bank, params, mesh=None, ti=None, chunk_tiles=None,
     chunks of a step, so a mesh position holds at most
     wave * chunk_tiles * ti^2 bytes of masks whatever N is. stats: optional
     dict, filled with the sweep's walls (upload_secs, schedule_secs,
-    gate_secs, screen_secs, confirm_secs) and counts (steps_total,
+    gate_secs, screen_secs, confirm_secs), upload_stats (the strips'
+    register uploads' split, upload_sorted_rows's keys summed over the
+    devices and rounded as the reference rounds them), counts (steps_total,
     steps_run, dispatches, tiles_dispatched, tiles_gate_live, candidates,
     strip, chunk_tiles, wave), max_device_mask_bytes (the largest sum of
     the hit masks one mesh position held at a read) and, when a mesh device
@@ -225,15 +227,18 @@ def select_pairs_ring(bank, params, mesh=None, ti=None, chunk_tiles=None,
             coef = c * (1.0 + SCREEN_DELTA_AUX)
             use_aux_gate = True
 
+    # each strip through the slab-pipelined upload: the host never gathers
+    # a whole strip, and a device holds its strips and no copy of them
     t0 = time.perf_counter()
+    upload_ph = {}
     resident = []
     for d, dv in enumerate(devs):
         lo = d * strip
-        rows_d = order[lo:min(n, lo + strip)]
         resident.append(Strip(
-            _upload_sorted(bank.regs, rows_d, strip, dv),
-            (_upload_sorted(bank.aux, rows_d, strip, dv) if use_aux_gate
-             else None),
+            upload_sorted_rows(bank.regs, order, lo, strip, dv,
+                               stats=upload_ph),
+            (upload_sorted_rows(bank.aux, order, lo, strip, dv)
+             if use_aux_gate else None),
             torch.from_numpy(e_p[lo:lo + strip]).to(dv),
             torch.from_numpy(np.ascontiguousarray(fp[lo:lo + strip])).to(dv),
             lo))
@@ -252,6 +257,8 @@ def select_pairs_ring(bank, params, mesh=None, ti=None, chunk_tiles=None,
                 for res, k in zip(resident, real) if k)))),
             max_card, bank.aux_param))
     st["upload_secs"] = time.perf_counter() - t0
+    st["upload_stats"] = {k: (round(v, 2) if isinstance(v, float) else v)
+                          for k, v in upload_ph.items()}
 
     tau_scr = np.float32(screen_tau(tau, params.screen_delta))
     tau_cb = np.float32(tau * (1.0 - 1e-5))

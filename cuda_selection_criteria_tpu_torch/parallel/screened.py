@@ -22,10 +22,12 @@ cascade, mirroring the reference's prune-then-confirm design
      and Jaccard values are identical to the reference.
 """
 
+import contextlib
 import hashlib
 import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -410,19 +412,93 @@ class _SweepCheckpoint:
         self._fh.close()
 
 
-def _upload_sorted(arr, order, n_pad, device):
-    """The rows `order` of a raw (N, R) uint8 bank as a zero-padded
-    (n_pad, R) device bank. For the whole bank: one upload of the raw
-    bank, then a device-side gather. For fewer rows (a ring strip, whose
-    device must never hold the whole bank): the host gathers them and only
-    they cross."""
-    out = torch.zeros((n_pad, arr.shape[1]), dtype=torch.uint8, device=device)
-    if len(order) < arr.shape[0]:
-        out[:len(order)] = torch.from_numpy(np.take(arr, order, axis=0)).to(
-            device)
+# Host threads that share each slab's gather in upload_sorted_rows: the
+# gather binds, and on the 8-core host of an NVIDIA H100 80GB HBM3 (700 W)
+# one thread gathered 3.4 to 4.2 GiB/s, eight 16.3 to 18.0
+# (experiments/upload_sweep.py).
+UPLOAD_THREADS = min(8, os.cpu_count() or 1)
+
+
+def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
+                       slab_bytes=128 << 20, stats=None,
+                       threads=UPLOAD_THREADS):
+    """Slab-pipelined upload of sorted bank rows [lo, lo + rows_out) to one
+    device: a uint8 (rows_out, R) tensor on resolve(device) holding rows
+    order[lo:lo + count] of bank_regs, rows past len(order) zero. Port of
+    the reference's upload_sorted_rows with pack=None.
+
+    The host gathers a slab of slab_bytes // R sorted rows into one of two
+    reused arenas (pinned on CUDA) and copies it into the output with a
+    non_blocking copy on the current stream, recording an event after each
+    copy; an arena is refilled only once its event has passed (the
+    reference's _place_rows token, timed as token_wait_secs). So the
+    device holds the output alone, never the raw bank or a gathered copy,
+    and the gather of slab k+1 overlaps the copy of slab k. The gather
+    binds, so `threads` host threads share each slab (np.take releases the
+    interpreter lock). On the CPU the arenas are plain and the copy
+    synchronous. Ends in a synchronize.
+
+    stats: optional dict; gets the reference's keys (slabs, gather_secs,
+    put_ret_secs, token_wait_secs, and pack_secs 0.0 and pack_bits 0: the
+    tunnel's bit-plane packing is not ported), added to what it holds."""
+    dev = resolve(device)
+    cuda = dev.type == "cuda"
+    r = bank_regs.shape[1]
+    slab = max(1, slab_bytes // max(r, 1))
+    count = max(0, min(len(order) - lo, rows_out))
+    out = torch.empty((rows_out, r), dtype=torch.uint8, device=dev)
+    out[count:].zero_()
+    if count == 0:
+        if cuda:
+            torch.cuda.synchronize(dev)
         return out
-    raw = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-    out[:len(order)] = raw[torch.from_numpy(order).to(device)]
+    ph = stats if stats is not None else {}
+    ph.setdefault("slabs", 0)
+    ph["pack_bits"] = 0
+    for key in ("gather_secs", "put_ret_secs", "token_wait_secs",
+                "pack_secs"):
+        ph.setdefault(key, 0.0)
+    # a failed pin raises: a pageable arena would make the copies
+    # synchronous and the overlap silent
+    arenas = [torch.empty((min(slab, count), r), dtype=torch.uint8,
+                          pin_memory=cuda) for _ in range(2)]
+    hosts = [a.numpy() for a in arenas]
+    events = [None, None]
+
+    def gather(dst, rows, a, b):
+        # mode="clip": the indices are valid, and "raise" would gather
+        # into a buffer of numpy's own first
+        np.take(bank_regs, rows[a:b], axis=0, out=dst[a:b], mode="clip")
+
+    with contextlib.ExitStack() as ctx:
+        if cuda:
+            ctx.enter_context(torch.cuda.device(dev))
+        pool = (ctx.enter_context(ThreadPoolExecutor(threads))
+                if threads > 1 else None)
+        for idx, k0 in enumerate(range(0, count, slab)):
+            tp = time.perf_counter()
+            if events[idx % 2] is not None:
+                events[idx % 2].synchronize()  # its last copy has finished
+            ph["token_wait_secs"] += time.perf_counter() - tp
+            rows = order[lo + k0: lo + min(k0 + slab, count)]
+            k = len(rows)
+            tp = time.perf_counter()
+            if pool is None:
+                gather(hosts[idx % 2], rows, 0, k)
+            else:
+                cut = np.linspace(0, k, threads + 1).astype(int)
+                list(pool.map(gather, [hosts[idx % 2]] * threads,
+                              [rows] * threads, cut[:-1], cut[1:]))
+            ph["gather_secs"] += time.perf_counter() - tp
+            tp = time.perf_counter()
+            out[k0:k0 + k].copy_(arenas[idx % 2][:k], non_blocking=cuda)
+            if cuda:
+                events[idx % 2] = torch.cuda.Event()
+                events[idx % 2].record()
+            ph["put_ret_secs"] += time.perf_counter() - tp
+            ph["slabs"] += 1
+        if cuda:
+            torch.cuda.synchronize(dev)
     return out
 
 
@@ -430,8 +506,11 @@ class ScreenPlan:
     """Everything the screen cascade needs, prepared once per bank/params:
     the sorted+padded arrays, the device-resident bank, and the
     conservative thresholds. upload_secs is the wall of the register
-    banks' uploads and device gathers inside __init__ (the reference plan's
-    upload_secs; on CUDA it ends in a synchronize)."""
+    banks' uploads inside __init__ (upload_sorted_rows, each ending in a
+    synchronize; the reference plan's upload_secs), and upload_stats the
+    primary bank's upload split: upload_sorted_rows's keys and
+    wire_wait_secs, the wall the host stages leave, as the reference
+    computes it."""
 
     VALID = ("smh_a", "smh_only", "cb", "baseline", "hll_a", "hll_an")
 
@@ -478,8 +557,15 @@ class ScreenPlan:
                                     device=self.device)
 
         t_up = time.perf_counter()
-        self.d_regs = _upload_sorted(bank.regs, order, n_pad, self.device)
-        self.upload_secs = self._uploaded(t_up)
+        self.upload_stats = {}
+        self.d_regs = upload_sorted_rows(bank.regs, order, 0, n_pad,
+                                         self.device, stats=self.upload_stats)
+        self.upload_secs = time.perf_counter() - t_up
+        if self.upload_stats:
+            self.upload_stats["wire_wait_secs"] = round(
+                self.upload_secs - self.upload_stats["gather_secs"]
+                - self.upload_stats["pack_secs"]
+                - self.upload_stats["put_ret_secs"], 2)
 
         # Truncated telescope: a one-sided (overestimating) harmonic sum
         # with fewer bins (ops/screen.truncate_values).
@@ -499,9 +585,9 @@ class ScreenPlan:
             if coef is not None:
                 self.coef_aux = np.float32(coef * (1.0 + SCREEN_DELTA_AUX))
                 t_up = time.perf_counter()
-                self.d_aux_regs = _upload_sorted(bank.aux, order, n_pad,
-                                                 self.device)
-                self.upload_secs += self._uploaded(t_up)
+                self.d_aux_regs = upload_sorted_rows(bank.aux, order, 0,
+                                                     n_pad, self.device)
+                self.upload_secs += time.perf_counter() - t_up
                 # present values are permutation-invariant: the sorted
                 # real rows hold those of the unsorted aux bank
                 self.values_aux = screen.truncate_values(
@@ -511,12 +597,6 @@ class ScreenPlan:
         # CB margin: the screen divides in f32; relax by 1e-5 relative and
         # let the oracle apply the exact f64 comparison.
         self.tau_cb = np.float32(self.tau * (1.0 - 1e-5))
-
-    def _uploaded(self, t0):
-        """Seconds since t0, once the device has finished the upload."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter() - t0
 
     @property
     def regs_s(self):

@@ -758,3 +758,78 @@ def test_multi_device_engines_on_cuda_match_cpu(cuda, crit):
     assert screen.screen_hits_fused_strips.launches > strips
     assert runs[0] == runs[1]
     assert runs[0][0] == runs[0][1] == runs[0][2] and len(runs[0][0]) >= 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab_rows", [3, 1000])
+def test_upload_sorted_rows_on_cuda_bytes(cuda, slab_rows):
+    """The slab-pipelined upload with pinned arenas and non_blocking
+    copies: slabs far smaller than the bank (a refill of an arena before
+    its copy has finished would corrupt rows), the bank's bytes equal to
+    the host's sorted rows, zero-padded; the result is on the card and
+    the stats count every slab."""
+    rng = np.random.default_rng(17)
+    regs = rng.integers(0, 256, size=(4099, 1 << 14), dtype=np.uint8)
+    order = rng.permutation(len(regs))
+    stats = {}
+    got = screened.upload_sorted_rows(regs, order, 0, 5120, cuda,
+                                      slab_bytes=slab_rows << 14,
+                                      stats=stats)
+    assert got.device.type == "cuda" and got.shape == (5120, 1 << 14)
+    assert stats["slabs"] == -(-len(regs) // slab_rows)
+    host = got.cpu().numpy()
+    np.testing.assert_array_equal(host[:len(regs)], regs[order])
+    assert not host[len(regs):].any()
+    part = screened.upload_sorted_rows(regs, order, 1000, 2048, cuda,
+                                       slab_bytes=slab_rows << 14)
+    np.testing.assert_array_equal(part.cpu().numpy(), regs[order[1000:3048]])
+
+
+@pytest.mark.cuda
+def test_plan_stage_peak_within_bank_and_half_a_gib(cuda):
+    """ScreenPlan.__init__ on the N=65,536 bench bank (1 GiB of registers)
+    holds the padded bank and at most 0.5 GiB more on the card (the
+    upload's slabs live on the host), and its device bank is the host's
+    sorted rows."""
+    regs, aux, e = synth.bench_bank(65536)
+    bank = SketchBank(names=[f"g{i}" for i in range(len(regs))], regs=regs,
+                      p=14, cards=e, aux_kind="smh", aux=aux, aux_param=32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    plan = screened.ScreenPlan(bank, SelectionParams(tau=0.9), 1024,
+                               device=cuda)
+    peak = torch.cuda.max_memory_allocated() - before
+    assert plan.d_regs.nbytes == plan.n_pad << 14
+    assert peak <= plan.d_regs.nbytes + (1 << 29)
+    assert plan.upload_stats["slabs"] == 8
+    np.testing.assert_array_equal(plan.d_regs[:4096].cpu().numpy(),
+                                  regs[plan.order[:4096]])
+    np.testing.assert_array_equal(plan.d_regs[-4096:].cpu().numpy(),
+                                  regs[plan.order[-4096:]])
+
+
+@pytest.mark.cuda
+def test_k2_p14_ti1024_matches_plain(cuda):
+    """K2 at the bench's raw width (p=14, ti = tj = 1024) on 8 tiles of the
+    sorted bench bank, bit-equal to its plain version."""
+    regs, _, e = synth.bench_bank(4096)
+    order = np.argsort(e, kind="stable")
+    d_regs = torch.from_numpy(regs[order]).to(cuda)
+    values = screen.truncate_values(screen.bank_values(d_regs),
+                                    float(e.max()), 14)
+    rows = torch.tensor([0, 0, 1, 3, 2, 1, 3, 0], dtype=torch.int32,
+                        device=cuda)
+    cols = torch.tensor([0, 3, 1, 3, 2, 2, 0, 1], dtype=torch.int32,
+                        device=cuda)
+    before = screen.screen_s_z.launches
+    s, z = screen.screen_s_z(d_regs, rows, cols, 14, values, ti=1024,
+                             tj=1024)
+    ws, wz = screen._screen_s_z_plain(d_regs, rows, cols, 14, values, 1024,
+                                      1024)
+    torch.cuda.synchronize()
+    assert screen.screen_s_z.launches == before + 1
+    assert torch.equal(s, ws)
+    assert (z is None) == (wz is None)
+    if z is not None:
+        assert torch.equal(z, wz)
