@@ -47,10 +47,15 @@ Phases (any failure exits non-zero, without the final result line):
                 by the native threaded loaders and the numpy readers
                 (bit-equal, both walls); the native fused union
                 histograms against the numpy ones on 2^16 pairs; the
+                run fails unless libfastx is available; the native row
+                histograms (fastx.row_hist, the cards' pass) against
+                the numpy ones on the p=14 bank, bit-equal, both walls; the
                 selection CLI's lines for smh_a, cb, baseline, hll_a and
                 hll_an must equal the exact host reference's (its wall,
                 on the native histograms)
-  5. main     - select_pairs(smh_a, tau=0.9) on N=16384 genomes at p=14
+  5. main     - host_cards on the N=16384 bank (its wall) bit-equal to
+                the MLE of the numpy row histograms (their wall);
+                select_pairs(smh_a, tau=0.9) on N=16384 genomes at p=14
                 (256 MiB of registers on the card) with planted
                 near-duplicates: every planted pair the exact oracle passes
                 is emitted, every emitted pair is oracle-confirmed with the
@@ -2119,6 +2124,22 @@ def main():
           "native union histograms differ from numpy's")
     check(hostref.hist_backend() == "native", "the oracle's histograms are "
           "not the native ones")
+    # the bank's cardinalities take their row histograms from the native
+    # pass: the numpy loop must never be the card machine's route
+    check(fastx.available(), "libfastx is not available: host_cards would "
+          "count the row histograms with numpy")
+    rows = {}
+    for how, fn in (("native row_hist, 8 threads", fastx.row_hist),
+                    ("numpy (_row_hists_numpy)",
+                     models.bank._row_hists_numpy)):
+        t0 = time.perf_counter()
+        rows[how] = fn(read[0])
+        secs = time.perf_counter() - t0
+        print(f"  [{card}] row histograms of the {n4} x 2^14 bank, {how}: "
+              f"{secs:.4f} s")
+    check(all(np.array_equal(h, rows["numpy (_row_hists_numpy)"])
+              for h in rows.values()),
+          "native row histograms differ from numpy's")
     for crit in ("smh_a", "cb", "baseline", "hll_a", "hll_an"):
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -2150,6 +2171,17 @@ def main():
 
     print("== phase 5: main path, select_pairs smh_a N=16384 p=14",
           flush=True)
+    t0 = time.perf_counter()
+    cards = models.bank.host_cards(bank.regs, 14)
+    t_cards = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = hostref.ertl_mle_batch(models.bank._row_hists_numpy(bank.regs), 14)
+    t_plain = time.perf_counter() - t0
+    print(f"  [{card}] host_cards N={bank.n} p=14 (native row histograms, "
+          f"MLE in one call): {t_cards:.4f} s; numpy row histograms and "
+          f"the same MLE: {t_plain:.4f} s; cards bit-equal")
+    check(np.array_equal(cards.view(np.int64), want.view(np.int64)),
+          "host_cards differs from the MLE of the numpy row histograms")
     out, launches = run_main_path(torch, screen, select_pairs, bank, params,
                                   dev, card)
     check(launches["screen_fused"] > 0, "main path never launched K1")

@@ -3,7 +3,8 @@ and the build path that makes them from FASTA/FASTQ files.
 
 Host numpy, like cuda_selection_criteria_tpu/models/bank.py: registers
 (N, 2^p) uint8, aux sketches stacked, cardinalities from the host f64
-ERTL-MLE. The screened engine uploads the registers to the device itself
+ERTL-MLE over the row histograms of a native threaded pass. The screened
+engine uploads the registers to the device itself
 (parallel/screened.ScreenPlan). build_bank_from_files decodes the files on
 host threads and builds the sketches on the device with torch ops
 (ops/kmers, ops/hll_build, ops/smh_build), or on the host with the native
@@ -46,18 +47,52 @@ def _ctz(x):
     return (x & -x).bit_length() - 1
 
 
-def host_cards(regs, p):
-    """f64 ERTL-MLE cardinality per register row, bit-identical to the
-    reference's scalar report() (utils/hostref.ertl_mle_batch). The row
-    histograms are counted 2048 rows at a time: a whole-bank offset array
-    would be a temporary of 8 bytes a register."""
+# Rows an ertl_mle_batch call takes in mle_rows. The MLE's secant loop is
+# masked row by row, so a row's card does not depend on its batch: a bank
+# above this size is split into chunks of it, run on min(8, cores) threads
+# (numpy releases the interpreter lock inside each array operation), and
+# the results concatenated. A chunk's array operations stay long enough
+# that each call's Python overhead is small, and a bank of 2^19 rows gives
+# the threads 16 chunks to share.
+MLE_CHUNK = 1 << 15
+
+
+def _row_hists_numpy(regs):
+    """(N, 64) int64 register histograms of a uint8 (N, m) bank, 2048 rows
+    a bincount (a whole-bank offset array would be a temporary of 8 bytes
+    a register): the plain version of fastx.row_hist, and host_cards'
+    route where the native library does not build."""
     hists = np.zeros((regs.shape[0], 64), np.int64)
     for g0 in range(0, regs.shape[0], 2048):
         sub = regs[g0:g0 + 2048].astype(np.int32)
         sub += (np.arange(sub.shape[0], dtype=np.int32) * 64)[:, None]
         hists[g0:g0 + 2048] = np.bincount(
             sub.ravel(), minlength=sub.shape[0] * 64).reshape(-1, 64)
-    return ertl_mle_batch(hists, p)
+    return hists
+
+
+def host_cards(regs, p):
+    """f64 ERTL-MLE cardinality per register row, bit-identical to the
+    reference's scalar report() (utils/hostref.ertl_mle_batch). The row
+    histograms come from the native threaded pass (fastx.row_hist, each
+    register read once on min(8, cores) threads), or from
+    _row_hists_numpy where the native library does not build; the MLE
+    runs over MLE_CHUNK-row chunks on as many threads."""
+    hists = (native.row_hist(regs) if native.available()
+             else _row_hists_numpy(regs))
+    return mle_rows(hists, p)
+
+
+def mle_rows(hists, p):
+    """ertl_mle_batch of (N, 64) histograms, over MLE_CHUNK-row chunks on
+    min(8, cores) threads above MLE_CHUNK rows: the same bits."""
+    if len(hists) <= MLE_CHUNK:
+        return ertl_mle_batch(hists, p)
+    starts = range(0, len(hists), MLE_CHUNK)
+    with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+        return np.concatenate(list(pool.map(
+            lambda c0: ertl_mle_batch(hists[c0:c0 + MLE_CHUNK], p),
+            starts)))
 
 
 @dataclass
@@ -95,8 +130,9 @@ class SketchBank:
                     aux_kind=None, aux_param=None):
         """The port's bank from a reference SketchBank's numpy fields
         (names, regs, p, cards, aux, aux_kind, aux_param): state carried
-        across from the JAX package. cards=None recomputes them with the
-        host f64 MLE."""
+        across from the JAX package. cards=None recomputes them with
+        host_cards: the native threaded row histograms, then the host f64
+        MLE over row chunks on host threads."""
         return cls(
             names=list(names),
             regs=np.ascontiguousarray(regs, np.uint8),

@@ -3,7 +3,8 @@
 // Copy of cuda_selection_criteria_tpu/native/fastx.cpp for the torch port,
 // without fastx_value_presence, pack_one_row, fastx_pack_bitplanes and
 // fastx_gather_pack_bitplanes (the TPU upload packers and the host presence
-// scan, which the port does on the device), plus fastx_zlib_version.
+// scan, which the port does on the device), plus fastx_row_hist (the row
+// histograms of the bank's cardinalities) and fastx_zlib_version.
 //
 // Replacement for the reference's SeqAn-based scanner
 // (reference: src/build_sketch.cpp:41-95 + seqan seq_io) and its OpenMP
@@ -449,6 +450,41 @@ int fastx_pair_union_hist(const uint8_t* regs, int64_t n_rows, int64_t m,
     }
     for (; j < mm; ++j) ++h[0][buf[j]];
     int64_t* o = out + (size_t)b * 64;
+    uint64_t tail = 0;
+    for (int v = 0; v < 64; ++v)
+      o[v] = (int64_t)h[0][v] + h[1][v] + h[2][v] + h[3][v];
+    for (int v = 64; v < 256; ++v)
+      tail += (uint64_t)h[0][v] + h[1][v] + h[2][v] + h[3][v];
+    return tail ? -2 : 0;
+  });
+}
+
+// Register histograms of every row of a bank:
+//   out[r][v] = #{ j < m : regs[r][j] == v }
+// for v in [0, 64): the histograms the cardinalities are computed from.
+// One pass over each row, each byte read once, with the four interleaved
+// 256-entry sub-histograms of fastx_pair_union_hist. A value >= 64 is an
+// error, where a flat offset bincount would fold it into the next row.
+// Returns 0, -1 on bad args, -2 on an out-of-range register value.
+int fastx_row_hist(const uint8_t* regs, int64_t n_rows, int64_t m,
+                   int n_threads, int64_t* out) {
+  if (!regs || !out || n_rows < 0 || n_rows > INT32_MAX || m < 0 ||
+      m > INT32_MAX)
+    return -1;
+  return batch_run((int)n_rows, n_threads, [&](int r) {
+    const int64_t mm = m;
+    const uint8_t* __restrict a = regs + (size_t)r * (size_t)mm;
+    uint32_t h[4][256];
+    std::memset(h, 0, sizeof(h));
+    int64_t j = 0;
+    for (; j + 4 <= mm; j += 4) {
+      ++h[0][a[j]];
+      ++h[1][a[j + 1]];
+      ++h[2][a[j + 2]];
+      ++h[3][a[j + 3]];
+    }
+    for (; j < mm; ++j) ++h[0][a[j]];
+    int64_t* o = out + (size_t)r * 64;
     uint64_t tail = 0;
     for (int v = 0; v < 64; ++v)
       o[v] = (int64_t)h[0][v] + h[1][v] + h[2][v] + h[3][v];

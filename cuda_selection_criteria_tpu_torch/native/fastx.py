@@ -90,6 +90,14 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_int64),
     ]
     lib.fastx_pair_union_hist.restype = ctypes.c_int
+    lib.fastx_row_hist.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+    lib.fastx_row_hist.restype = ctypes.c_int
     lib.fastx_zlib_version.argtypes = []
     lib.fastx_zlib_version.restype = ctypes.c_char_p
 
@@ -200,6 +208,32 @@ def pair_union_hist(regs, ii, kk, threads=None):
     )
     if rc != 0:
         raise ValueError(f"fastx_pair_union_hist failed: rc={rc}")
+    return out
+
+
+def row_hist(regs, threads=None):
+    """Register histograms of every row of a uint8 (N, m) bank: (N, 64)
+    int64 exact counts, each row read once, rows shared out over `threads`
+    threads (default min(8, cores)). Raises ValueError for a bank that is
+    not 2-D uint8 and for a register value >= 64."""
+    lib = _lib()
+    regs = np.asarray(regs)
+    if regs.ndim != 2 or regs.dtype != np.uint8:
+        raise ValueError(f"row_hist needs a 2-D uint8 bank, got "
+                         f"{regs.ndim}-D {regs.dtype}")
+    regs = np.ascontiguousarray(regs)
+    if threads is None:
+        threads = min(8, os.cpu_count() or 1)
+    out = np.empty((regs.shape[0], 64), np.int64)
+    rc = lib.fastx_row_hist(
+        regs.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        regs.shape[0],
+        regs.shape[1],
+        threads,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+    )
+    if rc != 0:
+        raise ValueError(f"fastx_row_hist failed: rc={rc}")
     return out
 
 

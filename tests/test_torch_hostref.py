@@ -9,12 +9,14 @@ import torch
 
 from torch_banks import jax_bank, port_bank
 
+from cuda_selection_criteria_tpu.models import bank as jbank
 from cuda_selection_criteria_tpu.ops import criteria as jcriteria
 from cuda_selection_criteria_tpu.ops import estimators as jestimators
 from cuda_selection_criteria_tpu.parallel import scheduler as jscheduler
 from cuda_selection_criteria_tpu.utils import filelist as jfilelist
 from cuda_selection_criteria_tpu.utils import formats as jformats
 from cuda_selection_criteria_tpu.utils import hostref as jhostref
+from cuda_selection_criteria_tpu_torch.models import bank as tbank
 from cuda_selection_criteria_tpu_torch.models.bank import host_cards
 from cuda_selection_criteria_tpu_torch.ops import criteria, estimators
 from cuda_selection_criteria_tpu_torch.parallel import scheduler
@@ -177,3 +179,39 @@ def test_bank_from_arrays_matches_jax():
     np.testing.assert_array_equal(recomputed.sorted_by_cardinality(),
                                   jb.sorted_by_cardinality())
     assert recomputed.n == jb.n and recomputed.aux_param == jb.aux_param
+
+
+def _cards_bank(n, p, seed):
+    """n rows of 2^p registers drawn like a genome's: most registers small,
+    some 0, a few q+1, plus an all-zero row and an all-(q+1) row."""
+    rng = np.random.default_rng(seed)
+    q = 64 - p
+    regs = np.minimum(rng.geometric(0.5, size=(n, 1 << p)), q + 1)
+    regs[rng.random(regs.shape) < 0.3] = 0
+    regs = regs.astype(np.uint8)
+    regs[0] = 0
+    regs[1] = q + 1
+    return regs
+
+
+def test_host_cards_match_jax_bank():
+    """host_cards (native row histograms, host f64 MLE) gives the JAX
+    package's SketchBank cards on the CPU bit for bit."""
+    regs = _cards_bank(300, 14, 5)
+    jb = jbank.SketchBank(names=[f"g{i}" for i in range(300)], regs=regs)
+    got = host_cards(regs, 14)
+    np.testing.assert_array_equal(got.view(np.int64),
+                                  np.asarray(jb.cards).view(np.int64))
+    assert np.isinf(got[1]) and got[0] == 0
+
+
+@pytest.mark.parametrize("p", [4, 6])
+def test_host_cards_chunked_mle_bit_equal(p):
+    """A bank of more than MLE_CHUNK rows runs the MLE over row chunks on
+    threads; its cards equal one ertl_mle_batch call over the numpy
+    histograms, compared as int64 bits."""
+    n = tbank.MLE_CHUNK + 4321
+    regs = _cards_bank(n, p, p)
+    want = hostref.ertl_mle_batch(tbank._row_hists_numpy(regs), p)
+    got = host_cards(regs, p)
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))

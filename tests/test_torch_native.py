@@ -2,8 +2,9 @@
 use) against the JAX package's native library and against the port's plain
 Python and numpy paths, on the same inputs made from a numpy seed: FASTA
 decode, the single-pass host builder (backend="native"), the threaded
-sketch-file loaders and the fused union histograms; and the plain paths
-when the library cannot be built."""
+sketch-file loaders, the fused union histograms and the row histograms of
+the bank's cardinalities; and the plain paths when the library cannot be
+built."""
 
 import gzip
 import os
@@ -352,6 +353,66 @@ def test_pair_union_hist_rejects_bad_inputs(case):
         hostref.pair_union_histograms(regs, ii, kk)
 
 
+def _row_hist_bank(p, n, seed):
+    """n rows of 2^p registers in [0, q+1], the first all zero and the
+    second all q+1 (where there are that many rows), a few q+1 values
+    elsewhere."""
+    q = 64 - p
+    rng = np.random.default_rng(seed)
+    regs = rng.integers(0, q + 2, size=(n, 1 << p), dtype=np.uint8)
+    regs[rng.random(regs.shape) < 0.5] = 0
+    regs[:1] = 0
+    regs[1:2] = q + 1
+    return regs
+
+
+@pytest.mark.parametrize("threads", [1, 3, 8])
+@pytest.mark.parametrize("p", [4, 8, 14])
+def test_row_hist_matches_numpy(p, threads):
+    """fastx.row_hist equals the numpy row histograms (host_cards' plain
+    version) on banks of 0, 1 and 2049 rows, with all-zero rows and rows
+    holding q+1."""
+    for n in (0, 1, 2049):
+        regs = _row_hist_bank(p, n, 10 * p + threads)
+        got = fastx.row_hist(regs, threads)
+        assert got.dtype == np.int64 and got.shape == (n, 64)
+        np.testing.assert_array_equal(got, tbank._row_hists_numpy(regs))
+        if n:
+            assert got[0, 0] == 1 << p and got[:, 64 - p + 2:].sum() == 0
+        if n > 1:
+            assert got[1, 64 - p + 1] == 1 << p
+
+
+@pytest.mark.parametrize("case", ["register_64", "register_255", "int32",
+                                  "one_d", "three_d"])
+def test_row_hist_rejects_bad_inputs(case):
+    regs = np.ones((6, 256), np.uint8)
+    if case.startswith("register"):
+        regs[4, 17] = int(case.split("_")[1])
+    elif case == "int32":
+        regs = regs.astype(np.int32)
+    elif case == "one_d":
+        regs = regs[0]
+    else:
+        regs = regs.reshape(3, 2, 256)
+    with pytest.raises(ValueError):
+        fastx.row_hist(regs)
+
+
+def test_host_cards_takes_the_native_histograms(monkeypatch):
+    """Where the library builds, host_cards never runs the numpy loop, and
+    its cards equal the MLE of the numpy histograms bit for bit."""
+    regs = _row_hist_bank(10, 300, 7)
+    want = hostref.ertl_mle_batch(tbank._row_hists_numpy(regs), 10)
+
+    def numpy_loop(_):
+        raise AssertionError("host_cards took the numpy histograms")
+
+    monkeypatch.setattr(tbank, "_row_hists_numpy", numpy_loop)
+    got = tbank.host_cards(regs, 10)
+    np.testing.assert_array_equal(got.view(np.int64), want.view(np.int64))
+
+
 @pytest.mark.parametrize("crit", ["smh_a", "cb", "baseline", "hll_a",
                                   "hll_an"])
 def test_oracle_on_native_histograms_unchanged(crit):
@@ -466,8 +527,8 @@ def test_no_compiler_decoder_is_python(tmp_path, monkeypatch,
 
 
 def test_no_compiler_oracle_and_loaders_use_numpy(sketches, no_compiler):
-    """The oracle's histograms and the loaders take the numpy paths and
-    give the native paths' bytes."""
+    """The oracle's histograms, the loaders and the cards take the numpy
+    paths and give the native paths' bytes and cards."""
     rng = np.random.default_rng(2)
     regs = rng.integers(0, 50, size=(20, 1 << 10), dtype=np.uint8)
     ii, kk = rng.integers(0, 20, 64), rng.integers(0, 20, 64)
@@ -483,3 +544,12 @@ def test_no_compiler_oracle_and_loaders_use_numpy(sketches, no_compiler):
         [f + ".smh32" for f in sketches], 32))
     with pytest.raises(IOError):
         tbank.load_hll_bank([f + ".hll" for f in sketches] + ["/none"], 14)
+    rows = np.arange(bank.n)
+    want = hostref.ertl_mle_batch(jfastx.pair_union_hist(
+        bank.regs, rows, rows), 14)
+    np.testing.assert_array_equal(bank.cards.view(np.int64),
+                                  want.view(np.int64))
+    np.testing.assert_array_equal(
+        tbank.host_cards(regs, 10).view(np.int64),
+        hostref.ertl_mle_batch(jfastx.pair_union_hist(
+            regs, np.arange(20), np.arange(20)), 10).view(np.int64))
