@@ -42,7 +42,17 @@ Phases (any failure exits non-zero, without the final result line):
                 a part-filled last stage, blocks past the tile edge), with
                 a column bank of another row count and without zeros; and
                 p_aux=8, ti=1024 on the first 64 tiles of the hll bench
-                bank; K2, plain, bound and torch._int_mm there
+                bank; K2, plain, bound and torch._int_mm there. The
+                gate-count kernel (the gate prune) vs its plain version,
+                bit-equal counts: the CPU tests' cases
+                (tests/gate_cases.py: 1, 2, 3, 4, 8, 16, 32 and 64 bands,
+                every gate combination, n_real inside a tile, empty
+                columns, CB ties, strips before, level with and after each
+                other, ragged tiles of 130, 300 and 1024 rows, tiles past
+                the strips' ends), then every tile of a 524,288-row
+                triangle shaped as smh_a-524k's (131,328 tiles, 8 bands),
+                the kernel timed over it beside its plain version in
+                256-tile chunks and its bound
   4. cli      - planted .hll/.smh32/.hll_8 files for N=2048 genomes, read
                 by the native threaded loaders and the numpy readers
                 (bit-equal, both walls); the native fused union
@@ -59,7 +69,8 @@ Phases (any failure exits non-zero, without the final result line):
                 (256 MiB of registers on the card) with planted
                 near-duplicates: every planted pair the exact oracle passes
                 is emitted, every emitted pair is oracle-confirmed with the
-                identical Jaccard, and K1 was launched; stage walls, a
+                identical Jaccard, and K1 and the gate-count kernel
+                were launched; stage walls, a
                 profiler trace of one warm run and the screen's pairs/s
                 over the full triangle
   6. hll      - select_pairs(hll_a) and (hll_an), tau=0.9, on N=16384
@@ -186,6 +197,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
                          "cuda_selection_criteria_tpu/ops/screen.py:99",
                          "b1 wgmma.mma_async m64n128k256 .and.popc, the "
                          "bins' mma depths four a pipeline stage"),
+    # an XLA fusion, not a Pallas kernel; its strip twin is
+    # cuda_selection_criteria_tpu/parallel/ring.py:232 _ring_gate_counts
+    "gate_counts": (f"{PKG}/csrc/gate_counts.cu",
+                    "cuda_selection_criteria_tpu/parallel/screened.py:232",
+                    "XLA fusions _gate_counts and _ring_gate_counts "
+                    "(parallel/ring.py:232): int32 compares on the CUDA "
+                    "cores, one CTA a 128-row block, columns staged in "
+                    "shared memory, one atomicAdd a CTA"),
 }
 
 
@@ -625,6 +644,163 @@ def phase_k2_edges(torch, screen, dev):
     return worst
 
 
+# The gate prune's shapes in smh_a-524k (BENCHMARK.json): 524,288 rows,
+# m = 32 SMH buckets at tau 0.9 (8 bands), ti = 1024, the whole triangle
+# (131,328 tiles; CB skips none there) in launches of GATE_LAUNCH_TILES;
+# the plain version in the 256-tile chunks the prune gave it before.
+GATE_N = 524288
+GATE_PLAIN_CHUNK = 256
+
+
+def gate_case_args(torch, case, dev):
+    """gate_counts' positional arguments (without use_cb, use_smh) of a
+    tests/gate_cases.py case, its arrays on dev."""
+    t = [torch.from_numpy(case[k]).to(dev) for k in (
+        "e_rows", "e_cols", "fp_rows", "fp_cols", "row_tiles", "col_tiles")]
+    return (*t, case["row_base"], case["col_base"], case["n_real"],
+            case["tau_cb"], case["n_bands"], case["ti"])
+
+
+def gate_vs_plain(torch, screen, args):
+    """max |kernel - plain| over one gate_counts call's counts."""
+    got = screen.gate_counts(*args)
+    want = screen._gate_counts_plain(*args)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          "gate_counts shape/dtype")
+    if not got.numel():
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def phase_gate(torch, screen, screened, scheduler, criteria, dev, card):
+    """The gate-count kernel (csrc/gate_counts.cu) against its plain
+    version, bit-equal: the CPU tests' edge cases (tests/gate_cases.py:
+    1 to 64 bands, every gate combination, strips before, level with and
+    after each other, ragged tiles, tiles past the strips' ends), then
+    every tile of a 524,288-row triangle shaped as smh_a-524k's, timed
+    beside the plain version and the bound. Returns the kernel record."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import gate_cases as gc
+    cases = [(f"bank n_bands={nb}", gc.bank_case(40 + nb, nb))
+             for nb in gc.BANDS + (2, 3, 64)]
+    cases += [(f"strips {w}", gc.strip_case(60 + len(w), b))
+              for w, b in gc.STRIP_BASES.items()]
+    cases += [(f"ragged ti={ti} bases={b}", gc.ragged_case(ti + b[0], ti,
+                                                          bases=b))
+              for ti in (130, 300, 1024) for b in ((0, 0), (140, 100),
+                                                   (0, 300))]
+    err = 0
+    for label, case in cases:
+        args = gate_case_args(torch, case, dev)
+        for use_cb, use_smh in gc.GATES:
+            e = gate_vs_plain(torch, screen, (*args, use_cb, use_smh))
+            check(e == 0, f"gate_counts {label} cb={use_cb} smh={use_smh}: "
+                  f"kernel != plain (max_abs_err {e})")
+            err = max(err, e)
+    cut, padded = gc.cut_strips(gc.ragged_case(11, 300, bases=(40, 0)), 700,
+                                830)
+    for use_cb, use_smh in gc.GATES[:3]:
+        got = screen.gate_counts(*gate_case_args(torch, cut, dev), use_cb,
+                                 use_smh)
+        want = screen._gate_counts_plain(*gate_case_args(
+            torch, padded, dev), use_cb, use_smh)
+        check(torch.equal(got, want), "gate_counts: tiles past the strips' "
+              "ends count other pairs than the padded plain version")
+    print(f"  gate_counts: {len(cases)} edge cases x 4 gate combinations "
+          f"and the strips' edges: max_abs_err={err}")
+
+    rng = np.random.default_rng(0x6A7E)
+    n_real = GATE_N - 37
+    e = np.zeros(GATE_N, np.float32)
+    e[:n_real] = np.sort(np.trunc(rng.normal(2048.0, 30.0, n_real)))
+    n_bands = criteria.smh_band_params(32, 0.9)[1]
+    fp = rng.integers(-2**31, 2**31, size=(GATE_N, n_bands)).astype(np.int32)
+    near = rng.choice(n_real - 1, 400, replace=False)
+    band = rng.integers(0, n_bands, near.size)
+    fp[near + 1, band] = fp[near, band]  # planted pairs sharing a band
+    tau = 0.9
+    tau_cb = np.float32(tau * (1.0 - 1e-5))  # the plan's CB margin
+    rows, cols = scheduler.triangle_block_ids(e[:n_real].astype(np.float64),
+                                              tau, 1024, use_cb_skip=False)
+    n_tiles = len(rows)
+    d_e = torch.from_numpy(e).to(dev)
+    d_fp = torch.from_numpy(fp).to(dev)
+
+    def tiles(step):
+        return [(torch.from_numpy(rows[c0:c0 + step].astype(np.int32)).to(
+            dev), torch.from_numpy(cols[c0:c0 + step].astype(np.int32)).to(
+            dev)) for c0 in range(0, n_tiles, step)]
+
+    launch_tiles = tiles(screened.GATE_LAUNCH_TILES)
+    plain_tiles = tiles(GATE_PLAIN_CHUNK)
+    kw = dict(row_base=0, col_base=0, n_real=n_real, tau_cb=tau_cb,
+              n_bands=n_bands, ti=1024, use_cb=True, use_smh=True)
+
+    def kernel_triangle():
+        return [screen.gate_counts(d_e, d_e, d_fp, d_fp, r, c, **kw)
+                for r, c in launch_tiles]
+
+    got = torch.cat(kernel_triangle())
+    torch.cuda.synchronize()
+    tri_ms = cuda_ms(torch, kernel_triangle, 3)
+    # the plain version once over the whole triangle, timed and compared
+    screen._gate_counts_plain(d_e, d_e, d_fp, d_fp, *plain_tiles[0], **kw)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = [screen._gate_counts_plain(d_e, d_e, d_fp, d_fp, r, c, **kw)
+            for r, c in plain_tiles]
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    want = torch.cat(want)
+    tri_err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(tri_err == 0, f"gate_counts N={GATE_N}: kernel != plain on the "
+          f"triangle (max_abs_err {tri_err})")
+    err = max(err, tri_err)
+    tri_ms2 = cuda_ms(torch, kernel_triangle, 3)
+    r0, c0 = plain_tiles[0]
+    chunk_ms = cuda_ms(torch, lambda: screen.gate_counts(
+        d_e, d_e, d_fp, d_fp, r0, c0, **kw), 20)
+
+    # the bound: each pair of the triangle (i < j < n_real) needs its CB
+    # compare and each pair passing CB its n_bands band tests (nearly no
+    # pair shares a band, so none stops early), at the int32 rate; bytes:
+    # e, fp and the tile lists read once, the counts written once
+    e_real = e[:n_real]
+    prod = (tau_cb * e_real).astype(np.float32)  # ascending, as e is
+    cb_pass = int(np.maximum(np.searchsorted(prod, e_real, side="right")
+                             - np.arange(1, n_real + 1), 0).sum())
+    pairs = n_real * (n_real - 1) // 2
+    ops = pairs + cb_pass * n_bands
+    nbytes = e.nbytes + fp.nbytes + 3 * 4 * n_tiles
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+    bound_ms, bound_by = bound(ops / hopper.INT32_OPS_PER_S,
+                               nbytes / rates()[1])
+    live = int((got > 0).sum())
+    print(f"  [{card}] gate_counts N={GATE_N} ti=1024 n_bands={n_bands}: "
+          f"{n_tiles} tiles in {len(launch_tiles)} launches, {tri_ms:.3f} / "
+          f"{tri_ms2:.3f} ms (two turns) for the triangle; plain "
+          f"{plain_ms:.3f} ms in {len(plain_tiles)} chunks of "
+          f"{GATE_PLAIN_CHUNK} ({plain_ms / len(plain_tiles):.3f} ms a "
+          f"chunk; the kernel {chunk_ms:.3f} ms on one); bound "
+          f"{bound_ms:.3f} ms ({bound_by}: {pairs} pairs, {cb_pass} passing "
+          f"CB, {ops:.6g} compares, {nbytes} bytes), share of the bound "
+          f"{bound_ms / tri_ms:.3f}; library: no single PyTorch call "
+          f"computes these counts; {live} live tiles, {int(got.sum())} "
+          f"gate-passing pairs; every tile bit-equal to the plain version")
+    check(live > 0, "gate_counts: no live tile in the 524,288-row triangle")
+    return dict(max_abs_err=err, ms=tri_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                ms_second_turn=tri_ms2, tiles=n_tiles,
+                launch_tiles=screened.GATE_LAUNCH_TILES,
+                chunk_tiles=GATE_PLAIN_CHUNK, chunk_ms=chunk_ms,
+                plain_chunk_ms=plain_ms / len(plain_tiles),
+                live_tiles=live, pairs_passing=int(got.sum()))
+
+
 def pooled_oracle(hostref, regs, e, **kw):
     """A p=14 PairOracle for oracle_all_pairs: each batch's native union
     histograms on one thread, since the pool's threads are the
@@ -721,17 +897,15 @@ def verify_pairs(hostref, bank, pairs, out, crit):
 
 def run_main_path(torch, screen, select_pairs, bank, params, dev, card):
     """One select_pairs run on the card with the launch counts set to 0
-    just before it: (pairs, stats, {kernel: launches})."""
-    screen.screen_hits_fused.launches = 0
-    screen.screen_s_z.launches = 0
+    just before it: (pairs, {kernel: launches})."""
+    reset_launches(screen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     stats = {}
     t0 = time.perf_counter()
     out = select_pairs(bank, params, device=dev, stats=stats)
     wall = time.perf_counter() - t0
-    launches = {"screen_fused": screen.screen_hits_fused.launches,
-                "weighted_cdf_sum": screen.screen_s_z.launches}
+    launches = read_launches(screen)
     print(f"  [{card}] select_pairs -c {params.criterion} wall {wall:.3f} s: "
           f"plan {stats['plan_secs']:.3f} s, schedule "
           f"{stats['schedule_secs']:.4f} s, prune {stats['prune_secs']:.3f} "
@@ -740,7 +914,8 @@ def run_main_path(torch, screen, select_pairs, bank, params, dev, card):
           f"scheduled / {stats['tiles_live']} live, {stats['candidates']} "
           f"candidates, {len(out)} pairs, K1 launches "
           f"{launches['screen_fused']}, K2 launches "
-          f"{launches['weighted_cdf_sum']}, peak device memory "
+          f"{launches['weighted_cdf_sum']}, gate_counts launches "
+          f"{launches['gate_counts']}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return out, launches
 
@@ -1001,7 +1176,7 @@ def phase_fasta(torch, dev, card, corpus_kw, tmp_dir):
         format_results)
     from cuda_selection_criteria_tpu_torch.utils import fasta, hostref
 
-    launches = {"screen_fused": 0, "weighted_cdf_sum": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     with contextlib.nullcontext(tmp_dir) as tmp:
         t0 = time.perf_counter()
         files, near, far, bases = write_corpus(tmp, **corpus_kw)
@@ -1089,16 +1264,14 @@ def phase_fasta(torch, dev, card, corpus_kw, tmp_dir):
 
         pair_names = [{files[b], files[c]} for b, c in far]
         for crit in ("smh_a", "smh_only", "cb", "hll_a", "hll_an"):
-            screen.screen_hits_fused.launches = 0
-            screen.screen_s_z.launches = 0
+            reset_launches(screen)
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 rc = cli.main(["-l", lst, "-a", "256", "-h", "0.9", "-c",
                                crit, "--device", str(dev)])
             t_cli = time.perf_counter() - t0
-            got = {"screen_fused": screen.screen_hits_fused.launches,
-                   "weighted_cdf_sum": screen.screen_s_z.launches}
+            got = read_launches(screen)
             check(rc == 0, f"selection -c {crit} exit {rc}")
             fbank = models.SketchBank.from_sketch_files(
                 files, criterion={"smh_only": "smh_a", "cb": None}.get(
@@ -1321,19 +1494,24 @@ def phase_checkpoint(torch, screen, screened, bank, params, dev, card):
           "the resumed sweep did not skip the recorded spans")
 
 
+LAUNCH_KEYS = ("screen_fused", "strips", "weighted_cdf_sum", "gate_counts")
+
+
 def reset_launches(screen):
     for fn in (screen.screen_hits_fused, screen.screen_hits_fused_strips,
-               screen.screen_s_z):
+               screen.screen_s_z, screen.gate_counts):
         fn.launches = 0
 
 
 def read_launches(screen):
-    """{kernel: launches} since reset_launches; K1's two entry points launch
-    the same kernel, "strips" counts the strip entry alone."""
+    """{kernel: launches} since reset_launches (keys LAUNCH_KEYS); K1's two
+    entry points launch the same kernel, "strips" counts the strip entry
+    alone."""
     return {"screen_fused": screen.screen_hits_fused.launches
             + screen.screen_hits_fused_strips.launches,
             "strips": screen.screen_hits_fused_strips.launches,
-            "weighted_cdf_sum": screen.screen_s_z.launches}
+            "weighted_cdf_sum": screen.screen_s_z.launches,
+            "gate_counts": screen.gate_counts.launches}
 
 
 def multi_device_run(torch, screen, engine, bank, params, mesh, dev, card,
@@ -1359,7 +1537,8 @@ def multi_device_run(torch, screen, engine, bank, params, mesh, dev, card,
           f"{len(mesh.devices())} virtual devices of one card: wall "
           f"{wall:.3f} s ({split}); {counts}; {len(out)} pairs; launches "
           f"K1 {launches['screen_fused']} (strips {launches['strips']}), K2 "
-          f"{launches['weighted_cdf_sum']}; peak device memory "
+          f"{launches['weighted_cdf_sum']}, gate_counts "
+          f"{launches['gate_counts']}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return out, stats, launches
 
@@ -1379,7 +1558,7 @@ def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
     mesh4 = mesh_mod.row_mesh(["cuda:0"] * 4)
     print(f"  mesh {mesh4}: cuda:0 four times, four virtual devices of one "
           "card")
-    total = {engine: {"screen_fused": 0, "strips": 0, "weighted_cdf_sum": 0}
+    total = {engine: dict.fromkeys(LAUNCH_KEYS, 0)
              for engine in ("ring", "sharded")}
 
     def add(engine, launches):
@@ -1394,6 +1573,8 @@ def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
             card, "ring")
         check(lr["strips"] > 0, f"ring -c {crit} never launched K1's strip "
               "variant")
+        check(lr["gate_counts"] > 0, f"ring -c {crit} never launched the "
+              "gate-count kernel")
         check(crit == "smh_a" or lr["weighted_cdf_sum"] > 0,
               f"ring -c {crit} never launched K2")
         check(stats["steps_run"] > 1, f"ring -c {crit} ran one step only")
@@ -1405,6 +1586,8 @@ def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
             torch, screen, screened.select_pairs_screened_sharded, bank,
             params, mesh4, dev, card, "tile-sharded")
         check(ls["screen_fused"] > 0, f"sharded -c {crit} never launched K1")
+        check(ls["gate_counts"] > 0, f"sharded -c {crit} never launched the "
+              "gate-count kernel")
         check(crit == "smh_a" or ls["weighted_cdf_sum"] > 0,
               f"sharded -c {crit} never launched K2")
         mods["verify_pairs"](bank, [(i, i + 1) for i in picks], out, crit)
@@ -1561,7 +1744,7 @@ def phase_l5(torch, mods, names4, lst4, ref4, lst7, bank, picks, dev, card):
 
     screen, hostref, cli = mods["screen"], mods["hostref"], mods["cli"]
     fmt = mods["format_results"]
-    launches = {"screen_fused": 0, "weighted_cdf_sum": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     out_dir = os.path.dirname(lst4)
 
     print(f"  10a: the differential at tau=0.01 on the first {L5_PREFIX} "
@@ -1742,7 +1925,7 @@ def phase_scale(torch, mods, dev, card):
     its own reset."""
     screen, v131, vring = (mods["screen"], mods["validate_131k_scale"],
                            mods["validate_ring_scale"])
-    total = {"screen_fused": 0, "strips": 0, "weighted_cdf_sum": 0}
+    total = dict.fromkeys(LAUNCH_KEYS, 0)
 
     def add(launches):
         for k in total:
@@ -1784,7 +1967,8 @@ def phase_scale(torch, mods, dev, card):
           f"s (with the gate and screen warm-ups "
           f"{record['total_with_warmup_secs']:.3f} s), "
           f"{record['triangle_pairs_per_sec']:.6g} pairs/s over the full "
-          f"triangle; launches K1 {launches['screen_fused']}; peak device "
+          f"triangle; launches K1 {launches['screen_fused']}, gate_counts "
+          f"{launches['gate_counts']}; peak device "
           f"memory {record['peak_allocated_bytes'] / 2**30:.3f} GiB of "
           f"{record['device_total_bytes'] / 2**30:.1f} GiB; host peak "
           f"resident set {record['host_peak_rss_bytes'] / 2**30:.2f} GiB of "
@@ -1806,6 +1990,8 @@ def phase_scale(torch, mods, dev, card):
           "not recovered")
     check(launches["screen_fused"] > 0, "validate_131k_scale never launched "
           "K1")
+    check(launches["gate_counts"] > 0, "validate_131k_scale never launched "
+          "the gate-count kernel")
     mods["verify_pairs"](bank, [(i, i + 1) for i in picks], pairs, "smh_a")
     add(launches)
 
@@ -1823,13 +2009,15 @@ def phase_scale(torch, mods, dev, card):
               f"{rrec['total_secs']:.3f} s (upload {rrec['upload_secs']:.3f} "
               f"s, upload_stats {json.dumps(rrec['upload_stats'])}), "
               f"{len(rpairs)} pairs; launches K1 "
-              f"{launches['screen_fused']} (strips {launches['strips']}); "
-              f"peak device memory "
+              f"{launches['screen_fused']} (strips {launches['strips']}), "
+              f"gate_counts {launches['gate_counts']}; peak device memory "
               f"{rrec['peak_allocated_bytes'] / 2**30:.3f} GiB")
         check(rpairs == pairs, f"ring N={SCALE_N} ({label}) != the screened "
               "harness's pairs")
         check(launches["screen_fused"] > 0, f"ring N={SCALE_N} ({label}) "
               "never launched K1")
+        check(launches["gate_counts"] > 0, f"ring N={SCALE_N} ({label}) "
+              "never launched the gate-count kernel")
         add(launches)
     check(total["strips"] > 0, "phase 11 never launched K1's strip entry")
     return total
@@ -1956,8 +2144,9 @@ def main():
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
     from cuda_selection_criteria_tpu_torch.native import fastx
-    from cuda_selection_criteria_tpu_torch.ops import (_build, estimators,
-                                                      pairwise, screen)
+    from cuda_selection_criteria_tpu_torch.ops import (_build, criteria,
+                                                      estimators, pairwise,
+                                                      screen)
     from cuda_selection_criteria_tpu_torch.parallel import (
         distributed, mesh, ring, scheduler, screened)
     from cuda_selection_criteria_tpu_torch.parallel.selection import (
@@ -2070,6 +2259,9 @@ def main():
           f"library (torch._int_mm, {k2_bins} x {chunk} calls) "
           f"{k2_library_ms:.3f} ms; hll screen chunk (K1 + K2 + aux "
           f"compare) {hll_chunk_ms:.3f} ms")
+
+    gate = phase_gate(torch, screen, screened, scheduler, criteria, dev,
+                      card)
 
     print("== phase 4: selection CLI, N=2048", flush=True)
     rng4 = np.random.default_rng(2048)
@@ -2185,6 +2377,8 @@ def main():
     out, launches = run_main_path(torch, screen, select_pairs, bank, params,
                                   dev, card)
     check(launches["screen_fused"] > 0, "main path never launched K1")
+    check(launches["gate_counts"] > 0, "main path never launched the "
+          "gate-count kernel")
     verify_pairs(hostref, bank, [(i, i + 1) for i in picks], out, "smh_a")
     screened_out = {"smh_a": out}  # phase 9 holds the other engines to it
     device_profile(torch, lambda: select_pairs(bank, params, device=dev),
@@ -2215,8 +2409,9 @@ def main():
         out, hl = run_main_path(torch, screen, select_pairs, hbank,
                                 SelectionParams(tau=0.9, criterion=crit),
                                 dev, card)
-        check(hl["screen_fused"] > 0 and hl["weighted_cdf_sum"] > 0,
-              f"-c {crit} never launched K1 and K2")
+        check(hl["screen_fused"] > 0 and hl["weighted_cdf_sum"] > 0
+              and hl["gate_counts"] > 0,
+              f"-c {crit} never launched K1, K2 and the gate-count kernel")
         verify_pairs(hostref, hbank, [(i, i + 1) for i in hpicks], out,
                      crit)
         screened_out[crit] = out
@@ -2338,7 +2533,13 @@ def main():
             l5=dict(launches=l5["weighted_cdf_sum"]),
             scale=dict(launches=scale["weighted_cdf_sum"]),
             p14=k2_p14,
-            bench=dict(launches=bench_launches["weighted_cdf_sum"]))}
+            bench=dict(launches=bench_launches["weighted_cdf_sum"])),
+        "gate_counts": dict(
+            gate, ring=dict(launches=md["ring"]["gate_counts"]),
+            sharded=dict(launches=md["sharded"]["gate_counts"]),
+            l5=dict(launches=l5["gate_counts"]),
+            scale=dict(launches=scale["gate_counts"]),
+            bench=dict(launches=bench_launches["gate_counts"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

@@ -53,6 +53,12 @@ KERNELS = {
         _P, _P, _I, _P, _P,      # planes, planes_cols, row_words, tiles
         _I, _I, _I, _P, _P, _P,  # n_tiles, ti, tj, s, z, stream
     ]),
+    "gate_counts": ("csc_gate_counts", [
+        _P, _P, _P, _P, _I,      # e_rows, e_cols, fp_rows, fp_cols, n_bands
+        _LL, _LL, _P, _P, _I,    # n_rows, n_cols, row/col tiles, n_tiles
+        _I, _LL, _LL, _LL, _F,   # ti, n_real, row_base, col_base, tau_cb
+        _I, _I, _P, _P,          # use_cb, use_smh, counts, stream
+    ]),
 }
 
 _loaded = {}

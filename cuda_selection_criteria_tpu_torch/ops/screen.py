@@ -281,6 +281,84 @@ def pair_gates(e_r, e_c, fp_rows, fp_cols, rl, cl, row_base, col_base,
     return g
 
 
+def _gate_counts_plain(e_rows, e_cols, fp_rows, fp_cols, row_tiles,
+                       col_tiles, row_base, col_base, n_real, tau_cb,
+                       n_bands, ti, use_cb, use_smh):
+    """Plain PyTorch version of the gate-count kernel (the reference's
+    _gate_counts / _ring_gate_counts): pair_gates over the tile list, then
+    an int32 sum a tile. Holds (T, ti, ti) masks."""
+    rl, cl = tile_ids(row_tiles, col_tiles, ti)
+    gate = pair_gates(e_rows[rl], e_cols[cl], fp_rows, fp_cols, rl, cl,
+                      row_base, col_base, n_real, tau_cb, n_bands, use_cb,
+                      use_smh)
+    return gate.sum((1, 2), dtype=torch.int32)
+
+
+GATE_ROWS = 128  # rows of one CTA of csrc/gate_counts.cu (its kRows)
+
+
+def gate_counts(e_rows, e_cols, fp_rows, fp_cols, row_tiles, col_tiles,
+                row_base, col_base, n_real, tau_cb, n_bands, ti, use_cb,
+                use_smh):
+    """int32 (T,) count of the pairs of each tile that pass the cheap
+    gates (the cascade's gate prune): global ids row_base + local row <
+    col_base + local column < n_real, a non-empty column, CB (use_cb) and
+    some equal LSH band fingerprint (use_smh).
+
+    Row tiles index e_rows and fp_rows, column tiles e_cols and fp_cols,
+    in units of ti local rows; one bank is both sides the same with bases
+    0. CPU tensors run _gate_counts_plain. CUDA tensors launch the
+    hand-written kernel (csrc/gate_counts.cu: one pass over e and fp, no
+    mask in device memory) on the current stream or raise; there is no
+    fallback.
+
+    Args:
+      e_rows, e_cols: float32 (rows,) cardinalities of each side.
+      fp_rows, fp_cols: int32 (rows, n_bands) band fingerprints of each
+        side (read if use_smh).
+      row_tiles, col_tiles: int32 (T,) tile indices.
+      tau_cb: f32 CB threshold.
+    """
+    who = "gate_counts"
+    dev = e_rows.device
+    n_tiles = int(row_tiles.shape[0])
+    for name, e in (("e_rows", e_rows), ("e_cols", e_cols)):
+        _check(who, e.device == dev and e.dtype == torch.float32
+               and e.dim() == 1 and e.is_contiguous(),
+               f"{name} must be contiguous float32 (rows,) on {dev}")
+    for name, fp, e in (("fp_rows", fp_rows, e_rows),
+                        ("fp_cols", fp_cols, e_cols)):
+        _check(who, fp.device == dev and fp.dtype == torch.int32
+               and fp.shape == (e.shape[0], n_bands) and fp.is_contiguous(),
+               f"{name} must be contiguous int32 (rows, n_bands) on {dev}")
+    for name, x in (("row_tiles", row_tiles), ("col_tiles", col_tiles)):
+        _check(who, x.device == dev and x.dtype == torch.int32
+               and x.shape == (n_tiles,) and x.is_contiguous(),
+               f"{name} must be contiguous int32 (T,) on {dev}")
+    _check(who, ti >= 1 and n_bands >= 1, "needs ti >= 1 and n_bands >= 1")
+    if dev.type == "cpu":
+        return _gate_counts_plain(e_rows, e_cols, fp_rows, fp_cols,
+                                  row_tiles, col_tiles, row_base, col_base,
+                                  n_real, tau_cb, n_bands, ti, use_cb,
+                                  use_smh)
+    _check(who, dev.type == "cuda", f"unsupported device {dev}")
+    _check(who, n_tiles * -(-ti // GATE_ROWS) < 2**31,
+           "too many tiles for one launch")
+    counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    if n_tiles:
+        _launch("gate_counts", dev, e_rows.data_ptr(), e_cols.data_ptr(),
+                fp_rows.data_ptr(), fp_cols.data_ptr(), n_bands,
+                e_rows.shape[0], e_cols.shape[0], row_tiles.data_ptr(),
+                col_tiles.data_ptr(), n_tiles, ti, int(n_real),
+                int(row_base), int(col_base), float(np.float32(tau_cb)),
+                int(use_cb), int(use_smh), counts.data_ptr())
+        gate_counts.launches += 1
+    return counts
+
+
+gate_counts.launches = 0
+
+
 def _strip_gates(r_tiles, c_tiles, e_rows, e_cols, fp_rows, fp_cols,
                  row_base, col_base, n_real, tau_scr, tau_cb, ti, n_bands,
                  use_cb, use_smh):

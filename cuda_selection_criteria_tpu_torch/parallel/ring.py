@@ -28,8 +28,8 @@ devices whose (resident, circulating) strip pair can hold an i < j pair
 passing the cardinality bound; the step's tile list is the union over
 those devices of their CB-live local tiles; the diagonal step (s = 0)
 screens only upper-triangle tiles. A gate pass (_ring_gate_counts: CB,
-triangle, LSH bands) then drops tiles without a gate-passing pair before
-K1 runs.
+triangle, LSH bands; the gate-count kernel on the card) then drops tiles
+without a gate-passing pair before K1 runs.
 
 Candidates go to the same exact confirmation as the other engines
 (utils/hostref.PairOracle): on CUDA the candidates' rows are gathered from

@@ -8,7 +8,8 @@ cascade, mirroring the reference's prune-then-confirm design
   1. SCHEDULE (host): sort by cardinality, tile the i<j triangle, drop
      tiles the block-level cardinality bound kills (parallel.scheduler);
      then drop tiles in which no pair passes the cheap gates
-     (_strip_gate_counts: CB + LSH fingerprints + triangle).
+     (_strip_gate_counts: CB + LSH fingerprints + triangle; on the card
+     the gate-count kernel, ops/screen.gate_counts).
   2. SCREEN (device): the fused kernel K1 (ops/screen.screen_hits_fused)
      computes per-pair harmonic sums / zero counts and keeps the pairs the
      certified MLE lower bound t_lb = 2m(m-Z)/(3S-Z) cannot exclude. A
@@ -115,6 +116,12 @@ def auto_chunk(ti):
     return 64 if ti >= 1024 else 132
 
 
+# Tiles per gate-count launch on the card: the kernel holds no mask, so a
+# launch is bounded by nothing but its grid, and a 524,288-row triangle
+# (131,328 tiles at ti = 1024) takes three.
+GATE_LAUNCH_TILES = 65536
+
+
 class Strip(NamedTuple):
     """One side of a screen: uint8 registers (rows, 2^p), uint8 aux-HLL
     registers or None, f32 cardinalities, int32 fingerprints, and the
@@ -140,12 +147,11 @@ def _strip_gate_counts(e_rows, e_cols, fp_rows, fp_cols, row_base, col_base,
     fingerprints + triangle on global ids) over a row strip and a column
     strip: tiles with none never reach the kernel, like the reference's
     `continue` past gate-failing pairs (src/selection.cpp:282-286). One
-    bank is (e, e, fp, fp, 0, 0)."""
-    rl, cl = screen.tile_ids(r_tiles, c_tiles, ti)
-    gate = screen.pair_gates(e_rows[rl], e_cols[cl], fp_rows, fp_cols, rl,
-                             cl, row_base, col_base, n_real, tau_cb, n_bands,
-                             use_cb, use_smh)
-    return gate.sum((1, 2), dtype=torch.int32)
+    bank is (e, e, fp, fp, 0, 0). CUDA tensors launch the gate-count kernel
+    (screen.gate_counts), CPU tensors its plain version."""
+    return screen.gate_counts(e_rows, e_cols, fp_rows, fp_cols, r_tiles,
+                              c_tiles, row_base, col_base, n_real, tau_cb,
+                              n_bands, ti, use_cb, use_smh)
 
 
 def _strip_post(s, z, e_rows, e_cols, fp_rows, fp_cols, row_base, col_base,
@@ -621,6 +627,10 @@ class ScreenPlan:
         """Cascade stage 1: keep the tiles in which some pair passes the
         cheap gates; one device-to-host copy for the whole stage.
 
+        chunk: tiles a gate call on the CPU, where the plain version holds
+        (chunk, ti, ti) masks. On the card the kernel holds none, and every
+        launch takes up to GATE_LAUNCH_TILES tiles whatever chunk says.
+
         stats: optional dict, filled with the reference's keys for the
         stage's wall split: gate_chunks, gate_first_dispatch_secs (the
         first chunk's launches), gate_dispatch_secs (every chunk's) and
@@ -631,6 +641,8 @@ class ScreenPlan:
         the same with or without stats."""
         if len(rows) <= 1 or not (self.use_cb or self.use_smh):
             return rows, cols
+        if self.device.type == "cuda":
+            chunk = GATE_LAUNCH_TILES
         counts = []
         t0 = time.perf_counter()
         t_first = None

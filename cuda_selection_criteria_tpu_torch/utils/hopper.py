@@ -7,7 +7,11 @@ route experiments/hopper_mma_probe.py measured on an NVIDIA H100 80GB HBM3
 at 700 W (b1 mma.sync: 5.19e15); above the int8 tensor cores' published
 1,979e12 ops/s (989.5e12 comparisons), so the bounds and the bench's
 tensor-core utilization use it. HBM_BYTES_PER_S: the H100 SXM's published
-3.35 TB/s of device memory.
+3.35 TB/s of device memory. INT32_OPS_PER_S: int32 operations a second on
+the CUDA cores, 132 SMs x 64 INT32 lanes (the Hopper white paper's SM:
+64 INT32 and 128 FP32 lanes) at the 1.98 GHz boost clock that the
+published 67 TFLOP/s f32 rate assumes (132 x 128 x 2 x 1.98e9); the gate
+prune's bound.
 
 The baseline of the bench's vs_baseline ratios is the reference CUDA
 kernel's definition (bench.py of the JAX package: the union stage reads
@@ -24,6 +28,7 @@ from .device import resolve
 
 B1_COMPARISONS_PER_S = 7.889e15
 HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 _measured = {}  # CUDA device index -> bytes/s, measured once a process
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 screen_fused, K2 weighted_cdf_sum) and their
-card paths against their plain versions, bit-equal (TF32 off for the plain
+"""The port's CUDA kernels (K1 screen_fused, K2 weighted_cdf_sum, the gate
+prune's gate_counts) and their card paths against their plain versions,
+bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
 torch ops (fed by the native FASTA reader) and the dense engine (indicator
 products, the ERTL-MLE) on the card against the same ops on the CPU, the
@@ -20,6 +21,8 @@ import os
 import numpy as np
 import pytest
 import torch
+
+import gate_cases
 
 from cuda_selection_criteria_tpu_torch.models import SketchBank
 from cuda_selection_criteria_tpu_torch.models import bank as tbank
@@ -833,3 +836,86 @@ def test_k2_p14_ti1024_matches_plain(cuda):
     assert (z is None) == (wz is None)
     if z is not None:
         assert torch.equal(z, wz)
+
+
+GATE_ARRAYS = ("e_rows", "e_cols", "fp_rows", "fp_cols", "row_tiles",
+               "col_tiles")
+
+
+def _gate_compare(dev, case, use_cb, use_smh):
+    """The gate-count kernel against its plain version on the card,
+    bit-equal, on a tests/gate_cases.py case; returns the counts."""
+    t = {k: torch.from_numpy(case[k]).to(dev) for k in GATE_ARRAYS}
+    args = (t["e_rows"], t["e_cols"], t["fp_rows"], t["fp_cols"],
+            t["row_tiles"], t["col_tiles"], case["row_base"],
+            case["col_base"], case["n_real"], case["tau_cb"],
+            case["n_bands"], case["ti"], use_cb, use_smh)
+    before = screen.gate_counts.launches
+    got = screen.gate_counts(*args)
+    want = screen._gate_counts_plain(*args)
+    torch.cuda.synchronize()
+    assert screen.gate_counts.launches == before + 1
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    return got.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_cb,use_smh", gate_cases.GATES)
+@pytest.mark.parametrize("n_bands", gate_cases.BANDS + (2, 3, 64))
+def test_gate_kernel_bank_matches_plain(cuda, n_bands, use_cb, use_smh):
+    """One bank with n_real inside a tile, empty columns, CB ties and tiles
+    below the diagonal; 1 to 32 bands in registers, 3 and 64 read from
+    memory."""
+    got = _gate_compare(cuda, gate_cases.bank_case(40 + n_bands, n_bands),
+                        use_cb, use_smh)
+    assert got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_cb,use_smh", gate_cases.GATES)
+@pytest.mark.parametrize("where", list(gate_cases.STRIP_BASES))
+def test_gate_kernel_strips_match_plain(cuda, where, use_cb, use_smh):
+    """Strips before, level with and after each other, the triangle's edge
+    inside a tile, n_real inside the column strip."""
+    _gate_compare(cuda, gate_cases.strip_case(
+        60 + len(where), gate_cases.STRIP_BASES[where]), use_cb, use_smh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ti", [130, 300, 1024])
+@pytest.mark.parametrize("bases", [(0, 0), (140, 100), (0, 300)])
+def test_gate_kernel_ragged_tiles_match_plain(cuda, ti, bases):
+    """Tiles that are no multiple of the kernel's 128-row CTAs and
+    256-column stages, every gate combination."""
+    case = gate_cases.ragged_case(ti + bases[0], ti, bases=bases)
+    for use_cb, use_smh in gate_cases.GATES:
+        _gate_compare(cuda, case, use_cb, use_smh)
+
+
+@pytest.mark.cuda
+def test_gate_kernel_masks_strip_edges(cuda):
+    """Tiles that run past the strips' ends count what the plain version
+    counts on strips padded with rows and columns that pass no gate."""
+    case = gate_cases.ragged_case(11, 300, bases=(40, 0))
+    cut, padded = gate_cases.cut_strips(case, 700, 830)
+    for use_cb, use_smh in gate_cases.GATES[:3]:
+        t = {k: torch.from_numpy(cut[k]).to(cuda) for k in GATE_ARRAYS}
+        got = screen.gate_counts(
+            t["e_rows"], t["e_cols"], t["fp_rows"], t["fp_cols"],
+            t["row_tiles"], t["col_tiles"], cut["row_base"],
+            cut["col_base"], cut["n_real"], cut["tau_cb"], cut["n_bands"],
+            cut["ti"], use_cb, use_smh)
+        want = _gate_compare(cuda, padded, use_cb, use_smh)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_gate_kernel_rejects_mixed_devices(cuda):
+    case = gate_cases.bank_case(5, 4, ti=16, n_tiles=2)
+    t = {k: torch.from_numpy(case[k]).to(cuda) for k in GATE_ARRAYS}
+    with pytest.raises(ValueError, match="gate_counts"):
+        screen.gate_counts(
+            t["e_rows"], t["e_cols"].cpu(), t["fp_rows"], t["fp_cols"],
+            t["row_tiles"], t["col_tiles"], 0, 0, case["n_real"],
+            case["tau_cb"], 4, 16, True, True)
