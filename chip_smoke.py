@@ -34,10 +34,13 @@ Phases (any failure exits non-zero, without the final result line):
                 without zeros; and 64 tile pairs at p=14, ti=1024 between
                 two 4096-row strips of the hll bench bank, timed beside
                 its plain version, its bound and torch._int_mm with a
-                column bank. K2 vs its plain version, bit-equal
-                S and Z: p_aux = 5, 6, 8 (ti=64, tj=64 and 128, a separate
-                column bank, with and without zeros, a truncated value
-                list); p = 5, 7, 8, 9, 10, 14 with 1, 2, 3, 5 and 13 bins
+                column bank; each timed K1 launch with the plane scratch
+                of its own blocks (a shared list, or one a strip), its
+                pack stage's ms from a profiler trace beside its bound
+                and its scratch bytes a launch. K2 vs its plain version,
+                bit-equal S and Z: p_aux = 5, 6, 8 (ti=64, tj=64 and
+                128, a separate column bank, with and without zeros, a
+                truncated value list); p = 5, 7, 8, 9, 10, 14 with 1, 2, 3, 5 and 13 bins
                 at ti=192, tj=64 (one, two, four and many mma depths a bin,
                 a part-filled last stage, blocks past the tile edge), with
                 a column bank of another row count and without zeros; and
@@ -52,7 +55,9 @@ Phases (any failure exits non-zero, without the final result line):
                 the strips' ends), then every tile of a 524,288-row
                 triangle shaped as smh_a-524k's (131,328 tiles, 8 bands),
                 the kernel timed over it beside its plain version in
-                256-tile chunks and its bound
+                256-tile chunks and its bound. The presence kernel (the
+                plan's bank_values) vs its plain version on 16 MiB + 13
+                uniform bytes 0-255, from an aligned start and from byte 1
   4. cli      - planted .hll/.smh32/.hll_8 files for N=2048 genomes, read
                 by the native threaded loaders and the numpy readers
                 (bit-equal, both walls); the native fused union
@@ -69,8 +74,8 @@ Phases (any failure exits non-zero, without the final result line):
                 (256 MiB of registers on the card) with planted
                 near-duplicates: every planted pair the exact oracle passes
                 is emitted, every emitted pair is oracle-confirmed with the
-                identical Jaccard, and K1 and the gate-count kernel
-                were launched; stage walls, a
+                identical Jaccard, and K1, the gate-count kernel and
+                the presence kernel were launched; stage walls, a
                 profiler trace of one warm run and the screen's pairs/s
                 over the full triangle
   6. hll      - select_pairs(hll_a) and (hll_an), tau=0.9, on N=16384
@@ -150,9 +155,11 @@ Phases (any failure exits non-zero, without the final result line):
                 (upload_stats), the plan stage's peak device memory within
                 the padded bank + 0.5 GiB, the whole run's peak beside the
                 card's, host RAM, the planted pairs recovered and phase 5's
-                checks; validate_ring_scale.run on the same bank on one
-                strip and on two strips of the card (K1's strip entry),
-                pairs equal
+                checks; before it, the presence kernel on that bank's 2 GiB
+                against its plain version, timed beside it, its bound and
+                one torch.bincount of its uint8 bytes; validate_ring_scale.run
+                on the same bank on one strip and on two strips of the
+                card (K1's strip entry), pairs equal
  12. bench    - the bench protocol (experiments/bench.py, kernel_tuning.py,
                 scale_sweep.py): the card's measured copy bandwidth and the
                 baseline it gives (2 x 16 KiB read a pair); bench.record at
@@ -205,6 +212,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
                     "(parallel/ring.py:232): int32 compares on the CUDA "
                     "cores, one CTA a 128-row block, columns staged in "
                     "shared memory, one atomicAdd a CTA"),
+    # not a Pallas kernel: the JAX bank_values' one pass is the native host
+    # scan fastx_value_presence (cuda_selection_criteria_tpu/native/
+    # fastx.cpp:461)
+    "value_presence": (f"{PKG}/csrc/value_presence.cu",
+                       "cuda_selection_criteria_tpu/ops/screen.py:185",
+                       "bank_values (native fastx_value_presence): one "
+                       "pass of 16-byte loads, a 64-bit register mask a "
+                       "thread for values below 64, shared atomicOr for "
+                       "the rest, one global atomicOr a block and word"),
 }
 
 
@@ -258,12 +274,14 @@ def kernel_vs_plain(torch, screen, args, kw):
     """Launch K1 through both entry points (screen_hits_fused, and the strip
     entry with one bank on both sides and bases 0) and its plain version on
     the same card tensors; return the max |difference| over hits and
-    counts (must be 0) and the hits."""
+    counts (must be 0) and the hits. args: (regs, tiles, e, fp), tiles the
+    launch's screen.LaunchTiles with one shared block list."""
     got = screen.screen_hits_fused(*args, **kw)
-    regs, rows, cols, e, fp = args
-    strip = screen.screen_hits_fused_strips(regs, regs, rows, cols, e, e, fp,
-                                            fp, 0, 0, **kw)
-    want = screen._screen_hits_fused_plain(*args, **kw)
+    regs, tiles, e, fp = args
+    strip = screen.screen_hits_fused_strips(regs, regs, tiles, e, e, fp, fp,
+                                            0, 0, **kw)
+    want = screen._screen_hits_fused_plain(regs, tiles.row_tiles,
+                                           tiles.col_tiles, e, fp, **kw)
     torch.cuda.synchronize()
     return (max(max_err(torch, got, want), max_err(torch, strip, want)),
             int(got[1].sum()))
@@ -289,9 +307,13 @@ def strip_inputs(screened, seed, lo, n_r, n_c):
 
 def strips_vs_plain(torch, screen, args, kw):
     """K1's strip entry and its plain version on the same card tensors:
-    (max |difference|, hits)."""
+    (max |difference|, hits). args: (regs_rows, regs_cols, tiles, e_rows,
+    e_cols, fp_rows, fp_cols, row_base, col_base), tiles the launch's
+    screen.LaunchTiles."""
     got = screen.screen_hits_fused_strips(*args, **kw)
-    want = screen._screen_hits_fused_strips_plain(*args, **kw)
+    regs_r, regs_c, tiles, *rest = args
+    want = screen._screen_hits_fused_strips_plain(
+        regs_r, regs_c, tiles.row_tiles, tiles.col_tiles, *rest, **kw)
     torch.cuda.synchronize()
     return max_err(torch, got, want), int(got[1].sum())
 
@@ -319,9 +341,8 @@ def phase_kernel_strips(torch, screen, screened, dev):
         r_t, c_t = (([0, 1, 2, 0, 2], [0, 3, 1, 2, 3]) if ti == 64
                     else ([0, 0], [0, 1]))
         t = [torch.from_numpy(x).to(dev) for x in (*rows, *cols)]
-        args = (t[0], t[3], torch.tensor(r_t, dtype=torch.int32, device=dev),
-                torch.tensor(c_t, dtype=torch.int32, device=dev), t[1], t[4],
-                t[2], t[5], row_base, col_base)
+        args = (t[0], t[3], screen.launch_tiles(r_t, c_t, False, dev), t[1],
+                t[4], t[2], t[5], row_base, col_base)
         vals = screen.bank_values(np.concatenate([rows[0], cols[0]]))
         kw = dict(n_real=col_base + (150 if ti == 64 else 200),
                   tau_scr=0.4 if ti == 64 else 0.9, tau_cb=0.35, p=8,
@@ -339,8 +360,7 @@ def phase_kernel_strips(torch, screen, screened, dev):
 
 def phase_kernel_p8(torch, screen, screened, dev):
     p, ti, n = 8, 64, 192
-    rows = torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=dev)
-    cols = torch.tensor([0, 2, 1, 2], dtype=torch.int32, device=dev)
+    tiles = screen.launch_tiles([0, 0, 1, 2], [0, 2, 1, 2], True, dev)
     worst = 0
     cases = [(cb, smh, lo, 11) for cb in (True, False)
              for smh in (True, False) for lo in (0, 2)]
@@ -356,8 +376,8 @@ def phase_kernel_p8(torch, screen, screened, dev):
         vals = screen.bank_values(regs)
         if hi == 26:
             vals = screen.truncate_values(vals, 40.0, p)
-        args = [torch.from_numpy(x).to(dev) for x in (regs,)] + [
-            rows, cols] + [torch.from_numpy(x).to(dev) for x in (e, fp)]
+        args = [torch.from_numpy(regs).to(dev), tiles,
+                torch.from_numpy(e).to(dev), torch.from_numpy(fp).to(dev)]
         kw = dict(n_real=n - 5, tau_scr=0.4, tau_cb=0.35, p=p, values=vals,
                   ti=ti, n_bands=4, use_cb=use_cb, use_smh=use_smh)
         err, hits = kernel_vs_plain(torch, screen, args, kw)
@@ -411,8 +431,7 @@ def phase_kernel_edges(torch, screen, screened, dev):
                   None))
     for label, regs, e, fp, rows, cols, ti, gates, n_real, want in cases:
         args = [torch.from_numpy(regs).to(dev),
-                torch.tensor(rows, dtype=torch.int32, device=dev),
-                torch.tensor(cols, dtype=torch.int32, device=dev),
+                screen.launch_tiles(rows, cols, True, dev),
                 torch.from_numpy(e).to(dev), torch.from_numpy(fp).to(dev)]
         vals = screen.bank_values(regs)
         kw = dict(n_real=regs.shape[0] - 5 if n_real is None else n_real,
@@ -471,14 +490,15 @@ def k1_config(torch, screen, label, args, kw, card):
     b1, hbm = rates()
     err, hits = kernel_vs_plain(torch, screen, args, kw)
     nbins = len(kw["values"]) - 1
-    print(f"  K1 {label} p={kw['p']} ti={kw['ti']} tiles={len(args[1])} "
+    regs, tiles, e, fp = args
+    rows, cols = tiles.row_tiles, tiles.col_tiles
+    print(f"  K1 {label} p={kw['p']} ti={kw['ti']} tiles={len(rows)} "
           f"bins={nbins}: hits={hits} max_abs_err={err}")
     check(err == 0, f"K1 {label}: kernel != plain")
     check(hits > 0, f"K1 {label}: the comparison saw no hits")
     plain_ms = cuda_ms(torch, lambda: screen._screen_hits_fused_plain(
-        *args, **kw), 2)
+        regs, rows, cols, e, fp, **kw), 2)
     ms = cuda_ms(torch, lambda: screen.screen_hits_fused(*args, **kw), 5)
-    regs, rows, cols, e, fp = args
     ti, r = kw["ti"], regs.shape[1]
     g = screen._fused_gates(rows, cols, e, fp, kw["n_real"], kw["tau_scr"],
                             kw["tau_cb"], ti, kw["n_bands"], kw["use_cb"],
@@ -496,8 +516,53 @@ def k1_config(torch, screen, label, args, kw, card):
           f" ms ({bound_by}), share of the bound {bound_ms / ms:.3f}; "
           f"library (torch._int_mm, {nbins} x {len(rows)} calls) "
           f"{library_ms:.3f} ms")
+    pack = k1_pack(torch, screen, lambda: screen.screen_hits_fused(*args,
+                                                                   **kw),
+                   tiles, kw, r, card, label)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, pack=pack)
+
+
+def k1_pack(torch, screen, launch, tiles, kw, r, card, label, reps=3):
+    """The pack stage of a K1 launch (pack_planes_kernel, csrc/
+    pack_planes.cuh) from a torch.profiler trace of `reps` launches: its
+    device ms a launch, beside its bound (the launch's blocks' ti rows of
+    r bytes read once and their planes written once, at HBM_BYTES_PER_S),
+    and the plane scratch bytes of a launch: its LaunchTiles' distinct
+    blocks (a shared list once), ti rows of nbins planes of
+    plane_words(p) uint32 words each."""
+    from cuda_selection_criteria_tpu_torch.utils.profiling import (
+        device_trace)
+
+    _, hbm = rates()
+    launch()
+    torch.cuda.synchronize()
+    with device_trace() as prof:
+        for _ in range(reps):
+            launch()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    pack_us, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type != cpu and "pack_planes_kernel" in ev.key:
+            pack_us += ev.self_device_time_total
+            kernels += ev.count
+    check(kernels > 0, f"K1 {label}: the trace shows no pack_planes_kernel")
+    ti = kw["ti"]
+    n_blocks = tiles.row_blocks.numel() + (
+        0 if tiles.col_blocks is tiles.row_blocks
+        else tiles.col_blocks.numel())
+    scratch = (n_blocks * ti * (len(kw["values"]) - 1)
+               * screen.plane_words(kw["p"]) * 4)
+    pack_ms = pack_us / 1e3 / reps
+    bound_ms = (n_blocks * ti * r + scratch) / hbm * 1e3
+    print(f"  [{card}] K1 {label} pack stage: {pack_ms:.3f} ms a launch "
+          f"({kernels // reps} pack_planes_kernel a launch), {n_blocks} "
+          f"blocks of {ti} rows, plane scratch {scratch} bytes a launch; "
+          f"bound {bound_ms:.3f} ms (bytes), share of the bound "
+          f"{bound_ms / pack_ms:.3f}")
+    return dict(ms=pack_ms, bound_ms=bound_ms, bound_by="bytes",
+                blocks=n_blocks, scratch_bytes=scratch)
 
 
 def k1_strips_config(torch, screen, plan, card):
@@ -512,11 +577,10 @@ def k1_strips_config(torch, screen, plan, card):
     rows = slice(4096, 8192)
     cols = slice(8192, 12288)
     rr, cc = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
-    r_t = torch.from_numpy(np.tile(rr.ravel(), 4).astype(np.int32)).to(
-        plan.d_regs.device)
-    c_t = torch.from_numpy(np.tile(cc.ravel(), 4).astype(np.int32)).to(
-        plan.d_regs.device)
-    args = (plan.d_regs[rows], plan.d_regs[cols], r_t, c_t, plan.d_e[rows],
+    tiles = screen.launch_tiles(np.tile(rr.ravel(), 4), np.tile(cc.ravel(), 4),
+                                False, plan.d_regs.device)
+    r_t, c_t = tiles.row_tiles, tiles.col_tiles
+    args = (plan.d_regs[rows], plan.d_regs[cols], tiles, plan.d_e[rows],
             plan.d_e[cols], plan.d_fp[rows], plan.d_fp[cols], 4096, 8192)
     kw = dict(n_real=plan.n, tau_scr=plan.tau_scr, tau_cb=plan.tau_cb, p=14,
               values=plan.values, ti=ti, n_bands=1, use_cb=True,
@@ -527,11 +591,12 @@ def k1_strips_config(torch, screen, plan, card):
           f"bins={nbins}: hits={hits} max_abs_err={err}")
     check(err == 0, "K1 strips dense: kernel != plain")
     check(hits > 0, "K1 strips dense: the comparison saw no hits")
+    plain_args = (args[0], args[1], r_t, c_t, *args[3:])
     plain_ms = cuda_ms(torch, lambda: screen._screen_hits_fused_strips_plain(
-        *args, **kw), 2)
+        *plain_args, **kw), 2)
     ms = cuda_ms(torch, lambda: screen.screen_hits_fused_strips(*args, **kw),
                  5)
-    g = screen._strip_gates(r_t, c_t, args[4], args[5], args[6], args[7],
+    g = screen._strip_gates(r_t, c_t, args[3], args[4], args[5], args[6],
                             4096, 8192, kw["n_real"], kw["tau_scr"],
                             kw["tau_cb"], ti, 1, True, False)[2]
     gated = int(g.sum())
@@ -547,8 +612,82 @@ def k1_strips_config(torch, screen, plan, card):
           f"{len(r_t) * ti * ti} pairs pass the gates; bound {bound_ms:.3f} "
           f"ms ({bound_by}), share of the bound {bound_ms / ms:.3f}; library "
           f"(torch._int_mm, {nbins} x {len(r_t)} calls) {library_ms:.3f} ms")
+    pack = k1_pack(torch, screen,
+                   lambda: screen.screen_hits_fused_strips(*args, **kw),
+                   tiles, kw, r, card, "strips dense")
+    check(pack["blocks"] == 8, "K1 strips dense: not 4 + 4 blocks packed")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, pack=pack)
+
+
+PRESENCE_RAGGED = (1 << 24) + 13  # uniform bytes with a ragged tail
+
+
+def presence_vs_plain(torch, screen, d, label):
+    """The presence kernel (bank_values on the card tensor d) against its
+    plain version on the same tensor: (max |difference| of the two
+    256-entry presence vectors, the kernel's values)."""
+    got = screen.bank_values(d)
+    want = screen._bank_values_plain(d.reshape(-1), 1 << 24)
+    err = int(np.abs(np.isin(np.arange(256), got).astype(np.int64)
+                     - np.isin(np.arange(256), want)).max())
+    print(f"  presence {label}: {len(got)} values "
+          f"{got[0]}..{got[-1]}, max_abs_err={err}")
+    check(err == 0, f"presence {label}: kernel != plain")
+    return err, got
+
+
+def phase_presence_uniform(torch, screen, dev):
+    """The presence kernel on uniform bytes 0-255 with a ragged tail, from
+    an aligned start and from byte 1 (an unaligned head): every value
+    present, as the plain version says."""
+    x = np.random.default_rng(0x256).integers(0, 256, PRESENCE_RAGGED,
+                                              dtype=np.uint8)
+    d = torch.from_numpy(x).to(dev)
+    worst = 0
+    for off in (0, 1):
+        err, got = presence_vs_plain(
+            torch, screen, d[off:], f"uniform 0-255, {PRESENCE_RAGGED - off}"
+            f" bytes from byte {off}")
+        check(got == tuple(range(256)), "presence uniform: a value missing")
+        worst = max(worst, err)
+    return worst
+
+
+def presence_config(torch, screen, d, card, label):
+    """The presence kernel on the card tensor d (a bank's real rows)
+    against its plain version (bit-equal presence), timed beside it, its
+    bound (the bytes read once at HBM_BYTES_PER_S against one comparison a
+    byte at INT32_OPS_PER_S) and the library yardstick: one torch.bincount
+    of the uint8 bytes, with no cast (torch.unique, which sorts with CUB,
+    refuses 2^31 elements), its non-zero bins checked against the
+    kernel's values first. The plain version is the chunked, int32-cast
+    bincount loop that CPU tensors run."""
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+
+    err, got = presence_vs_plain(torch, screen, d, label)
+    flat = d.reshape(-1)
+    chunk = 1 << 24
+
+    def bincount():
+        return torch.bincount(flat, minlength=256)
+
+    lib = tuple(torch.nonzero(bincount()).view(-1).tolist())
+    check(lib == got, f"presence {label}: torch.bincount's values differ")
+    ms = cuda_ms(torch, lambda: screen.bank_values(d), 10)
+    plain_ms = cuda_ms(torch, lambda: screen._bank_values_plain(flat, chunk),
+                       2)
+    library_ms = cuda_ms(torch, bincount, 2)
+    ms2 = cuda_ms(torch, lambda: screen.bank_values(d), 10)
+    bound_ms, bound_by = bound(flat.numel() / hopper.INT32_OPS_PER_S,
+                               (flat.numel() + 32) / hopper.HBM_BYTES_PER_S)
+    print(f"  [{card}] presence {label} ({flat.numel()} bytes): {ms:.3f} / "
+          f"{ms2:.3f} ms (two turns, with the 32-byte read-back) vs plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}), share "
+          f"of the bound {bound_ms / ms:.3f}; library (one torch.bincount "
+          f"of the uint8 bytes) {library_ms:.3f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms, bytes=flat.numel())
 
 
 def k2_vs_plain(torch, screen, args, kw):
@@ -915,7 +1054,8 @@ def run_main_path(torch, screen, select_pairs, bank, params, dev, card):
           f"candidates, {len(out)} pairs, K1 launches "
           f"{launches['screen_fused']}, K2 launches "
           f"{launches['weighted_cdf_sum']}, gate_counts launches "
-          f"{launches['gate_counts']}, peak device memory "
+          f"{launches['gate_counts']}, value_presence launches "
+          f"{launches['value_presence']}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return out, launches
 
@@ -1494,12 +1634,13 @@ def phase_checkpoint(torch, screen, screened, bank, params, dev, card):
           "the resumed sweep did not skip the recorded spans")
 
 
-LAUNCH_KEYS = ("screen_fused", "strips", "weighted_cdf_sum", "gate_counts")
+LAUNCH_KEYS = ("screen_fused", "strips", "weighted_cdf_sum", "gate_counts",
+               "value_presence")
 
 
 def reset_launches(screen):
     for fn in (screen.screen_hits_fused, screen.screen_hits_fused_strips,
-               screen.screen_s_z, screen.gate_counts):
+               screen.screen_s_z, screen.gate_counts, screen.bank_values):
         fn.launches = 0
 
 
@@ -1511,7 +1652,8 @@ def read_launches(screen):
             + screen.screen_hits_fused_strips.launches,
             "strips": screen.screen_hits_fused_strips.launches,
             "weighted_cdf_sum": screen.screen_s_z.launches,
-            "gate_counts": screen.gate_counts.launches}
+            "gate_counts": screen.gate_counts.launches,
+            "value_presence": screen.bank_values.launches}
 
 
 def multi_device_run(torch, screen, engine, bank, params, mesh, dev, card,
@@ -1575,6 +1717,8 @@ def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
               "variant")
         check(lr["gate_counts"] > 0, f"ring -c {crit} never launched the "
               "gate-count kernel")
+        check(lr["value_presence"] > 0, f"ring -c {crit} never launched the "
+              "presence kernel")
         check(crit == "smh_a" or lr["weighted_cdf_sum"] > 0,
               f"ring -c {crit} never launched K2")
         check(stats["steps_run"] > 1, f"ring -c {crit} ran one step only")
@@ -1588,6 +1732,8 @@ def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
         check(ls["screen_fused"] > 0, f"sharded -c {crit} never launched K1")
         check(ls["gate_counts"] > 0, f"sharded -c {crit} never launched the "
               "gate-count kernel")
+        check(ls["value_presence"] > 0, f"sharded -c {crit} never launched "
+              "the presence kernel")
         check(crit == "smh_a" or ls["weighted_cdf_sum"] > 0,
               f"sharded -c {crit} never launched K2")
         mods["verify_pairs"](bank, [(i, i + 1) for i in picks], out, crit)
@@ -1920,9 +2066,10 @@ def phase_scale(torch, mods, dev, card):
     split, peak device memory) with phase 5's checks; 11c
     validate_ring_scale.run on the same bank object, on one strip (every
     visible card) and on two strips (two virtual devices of the card, so
-    K1's strip entry runs at this scale), pairs equal to 11b's. Returns
-    {kernel: launches} summed over the phase's runs, each read right after
-    its own reset."""
+    K1's strip entry runs at this scale), pairs equal to 11b's; before 11b
+    the presence kernel on the 11b bank against its plain version, timed
+    (presence_config). Returns ({kernel: launches} summed over the phase's
+    runs, each read right after its own reset; the presence record)."""
     screen, v131, vring = (mods["screen"], mods["validate_131k_scale"],
                            mods["validate_ring_scale"])
     total = dict.fromkeys(LAUNCH_KEYS, 0)
@@ -1957,6 +2104,11 @@ def phase_scale(torch, mods, dev, card):
     print(f"  planted bench bank N={SCALE_N} ({bank.regs.nbytes / 2**30:.2f} "
           f"GiB of registers) with {len(picks)} planted pairs made in "
           f"{bank_secs:.1f} s (host)", flush=True)
+    d_regs = torch.from_numpy(bank.regs).to(dev)
+    presence = presence_config(torch, screen, d_regs, card,
+                               f"N={SCALE_N} bank")
+    del d_regs
+    torch.cuda.empty_cache()
     params = mods["SelectionParams"](tau=0.9, criterion="smh_a")
     reset_launches(screen)
     record, pairs = v131.run(bank, params, ti=1024, device=dev)
@@ -1992,6 +2144,8 @@ def phase_scale(torch, mods, dev, card):
           "K1")
     check(launches["gate_counts"] > 0, "validate_131k_scale never launched "
           "the gate-count kernel")
+    check(launches["value_presence"] > 0, "validate_131k_scale never "
+          "launched the presence kernel")
     mods["verify_pairs"](bank, [(i, i + 1) for i in picks], pairs, "smh_a")
     add(launches)
 
@@ -2020,7 +2174,7 @@ def phase_scale(torch, mods, dev, card):
               "never launched the gate-count kernel")
         add(launches)
     check(total["strips"] > 0, "phase 11 never launched K1's strip entry")
-    return total
+    return total, presence
 
 
 # Phase 12's sizes: the bench's headline bank (bench.py's N_GENOMES),
@@ -2038,7 +2192,7 @@ def k2_p14_config(torch, screen, setup, card):
     span of the sorted bench triangle (64 tiles, the raw sweep's first
     launch): bit-equal to its plain version over every tile, timed beside
     it, its bound (k2_bound) and torch._int_mm over the same CDFs."""
-    rows, cols = setup.span_tiles[setup.spans[0]]
+    rows, cols = setup.span_tiles[setup.spans[0]][:2]
     args = [setup.d_regs, rows, cols]
     kw = dict(p=14, values=setup.values, ti=1024, tj=1024)
     nbins = len(setup.values) - 1
@@ -2107,7 +2261,7 @@ def phase_bench(torch, mods, dev, card):
     setup = bench.setup(BENCH_N, ti=1024, device=dev, bank=bank)
     counts, _ = bench.headline_collect(bench.headline_dispatch(setup))
     want = torch.cat([screen._screen_hits_fused_plain(
-        setup.d_regs, *setup.span_tiles[span], setup.d_e, setup.d_fp,
+        setup.d_regs, *setup.span_tiles[span][:2], setup.d_e, setup.d_fp,
         setup.n, setup.tau_scr, setup.tau_cb, 14, setup.values, 1024,
         setup.n_bands, True, True)[1] for span in setup.spans])
     check(np.array_equal(counts, want.cpu().numpy()), "the bench's headline "
@@ -2207,9 +2361,9 @@ def main():
     tri_r, tri_c = scheduler.triangle_block_ids(plan.e_s, plan.tau, 1024,
                                                 use_cb_skip=False)
     chunk = screened.auto_chunk(1024)
-    r64 = torch.from_numpy(tri_r[:chunk].astype(np.int32)).to(dev)
-    c64 = torch.from_numpy(tri_c[:chunk].astype(np.int32)).to(dev)
-    args = [plan.d_regs, r64, c64, plan.d_e, plan.d_fp]
+    args = [plan.d_regs,
+            screen.launch_tiles(tri_r[:chunk], tri_c[:chunk], True, dev),
+            plan.d_e, plan.d_fp]
     kw = dict(n_real=plan.n, tau_scr=plan.tau_scr, tau_cb=plan.tau_cb, p=14,
               values=plan.values, ti=1024, n_bands=plan.n_bands,
               use_cb=True, use_smh=True)
@@ -2217,13 +2371,12 @@ def main():
     hplan = screened.ScreenPlan(hbank, hparams, 1024, device=dev)
     hr, hc = scheduler.triangle_block_ids(hplan.e_s, hplan.tau, 1024,
                                           use_cb_skip=False)
-    hr64 = torch.from_numpy(hr[:chunk].astype(np.int32)).to(dev)
-    hc64 = torch.from_numpy(hc[:chunk].astype(np.int32)).to(dev)
+    h64 = screen.launch_tiles(hr[:chunk], hc[:chunk], True, dev)
     # dense: the hll primary call of _screen_chunk_hllaux (CB, no bands);
     # gated: the smh_a call (CB and LSH bands)
     k1 = {"dense": k1_config(
         torch, screen, "dense (hll_a primary)",
-        [hplan.d_regs, hr64, hc64, hplan.d_e, hplan.d_fp],
+        [hplan.d_regs, h64, hplan.d_e, hplan.d_fp],
         dict(n_real=hplan.n, tau_scr=hplan.tau_scr, tau_cb=hplan.tau_cb,
              p=14, values=hplan.values, ti=1024, n_bands=1, use_cb=True,
              use_smh=False), card)}
@@ -2234,7 +2387,7 @@ def main():
 
     k2_err = max(phase_k2_small(torch, screen, dev),
                  phase_k2_edges(torch, screen, dev))
-    k2_args = [hplan.d_aux_regs, hr64, hc64]
+    k2_args = [hplan.d_aux_regs, h64.row_tiles, h64.col_tiles]
     k2_kw = dict(p=8, values=hplan.values_aux, ti=1024, tj=1024)
     err = k2_vs_plain(torch, screen, k2_args, k2_kw)
     k2_bins = len(hplan.values_aux) - 1
@@ -2245,9 +2398,9 @@ def main():
     k2_plain_ms = cuda_ms(torch, lambda: screen._screen_s_z_plain(
         *k2_args, **k2_kw), 2)
     k2_ms = cuda_ms(torch, lambda: screen.screen_s_z(*k2_args, **k2_kw), 10)
-    k2_bound_ms, k2_bound_by = k2_bound(torch, hr64, hc64, hplan.values_aux,
+    k2_bound_ms, k2_bound_by = k2_bound(torch, *h64[:2], hplan.values_aux,
                                         8, 1024)
-    k2_library_ms = int_mm_ms(torch, hplan.d_aux_regs, hr64, hc64,
+    k2_library_ms = int_mm_ms(torch, hplan.d_aux_regs, *h64[:2],
                               hplan.values_aux, 1024, 1024)
     k2_ms2 = cuda_ms(torch, lambda: screen.screen_s_z(*k2_args, **k2_kw), 10)
     hll_chunk_ms = cuda_ms(torch, lambda: hplan.screen_chunk(
@@ -2262,6 +2415,7 @@ def main():
 
     gate = phase_gate(torch, screen, screened, scheduler, criteria, dev,
                       card)
+    presence_err = phase_presence_uniform(torch, screen, dev)
 
     print("== phase 4: selection CLI, N=2048", flush=True)
     rng4 = np.random.default_rng(2048)
@@ -2379,6 +2533,8 @@ def main():
     check(launches["screen_fused"] > 0, "main path never launched K1")
     check(launches["gate_counts"] > 0, "main path never launched the "
           "gate-count kernel")
+    check(launches["value_presence"] > 0, "main path never launched the "
+          "presence kernel")
     verify_pairs(hostref, bank, [(i, i + 1) for i in picks], out, "smh_a")
     screened_out = {"smh_a": out}  # phase 9 holds the other engines to it
     device_profile(torch, lambda: select_pairs(bank, params, device=dev),
@@ -2387,13 +2543,12 @@ def main():
     # screen throughput over the full i<j triangle (all 136 tiles)
     spans = [(c0, min(chunk, len(tri_r) - c0))
              for c0 in range(0, len(tri_r), chunk)]
-    dev_tiles = [(torch.from_numpy(tri_r[c0:c0 + w].astype(np.int32)).to(dev),
-                  torch.from_numpy(tri_c[c0:c0 + w].astype(np.int32)).to(dev))
-                 for c0, w in spans]
+    dev_tiles = [screen.launch_tiles(tri_r[c0:c0 + w], tri_c[c0:c0 + w],
+                                     True, dev) for c0, w in spans]
 
     def sweep():
-        for rr, cc in dev_tiles:
-            screen.screen_hits_fused(plan.d_regs, rr, cc, plan.d_e,
+        for tiles in dev_tiles:
+            screen.screen_hits_fused(plan.d_regs, tiles, plan.d_e,
                                      plan.d_fp, **kw)
 
     tri_ms = cuda_ms(torch, sweep, 3)
@@ -2410,8 +2565,9 @@ def main():
                                 SelectionParams(tau=0.9, criterion=crit),
                                 dev, card)
         check(hl["screen_fused"] > 0 and hl["weighted_cdf_sum"] > 0
-              and hl["gate_counts"] > 0,
-              f"-c {crit} never launched K1, K2 and the gate-count kernel")
+              and hl["gate_counts"] > 0 and hl["value_presence"] > 0,
+              f"-c {crit} never launched K1, K2, the gate-count kernel and "
+              "the presence kernel")
         verify_pairs(hostref, hbank, [(i, i + 1) for i in hpicks], out,
                      crit)
         screened_out[crit] = out
@@ -2494,7 +2650,7 @@ def main():
                 validate_ring_scale=validate_ring_scale,
                 validate_screened=validate_screened,
                 validate_hllaux=validate_hllaux)
-    scale = phase_scale(torch, mods, dev, card)
+    scale, presence = phase_scale(torch, mods, dev, card)
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
     print("== phase 12: the bench protocol (bench, kernel_tuning, "
@@ -2516,7 +2672,8 @@ def main():
         "screen_fused": dict(
             {key: k1["dense"][key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")}, max_abs_err=max_err, gated=k1["gated"],
+                "library_ms", "pack")}, max_abs_err=max_err,
+            gated=k1["gated"],
             strips=dict(k1["strips"], launches=md["ring"]["strips"],
                         scale=dict(launches=scale["strips"])),
             ring=dict(launches=md["ring"]["screen_fused"]),
@@ -2539,7 +2696,14 @@ def main():
             sharded=dict(launches=md["sharded"]["gate_counts"]),
             l5=dict(launches=l5["gate_counts"]),
             scale=dict(launches=scale["gate_counts"]),
-            bench=dict(launches=bench_launches["gate_counts"]))}
+            bench=dict(launches=bench_launches["gate_counts"])),
+        "value_presence": dict(
+            presence, max_abs_err=max(presence_err, presence["max_abs_err"]),
+            ring=dict(launches=md["ring"]["value_presence"]),
+            sharded=dict(launches=md["sharded"]["value_presence"]),
+            l5=dict(launches=l5["value_presence"]),
+            scale=dict(launches=scale["value_presence"]),
+            bench=dict(launches=bench_launches["value_presence"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

@@ -1,8 +1,8 @@
 // The pack stage shared by the port's bit-plane CDF kernels for NVIDIA
 // Hopper (sm_90a): K1 (screen_fused.cu) and K2 (weighted_cdf_sum.cu).
 //
-// [max(a, b) <= v] == [a <= v] & [b <= v], so the pack stage turns every
-// bank row into K-1 bit-planes of R/32 uint32 words (bit r of plane k =
+// [max(a, b) <= v] == [a <= v] & [b <= v], so the pack stage turns bank
+// rows into K-1 bit-planes of R/32 uint32 words (bit r of plane k =
 // [reg_r <= v_k]), and each kernel's count stage gets CDF_k of a pair from
 // AND + POPC of the two rows' planes: an exact integer whatever the
 // summation order. Both kernels count with the tensor cores' 1-bit wgmma
@@ -18,19 +18,23 @@
 
 namespace {
 
-// planes[n * row_words + k * Wp + w], bit t = [regs[n, 32w + t] <= thr[k]]
+// planes[n * row_words + k * Wp + w], bit t = [regs[g, 32w + t] <= thr[k]]
 // for w < R/32, and 0 for R/32 <= w < Wp; the row's words from nbins * Wp
-// to row_words are 0 too.
+// to row_words are 0 too. Scratch row n holds bank row g = n when blocks is
+// null, else g = blocks[n / ti] * ti + n % ti: the slot-addressed pack of a
+// K1 launch, whose scratch holds only the row blocks its tiles read.
 __global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
                                    long long n_rows, int R, int Wp,
                                    const int* __restrict__ thr, int nbins,
                                    long long row_words,
+                                   const int* __restrict__ blocks, int ti,
                                    uint32_t* __restrict__ planes) {
   const int W = R / 32;
   long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n_rows * Wp) return;
   long long n = gid / Wp;
   int w = (int)(gid % Wp);
+  const long long g = blocks ? (long long)blocks[n / ti] * ti + n % ti : n;
   uint32_t* row = planes + n * row_words;
   for (long long x = (long long)nbins * Wp + w; x < row_words; x += Wp)
     row[x] = 0u;
@@ -38,7 +42,7 @@ __global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
     for (int k = 0; k < nbins; ++k) row[k * Wp + w] = 0u;
     return;
   }
-  const uint4* src = reinterpret_cast<const uint4*>(regs + n * R + w * 32);
+  const uint4* src = reinterpret_cast<const uint4*>(regs + g * R + w * 32);
   uint4 lo = src[0], hi = src[1];
   uint32_t words[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
   for (int k = 0; k < nbins; ++k) {
@@ -62,22 +66,27 @@ __global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
   }
 }
 
-// Packs the nbins bit-planes of an (n_rows, R) uint8 bank (16-byte
-// aligned, R a multiple of 32) into caller-allocated `planes` of
+// Packs the nbins bit-planes of n_rows rows of a uint8 bank of R columns
+// (16-byte aligned, R a multiple of 32) into caller-allocated `planes` of
 // n_rows * row_words words, Wp >= R/32, row_words >= nbins * Wp (0 stands
 // for nbins * Wp: the planes of a row end where the next row's begin).
+// blocks null packs the bank's first n_rows rows; otherwise n_rows is a
+// multiple of ti and scratch rows s * ti .. s * ti + ti - 1 get the bank's
+// block blocks[s] (int32 on the card, in units of ti rows).
 inline cudaError_t launch_pack_planes(const void* regs, long long n_rows,
                                       int R, int Wp, const void* thr,
                                       int nbins, void* planes,
                                       cudaStream_t st,
-                                      long long row_words = 0) {
+                                      long long row_words = 0,
+                                      const void* blocks = nullptr,
+                                      int ti = 1) {
   if (row_words == 0) row_words = (long long)nbins * Wp;
   const long long total = n_rows * Wp;
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  pack_planes_kernel<<<blocks, 256, 0, st>>>(
+  const unsigned grid = (unsigned)((total + 255) / 256);
+  pack_planes_kernel<<<grid, 256, 0, st>>>(
       static_cast<const uint8_t*>(regs), n_rows, R, Wp,
       static_cast<const int*>(thr), nbins, row_words,
-      static_cast<uint32_t*>(planes));
+      static_cast<const int*>(blocks), ti, static_cast<uint32_t*>(planes));
   return cudaGetLastError();
 }
 

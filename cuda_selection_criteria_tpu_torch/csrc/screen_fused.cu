@@ -40,13 +40,18 @@
 // the hits written once take 0.1 ms; chip_smoke.py computes both).
 //
 // Design. [max(a,b) <= v] == [a <= v] & [b <= v], so the pack stage
-// (pack_planes.cuh, shared with K2) turns every bank row into K-1 bit-planes
-// of Wp words, Wp = max(R/32, 32) (ops/screen.plane_words: zero words pad a
+// (pack_planes.cuh, shared with K2) turns bank rows into K-1 bit-planes of
+// Wp words, Wp = max(R/32, 32) (ops/screen.plane_words: zero words pad a
 // plane to one pipeline stage), and CDF_k is the b1 wgmma (AND + POPC) of
-// the row's and column's plane k. One CTA of two warpgroups owns a
-// 128 x 128 block of pairs, each warpgroup an m64n128 accumulator tile
-// (64 pairs a thread); ti = 64 (or any odd multiple of 64) masks the part
-// of the block outside the tile.
+// the row's and column's plane k. The pack covers only the launch's row
+// blocks: the caller lists each side's distinct blocks (the TPU kernel's
+// BlockSpec index maps read only the tiles' rows too), the pack writes
+// block list[s] into scratch slot s, and each tile carries the slots of its
+// row and column blocks (ops/screen.LaunchBlocks). The slots address the
+// planes and nothing else; the gates, e, fp and the hits keep the tile
+// ids. One CTA of two warpgroups owns a 128 x 128 block of pairs, each
+// warpgroup an m64n128 accumulator tile (64 pairs a thread); ti = 64 (or
+// any odd multiple of 64) masks the part of the block outside the tile.
 //  1. Gates first. e' of the block's rows and columns is divided once into
 //     shared memory; each thread evaluates the gates of its 64 pairs
 //     exactly as the plain version does (the same f32 _rn operations) into
@@ -96,7 +101,9 @@ screen_kernel(const uint32_t* __restrict__ planes_r,
               const float* __restrict__ weights, float tail, int want_z,
               float two_m, float two_m2,
               const int* __restrict__ row_tiles,
-              const int* __restrict__ col_tiles, int ti,
+              const int* __restrict__ col_tiles,
+              const int* __restrict__ row_slot,
+              const int* __restrict__ col_slot, int ti,
               const float* __restrict__ e_r, const float* __restrict__ e_c,
               float one_tau, const int* __restrict__ fp_r,
               const int* __restrict__ fp_c, int n_bands, long long n_real,
@@ -119,7 +126,7 @@ screen_kernel(const uint32_t* __restrict__ planes_r,
   const int t = blockIdx.z;
   const int lr0 = blockIdx.y * kEdge;  // block offset inside the tile
   const int lc0 = blockIdx.x * kEdge;
-  // local ids: they index the planes, e and fp of their own side's bank
+  // local ids: they index e and fp of their own side's bank
   const long long rbase = (long long)row_tiles[t] * ti + lr0;
   const long long cbase = (long long)col_tiles[t] * ti + lc0;
   const int n_rows = min(kEdge, ti - lr0);  // rows and columns of the block
@@ -179,6 +186,12 @@ screen_kernel(const uint32_t* __restrict__ planes_r,
     return;
   }
   // ---- 2. counts: bins in groups of kGroup, kStageWords words a stage
+  // the block's first row and column in the plane scratch, read past the
+  // skip; in 32 bits (scratch rows never exceed the bank's): with 64-bit
+  // offsets here the kernel ran 4% slower than with tile ids
+  // (experiments/k1_breakdown.py, variant tile_addressed)
+  const int rplane = row_slot[t] * ti + lr0;
+  const int cplane = col_slot[t] * ti + lc0;
   const int stages_per_group = Wp / kStageWords;
   const int n_steps = ((nbins + kGroup - 1) / kGroup) * stages_per_group;
 
@@ -192,8 +205,9 @@ screen_kernel(const uint32_t* __restrict__ planes_r,
     const int side = i >> 2, row = (tid >> 3) + 32 * (i & 3);
     // rows past the tile edge read the block's first row: dead pairs
     const int l = row < (side ? n_cols : n_rows) ? row : 0;
-    src[i] = (side ? planes_c + (cbase + l) * nbins * Wp
-                   : planes_r + (rbase + l) * nbins * Wp) + slot * 4;
+    src[i] = (side ? planes_c + (long long)(cplane + l) * nbins * Wp
+                   : planes_r + (long long)(rplane + l) * nbins * Wp) +
+             slot * 4;
     dst[i] = side * kSideBytes + swz(row, slot);
   }
   auto load_stage = [&](int s) {
@@ -311,28 +325,35 @@ screen_kernel(const uint32_t* __restrict__ planes_r,
 }  // namespace
 
 // Launches the pack stage and the screen on `stream`; returns the
-// cudaError_t of the launches. `planes` / `planes_cols` are caller-allocated
-// scratch of n_rows / n_cols * nbins * Wp uint32, Wp = max(R/32, 32)
-// (ops/screen.plane_words); with planes_cols == planes (the caller's sign
-// that regs_cols is regs) the column side reads `planes` and the bank is
-// packed once; distinct scratch always gets regs_cols packed into it. `counts` must be zeroed by the
-// caller. Nothing is allocated here.
+// cudaError_t of the launches. row_blocks (n_row_blocks int32) lists the
+// distinct row blocks of regs that the tiles read, col_blocks
+// (n_col_blocks) those of regs_cols; row_slot / col_slot (n_tiles int32)
+// give each tile's place in them. `planes` / `planes_cols` are
+// caller-allocated scratch of n_row_blocks / n_col_blocks * ti * nbins * Wp
+// uint32, Wp = max(R/32, 32) (ops/screen.plane_words); with planes_cols ==
+// planes (the caller's sign that regs_cols is regs and one block list
+// serves both sides) the column side reads `planes` and the blocks are
+// packed once; distinct scratch always gets regs_cols' blocks packed into
+// it. `counts` must be zeroed by the caller. Nothing is allocated here.
 extern "C" int csc_screen_fused(
-    const void* regs, long long n_rows, const void* regs_cols,
-    long long n_cols, int R, const void* thr, const void* weights, int nbins,
-    float tail, int want_z, float two_m, float two_m2, void* planes,
-    void* planes_cols, int Wp, const void* row_tiles, const void* col_tiles,
-    int n_tiles, int ti, const void* e, const void* e_cols, float one_tau,
+    const void* regs, const void* regs_cols, int R, const void* thr,
+    const void* weights, int nbins, float tail, int want_z, float two_m,
+    float two_m2, void* planes, void* planes_cols, int Wp,
+    const void* row_blocks, int n_row_blocks, const void* col_blocks,
+    int n_col_blocks, const void* row_tiles, const void* col_tiles,
+    const void* row_slot, const void* col_slot, int n_tiles, int ti,
+    const void* e, const void* e_cols, float one_tau,
     const void* fp, const void* fp_cols, int n_bands, long long n_real,
     long long row_base, long long col_base, float tau_cb, int use_cb,
     int use_smh, void* hits, void* counts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      launch_pack_planes(regs, n_rows, R, Wp, thr, nbins, planes, st);
+      launch_pack_planes(regs, (long long)n_row_blocks * ti, R, Wp, thr,
+                         nbins, planes, st, 0, row_blocks, ti);
   if (err != cudaSuccess) return (int)err;
   if (planes_cols != planes) {
-    err = launch_pack_planes(regs_cols, n_cols, R, Wp, thr, nbins,
-                             planes_cols, st);
+    err = launch_pack_planes(regs_cols, (long long)n_col_blocks * ti, R, Wp,
+                             thr, nbins, planes_cols, st, 0, col_blocks, ti);
     if (err != cudaSuccess) return (int)err;
   }
   const int smem = kAtom + kRingBytes + (want_z ? kSlotBytes : 0);
@@ -347,7 +368,8 @@ extern "C" int csc_screen_fused(
       static_cast<const uint32_t*>(planes_cols),
       nbins, Wp, static_cast<const float*>(weights), tail, want_z, two_m,
       two_m2, static_cast<const int*>(row_tiles),
-      static_cast<const int*>(col_tiles), ti, static_cast<const float*>(e),
+      static_cast<const int*>(col_tiles), static_cast<const int*>(row_slot),
+      static_cast<const int*>(col_slot), ti, static_cast<const float*>(e),
       static_cast<const float*>(e_cols), one_tau,
       static_cast<const int*>(fp), static_cast<const int*>(fp_cols), n_bands,
       n_real, row_base, col_base, tau_cb, use_cb, use_smh,

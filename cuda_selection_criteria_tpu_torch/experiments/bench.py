@@ -81,7 +81,7 @@ class Setup(NamedTuple):
     tau_scr: np.float32
     tau_cb: np.float32
     spans: list            # [(c0, width)] over the triangle's tiles
-    span_tiles: dict       # (c0, width) -> (row ids, col ids) on the device
+    span_tiles: dict       # (c0, width) -> screen.LaunchTiles on the device
 
 
 def setup(n_genomes=N_GENOMES, items=ITEMS_PER_GENOME, ti=TI, device=None,
@@ -89,7 +89,8 @@ def setup(n_genomes=N_GENOMES, items=ITEMS_PER_GENOME, ti=TI, device=None,
     """The bench bank sorted by cardinality (stable) and resident on the
     device with its fingerprints and cardinalities, the thresholds and
     truncated values of bench.py, the triangle's tiles at ti and each
-    span's tile ids, padded with the last tile, uploaded once. bank:
+    span's tile ids, padded with the last tile, uploaded once with K1's
+    block lists (screen.launch_tiles). bank:
     optional (regs, aux, e) of synth.bench_bank(n_genomes, items)."""
     dev = resolve(device)
     regs, aux, e = (synth.bench_bank(n_genomes, items) if bank is None
@@ -109,9 +110,9 @@ def setup(n_genomes=N_GENOMES, items=ITEMS_PER_GENOME, ti=TI, device=None,
 
     def span_ids(c0, width):
         take = min(width, len(rows) - c0)
-        return tuple(torch.from_numpy(np.pad(
-            x[c0:c0 + take], (0, width - take), constant_values=x[-1])).to(
-                dev) for x in (rows, cols))
+        return screen.launch_tiles(*(np.pad(
+            x[c0:c0 + take], (0, width - take), constant_values=x[-1])
+            for x in (rows, cols)), True, dev)
 
     return Setup(
         n=n_genomes, ti=ti, d_regs=torch.from_numpy(regs).to(dev),
@@ -127,7 +128,7 @@ def setup(n_genomes=N_GENOMES, items=ITEMS_PER_GENOME, ti=TI, device=None,
 def headline_dispatch(b):
     """One full screened pass, launched: [(hits, counts)] a span."""
     return [screened._screen_chunk(
-        b.d_regs, *b.span_tiles[span], b.d_e, b.d_fp, b.n, b.tau_scr,
+        b.d_regs, b.span_tiles[span], b.d_e, b.d_fp, b.n, b.tau_scr,
         b.tau_cb, P, b.values, b.ti, b.n_bands, True, True)
         for span in b.spans]
 
@@ -153,8 +154,9 @@ def raw_dispatch(b):
     f32 checksum a span, sum(S) + sum(Z)."""
     sums = []
     for span in b.spans:
-        s, z = screen.screen_s_z(b.d_regs, *b.span_tiles[span], P, b.values,
-                                 ti=b.ti, tj=b.ti)
+        t = b.span_tiles[span]
+        s, z = screen.screen_s_z(b.d_regs, t.row_tiles, t.col_tiles, P,
+                                 b.values, ti=b.ti, tj=b.ti)
         tot = torch.sum(s, dtype=torch.float32)
         if z is not None:
             tot = tot + torch.sum(z, dtype=torch.float32)

@@ -39,10 +39,11 @@ _LL = ctypes.c_longlong
 # kernel name (csrc/<name>.cu) -> (C entry point, its ctypes argtypes)
 KERNELS = {
     "screen_fused": ("csc_screen_fused", [
-        _P, _LL, _P, _LL, _I,    # regs, n_rows, regs_cols, n_cols, R
+        _P, _P, _I,              # regs, regs_cols, R
         _P, _P, _I, _F, _I,      # thr, weights, nbins, tail, want_z
         _F, _F, _P, _P, _I,      # 2m, 2m^2, planes, planes_cols, Wp
-        _P, _P, _I, _I,          # row/col tiles, n_tiles, ti
+        _P, _I, _P, _I,          # row_blocks, n, col_blocks, n
+        _P, _P, _P, _P, _I, _I,  # row/col tiles, row/col slots, n_tiles, ti
         _P, _P, _F, _P, _P, _I,  # e, e_cols, one_tau, fp, fp_cols, n_bands
         _LL, _LL, _LL, _F,       # n_real, row_base, col_base, tau_cb
         _I, _I, _P, _P, _P,      # use_cb, use_smh, hits, counts, stream
@@ -58,6 +59,9 @@ KERNELS = {
         _LL, _LL, _P, _P, _I,    # n_rows, n_cols, row/col tiles, n_tiles
         _I, _LL, _LL, _LL, _F,   # ti, n_real, row_base, col_base, tau_cb
         _I, _I, _P, _P,          # use_cb, use_smh, counts, stream
+    ]),
+    "value_presence": ("csc_value_presence", [
+        _P, _LL, _P, _P,         # bytes, n, mask (8 words), stream
     ]),
 }
 

@@ -11,13 +11,16 @@ and the screen keeps a pair when the certified MLE lower bound
 t_lb = 2m(m-Z)/(3S-Z) cannot exclude J >= tau (DESIGN.md "Screen
 certificate"). screen_hits_fused (K1, csrc/screen_fused.cu), its strip
 variant screen_hits_fused_strips (the same kernel with rows and columns
-from two banks, the ring engine's screen) and screen_s_z (K2, the raw S
-and Z; csrc/weighted_cdf_sum.cu) run their hand-written CUDA kernels on
-CUDA tensors and their plain PyTorch versions on CPU tensors; each plain
+from two banks, the ring engine's screen), screen_s_z (K2, the raw S
+and Z; csrc/weighted_cdf_sum.cu), gate_counts (the gate prune;
+csrc/gate_counts.cu) and bank_values (the plan's present values;
+csrc/value_presence.cu) run their hand-written CUDA kernels on CUDA
+tensors and their plain PyTorch versions on CPU tensors; each plain
 version is also its kernel's reference on the card.
 """
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,20 +28,56 @@ import torch
 from . import _build
 
 
-def bank_values(regs, chunk=1 << 24):
-    """Sorted tuple of the distinct register values present in a uint8
-    bank (numpy array, or tensor on any device - the screened engine scans
-    its device copy). One CDF bin per PRESENT value: an absent bin folds
-    into its predecessor's weight exactly."""
-    flat = torch.as_tensor(regs).reshape(-1)
-    if flat.dtype != torch.uint8:
-        raise ValueError(f"bank_values: uint8 registers expected, got "
-                         f"{flat.dtype}")
+def _bank_values_plain(flat, chunk):
+    """Plain PyTorch version of the presence kernel: one bincount a chunk
+    of `chunk` bytes (each cast to int32 on its own, so no cast of the
+    whole bank is ever held), then the non-zero bins."""
     counts = torch.zeros(256, dtype=torch.int64, device=flat.device)
     for c0 in range(0, flat.numel(), chunk):
         counts += torch.bincount(flat[c0:c0 + chunk].to(torch.int32),
                                  minlength=256)
     return tuple(torch.nonzero(counts).view(-1).tolist())
+
+
+def mask_values(mask):
+    """Sorted tuple of the values of a 256-bit presence mask: 8 words
+    (numpy, any 32-bit integer type), bit b of word w standing for value
+    32w + b - the presence kernel's output."""
+    words = np.asarray(mask).astype("<u4")
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    return tuple(int(v) for v in np.nonzero(bits)[0])
+
+
+def bank_values(regs, chunk=1 << 24):
+    """Sorted tuple of the distinct register values present in a uint8
+    bank (numpy array, or tensor - the screened engine scans its device
+    copy). One CDF bin per PRESENT value: an absent bin folds into its
+    predecessor's weight exactly.
+
+    numpy arrays and CPU tensors run _bank_values_plain (chunk bytes a
+    bincount). A CUDA tensor, contiguous, launches the hand-written
+    presence kernel (csrc/value_presence.cu: one pass over the bytes into
+    a 256-bit mask) on the current stream and reads the mask back in one
+    32-byte copy, or raises; there is no fallback. Callers pass the real
+    rows only (a zero padding row would add the value 0)."""
+    flat = torch.as_tensor(regs)
+    who = "bank_values"
+    _check(who, flat.dtype == torch.uint8,
+           f"uint8 registers expected, got {flat.dtype}")
+    dev = flat.device
+    if dev.type == "cpu":
+        return _bank_values_plain(flat.reshape(-1), chunk)
+    _check(who, flat.is_contiguous(), "a contiguous bank expected")
+    _check(who, dev.type == "cuda", f"unsupported device {dev}")
+    mask = torch.zeros(8, dtype=torch.int32, device=dev)
+    if flat.numel():
+        _launch("value_presence", dev, flat.data_ptr(), flat.numel(),
+                mask.data_ptr())
+        bank_values.launches += 1
+    return mask_values(mask.cpu().numpy())
+
+
+bank_values.launches = 0
 
 
 FP_BAND_LOG2 = 8  # the reference's default truncation band
@@ -458,6 +497,87 @@ def plane_row_words(p, nbins):
     return -(-nbins * w // K1_STAGE_WORDS) * K1_STAGE_WORDS
 
 
+class LaunchTiles(NamedTuple):
+    """One K1 launch's tiles and the plane scratch they read, as int32
+    tensors on the launch's device (launch_tiles builds it from the host's
+    tile lists). The distinct row blocks (in units of ti bank rows) that
+    the tiles read on each side, ascending, and each tile's slot in its
+    side's list: the pack stage writes block row_blocks[s] into scratch
+    rows s * ti .. s * ti + ti - 1, and K1 reads a tile's planes at its
+    slots; the gates, e, fp and the hits keep the tile ids. col_blocks is
+    row_blocks (one tensor) when one list serves both sides of one bank."""
+    row_tiles: torch.Tensor   # (T,)
+    col_tiles: torch.Tensor   # (T,)
+    row_blocks: torch.Tensor  # (Br,)
+    col_blocks: torch.Tensor  # (Bc,)
+    row_slot: torch.Tensor    # (T,): row_blocks[row_slot[t]] == row_tiles[t]
+    col_slot: torch.Tensor    # (T,): col_blocks[col_slot[t]] == col_tiles[t]
+
+
+def block_slots(row_tiles, col_tiles, shared):
+    """(row_blocks, col_blocks, row_slot, col_slot), numpy int32, of a tile
+    list given as numpy: np.unique with its inverse, on the host, so a
+    launch needs no device sort and no device-to-host read. shared: one
+    list for both sides (one bank on both); col_blocks is then
+    row_blocks."""
+    r = np.asarray(row_tiles).reshape(-1)
+    c = np.asarray(col_tiles).reshape(-1)
+    if shared:
+        blocks, inv = np.unique(np.concatenate([r, c]), return_inverse=True)
+        blocks = blocks.astype(np.int32)
+        inv = inv.reshape(-1).astype(np.int32)
+        out = blocks, blocks, inv[:len(r)], inv[len(r):]
+    else:
+        rb, rs = np.unique(r, return_inverse=True)
+        cb, cs = np.unique(c, return_inverse=True)
+        out = (rb.astype(np.int32), cb.astype(np.int32),
+               rs.reshape(-1).astype(np.int32),
+               cs.reshape(-1).astype(np.int32))
+    if not (np.array_equal(out[0][out[2]], r)
+            and np.array_equal(out[1][out[3]], c)):
+        raise ValueError("block_slots: a slot does not name its tile's block")
+    return out
+
+
+def launch_tiles(row_tiles, col_tiles, shared, device):
+    """The LaunchTiles of a host tile list (numpy or CPU tensors) on
+    `device`, all in one host-to-device copy: the screen's callers hold
+    their tiles on the host, and K1 takes the launch's blocks from them
+    (block_slots). shared as block_slots takes it."""
+    rb, cb, rs, cs = block_slots(row_tiles, col_tiles, shared)
+    parts = [np.asarray(row_tiles, np.int32).reshape(-1),
+             np.asarray(col_tiles, np.int32).reshape(-1), rb, rs, cs]
+    if not shared:
+        parts.append(cb)
+    flat = torch.from_numpy(np.concatenate(parts)).to(device)
+    rt, ct, rb, rs, cs, *rest = torch.split(flat, [len(x) for x in parts])
+    return LaunchTiles(rt, ct, rb, rest[0] if rest else rb, rs, cs)
+
+
+def _check_launch_tiles(who, tiles, regs, regs_cols, ti, dev, same):
+    """A LaunchTiles whose tile ids and block lists fit their banks; one
+    shared list needs one bank on both sides. Returns the tile count."""
+    n_tiles = _check_tiles(who, tiles.row_tiles, tiles.col_tiles, dev)
+    for name, x, most in (
+            ("row_blocks", tiles.row_blocks, regs.shape[0] // ti),
+            ("col_blocks", tiles.col_blocks, regs_cols.shape[0] // ti)):
+        _check(who, x.device == dev and x.dtype == torch.int32
+               and x.dim() == 1 and 1 <= x.shape[0] <= most
+               and x.is_contiguous(),
+               f"tiles.{name} must be contiguous int32 (1..bank rows / ti,)"
+               f" on {dev}")
+        _check(who, x.shape[0] * ti < 2**31,
+               "a side's scratch rows must fit int32 (K1's plane offsets)")
+    for name, x in (("row_slot", tiles.row_slot),
+                    ("col_slot", tiles.col_slot)):
+        _check(who, x.device == dev and x.dtype == torch.int32
+               and x.shape == (n_tiles,) and x.is_contiguous(),
+               f"tiles.{name} must be contiguous int32 (T,) on {dev}")
+    _check(who, same or tiles.col_blocks is not tiles.row_blocks,
+           "a shared block list needs one bank on both sides")
+    return n_tiles
+
+
 def _check_side(who, regs, e, fp, n_bands, dev, names):
     """The cardinalities and fingerprints of one side's bank."""
     _check(who, e.device == dev and e.dtype == torch.float32
@@ -468,15 +588,16 @@ def _check_side(who, regs, e, fp, n_bands, dev, names):
            f"{names[1]} must be contiguous int32 (N_pad, n_bands)")
 
 
-def _launch_fused(who, regs, regs_cols, row_tiles, col_tiles, e, e_cols, fp,
-                  fp_cols, row_base, col_base, n_real, tau_scr, tau_cb, p,
-                  values, ti, n_bands, use_cb, use_smh, names):
+def _launch_fused(who, regs, regs_cols, tiles, e, e_cols, fp, fp_cols,
+                  row_base, col_base, n_real, tau_scr, tau_cb, p, values, ti,
+                  n_bands, use_cb, use_smh, names):
     """Checks the arguments of K1 and launches csc_screen_fused on the
     current stream: (hits, counts). names: the row side's (bank, e, fp)
-    names in the messages. A column bank that is the row bank (the same
-    tensor object) is packed once: the column plane scratch is then the row
-    scratch, and the kernel packs a second bank only when the two scratch
-    pointers differ."""
+    names in the messages. The plane scratch holds the launch's row blocks
+    only (tiles, a LaunchTiles). A column bank that is the row bank (the
+    same tensor object) with one shared block list is packed once: the
+    column plane scratch is then the row scratch, and the kernel packs a
+    second list only when the two scratch pointers differ."""
     dev = regs.device
     values, weights, tail, want_z = telescope(p, values)
     r = 1 << p
@@ -486,7 +607,7 @@ def _launch_fused(who, regs, regs_cols, row_tiles, col_tiles, e, e_cols, fp,
     _check_bank(who, regs, dev, r, ti, names[0])
     if not same:
         _check_bank(who, regs_cols, dev, r, ti, "regs_cols")
-    n_tiles = _check_tiles(who, row_tiles, col_tiles, dev)
+    n_tiles = _check_launch_tiles(who, tiles, regs, regs_cols, ti, dev, same)
     _check_side(who, regs, e, fp, n_bands, dev, names[1:])
     _check_side(who, regs_cols, e_cols, fp_cols, n_bands, dev,
                 ("e_cols", "fp_cols"))
@@ -495,44 +616,50 @@ def _launch_fused(who, regs, regs_cols, row_tiles, col_tiles, e, e_cols, fp,
     nbins = len(weights)
     thr, w = _device_telescope(dev, p, values)
     wp = plane_words(p)
-    planes = torch.empty((regs.shape[0], nbins, wp), dtype=torch.int32,
+    n_rb = tiles.row_blocks.shape[0]
+    n_cb = tiles.col_blocks.shape[0]
+    planes = torch.empty((n_rb * ti, nbins, wp), dtype=torch.int32,
                          device=dev)
-    planes_c = planes if same else torch.empty(
-        (regs_cols.shape[0], nbins, wp), dtype=torch.int32, device=dev)
+    planes_c = (planes if same and tiles.col_blocks is tiles.row_blocks
+                else torch.empty((n_cb * ti, nbins, wp), dtype=torch.int32,
+                                 device=dev))
     hits = torch.empty((n_tiles, ti, ti), dtype=torch.int8, device=dev)
     counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
     m_f = np.float32(r)
     one_tau = np.float32(1.0) + np.float32(tau_scr)
     _launch("screen_fused", dev,
-            regs.data_ptr(), regs.shape[0],
-            regs_cols.data_ptr(),
-            regs_cols.shape[0], r, thr.data_ptr(), w.data_ptr(), nbins,
-            float(tail), int(want_z), float(np.float32(2.0) * m_f),
-            float(np.float32(2.0) * m_f * m_f), planes.data_ptr(),
-            planes_c.data_ptr(), wp, row_tiles.data_ptr(),
-            col_tiles.data_ptr(), n_tiles, ti, e.data_ptr(),
-            e_cols.data_ptr(), float(one_tau), fp.data_ptr(),
-            fp_cols.data_ptr(), n_bands, int(n_real), int(row_base),
-            int(col_base), float(np.float32(tau_cb)), int(use_cb),
-            int(use_smh), hits.data_ptr(), counts.data_ptr())
+            regs.data_ptr(), regs_cols.data_ptr(), r, thr.data_ptr(),
+            w.data_ptr(), nbins, float(tail), int(want_z),
+            float(np.float32(2.0) * m_f), float(np.float32(2.0) * m_f * m_f),
+            planes.data_ptr(), planes_c.data_ptr(), wp,
+            tiles.row_blocks.data_ptr(), n_rb, tiles.col_blocks.data_ptr(),
+            n_cb, tiles.row_tiles.data_ptr(), tiles.col_tiles.data_ptr(),
+            tiles.row_slot.data_ptr(), tiles.col_slot.data_ptr(), n_tiles,
+            ti, e.data_ptr(), e_cols.data_ptr(), float(one_tau),
+            fp.data_ptr(), fp_cols.data_ptr(), n_bands, int(n_real),
+            int(row_base), int(col_base), float(np.float32(tau_cb)),
+            int(use_cb), int(use_smh), hits.data_ptr(), counts.data_ptr())
     return hits, counts
 
 
-def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
-                      tau_cb, p, values, ti, n_bands, use_cb, use_smh):
+def screen_hits_fused(regs, tiles, e, fp, n_real, tau_scr, tau_cb, p, values,
+                      ti, n_bands, use_cb, use_smh):
     """Fused screen over a (row, col) tile list: (int8 hits (T, ti, ti),
     int32 counts (T,)).
 
     CPU tensors run _screen_hits_fused_plain. CUDA tensors launch the
     hand-written kernel (csrc/screen_fused.cu: gates first, blocks with no
     live pair skipped, CDF counts as 1-bit tensor-core mma over bit-planes
-    of plane_words(p) words) on the current stream or raise; there is no
-    fallback. Needs >= 2 present values. It is the strip call
-    (screen_hits_fused_strips) with both sides the same and bases 0.
+    of plane_words(p) words, packed for the launch's blocks only) on the
+    current stream or raise; there is no fallback. Needs >= 2 present
+    values. It is the strip call (screen_hits_fused_strips) with both
+    sides the same and bases 0.
 
     Args:
       regs: uint8 (N_pad, 2^p) sorted, padded register bank.
-      row_tiles, col_tiles: int32 (T,) block indices in units of ti rows.
+      tiles: the launch's LaunchTiles (launch_tiles, shared=True): int32
+        (T,) row / col block indices in units of ti rows, with the blocks
+        they read and their slots.
       e: float32 (N_pad,) truncated cardinalities (0 on padded rows).
       fp: int32 (N_pad, n_bands) LSH band fingerprints (read if use_smh).
       n_real: number of real (unpadded) rows.
@@ -540,13 +667,14 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
       values: sorted present register values (screen truncation applied).
     """
     if regs.device.type == "cpu":
-        return _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp,
-                                        n_real, tau_scr, tau_cb, p, values,
-                                        ti, n_bands, use_cb, use_smh)
-    out = _launch_fused("screen_hits_fused", regs, regs, row_tiles,
-                        col_tiles, e, e, fp, fp, 0, 0, n_real, tau_scr,
-                        tau_cb, p, values, ti, n_bands, use_cb, use_smh,
-                        ("regs", "e", "fp"))
+        return _screen_hits_fused_plain(regs, tiles.row_tiles,
+                                        tiles.col_tiles, e, fp, n_real,
+                                        tau_scr, tau_cb, p, values, ti,
+                                        n_bands, use_cb, use_smh)
+    out = _launch_fused(
+        "screen_hits_fused", regs, regs, tiles, e, e, fp, fp, 0, 0, n_real,
+        tau_scr, tau_cb, p, values, ti, n_bands, use_cb, use_smh,
+        ("regs", "e", "fp"))
     screen_hits_fused.launches += 1
     return out
 
@@ -554,30 +682,33 @@ def screen_hits_fused(regs, row_tiles, col_tiles, e, fp, n_real, tau_scr,
 screen_hits_fused.launches = 0
 
 
-def screen_hits_fused_strips(regs_rows, regs_cols, r_tiles, c_tiles, e_rows,
-                             e_cols, fp_rows, fp_cols, row_base, col_base,
-                             n_real, tau_scr, tau_cb, p, values, ti, n_bands,
-                             use_cb, use_smh):
+def screen_hits_fused_strips(regs_rows, regs_cols, tiles, e_rows, e_cols,
+                             fp_rows, fp_cols, row_base, col_base, n_real,
+                             tau_scr, tau_cb, p, values, ti, n_bands, use_cb,
+                             use_smh):
     """Fused screen over a row strip and a column strip (the ring engine's
     screen step): (int8 hits (T, ti, ti), int32 counts (T,)).
 
-    r_tiles / c_tiles are local tile indices inside each strip; they index
-    regs_rows, e_rows, fp_rows and regs_cols, e_cols, fp_cols. The triangle
-    and n_real gates use the global ids row_base + local and col_base +
-    local. CPU tensors run _screen_hits_fused_strips_plain; CUDA tensors
-    launch K1 (csrc/screen_fused.cu) or raise, with no fallback. Passing
-    the row strip's tensors as the column strip's packs its planes once.
+    tiles (a LaunchTiles) holds local tile indices inside each strip; they
+    index regs_rows, e_rows, fp_rows and regs_cols, e_cols, fp_cols, and
+    its block lists are over each side's local blocks (launch_tiles with
+    shared=False; shared=True only when the two strips are one tensor).
+    The triangle and n_real gates use the global ids row_base + local and
+    col_base + local. CPU tensors run _screen_hits_fused_strips_plain; CUDA
+    tensors launch K1 (csrc/screen_fused.cu) or raise, with no fallback.
+    Passing the row strip's tensors as the column strip's packs its planes
+    once.
     """
     if regs_rows.device.type == "cpu":
         return _screen_hits_fused_strips_plain(
-            regs_rows, regs_cols, r_tiles, c_tiles, e_rows, e_cols, fp_rows,
-            fp_cols, row_base, col_base, n_real, tau_scr, tau_cb, p, values,
-            ti, n_bands, use_cb, use_smh)
-    out = _launch_fused("screen_hits_fused_strips", regs_rows, regs_cols,
-                        r_tiles, c_tiles, e_rows, e_cols, fp_rows, fp_cols,
-                        row_base, col_base, n_real, tau_scr, tau_cb, p,
-                        values, ti, n_bands, use_cb, use_smh,
-                        ("regs_rows", "e_rows", "fp_rows"))
+            regs_rows, regs_cols, tiles.row_tiles, tiles.col_tiles, e_rows,
+            e_cols, fp_rows, fp_cols, row_base, col_base, n_real, tau_scr,
+            tau_cb, p, values, ti, n_bands, use_cb, use_smh)
+    out = _launch_fused(
+        "screen_hits_fused_strips", regs_rows, regs_cols, tiles, e_rows,
+        e_cols, fp_rows, fp_cols, row_base, col_base, n_real, tau_scr,
+        tau_cb, p, values, ti, n_bands, use_cb, use_smh,
+        ("regs_rows", "e_rows", "fp_rows"))
     screen_hits_fused_strips.launches += 1
     return out
 

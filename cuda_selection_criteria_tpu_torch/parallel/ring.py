@@ -65,7 +65,7 @@ _ring_post = _strip_post
 def make_ring_fns(mesh, p, values, ti, n_bands, use_cb, use_smh, aux=None):
     """The ring's per-device primitives over a ("rows",) mesh.
 
-    step(res, circ, r_tiles, c_tiles, n_real, tau_scr, tau_cb, coef_aux)
+    step(res, circ, tiles, n_real, tau_scr, tau_cb, coef_aux)
       -> (hits (C, ti, ti), counts (C,)) of one device: its resident strip
       res against the circulating strip circ, over LOCAL tile ids (units of
       ti rows inside each strip), on res's device: the screened engine's
@@ -73,6 +73,8 @@ def make_ring_fns(mesh, p, values, ti, n_bands, use_cb, use_smh, aux=None):
       variant when there are >= 2 present values, else K2 (screen_s_z with
       a column bank) and _ring_post. aux = (p_aux, values_aux) adds K2 at
       p_aux over the aux strips and the aux-union gate (_ring_aux_pass).
+      tiles: screen.launch_tiles of the local tile ids, K1's blocks over
+      each strip's local blocks (one shared list when circ is res).
     gate(res, circ, r_tiles, c_tiles, n_real, tau_cb) -> int32 (C,) counts
       of gate-passing pairs (_ring_gate_counts).
     rotate(circs) -> circs moved one hop: device d + 1 receives device d's.
@@ -84,12 +86,10 @@ def make_ring_fns(mesh, p, values, ti, n_bands, use_cb, use_smh, aux=None):
     devs = mesh.devices("rows")
     n_dev = len(devs)
 
-    def step(res, circ, r_tiles, c_tiles, n_real, tau_scr, tau_cb,
-             coef_aux):
-        return _screen_strip_pair(res, circ, r_tiles, c_tiles, n_real,
-                                  tau_scr, tau_cb, p, values, ti, n_bands,
-                                  use_cb, use_smh, aux=aux,
-                                  coef_aux=coef_aux)
+    def step(res, circ, tiles, n_real, tau_scr, tau_cb, coef_aux):
+        return _screen_strip_pair(res, circ, tiles, n_real, tau_scr, tau_cb,
+                                  p, values, ti, n_bands, use_cb, use_smh,
+                                  aux=aux, coef_aux=coef_aux)
 
     def gate(res, circ, r_tiles, c_tiles, n_real, tau_cb):
         return _strip_gate_counts(res.e, circ.e, res.fp, circ.fp, res.base,
@@ -322,12 +322,19 @@ def select_pairs_ring(bank, params, mesh=None, ti=None, chunk_tiles=None,
         return {dv: t.to(dv) for dv in set(devices)}
 
     def launch(s, live, r_chunk, c_chunk):
-        """One chunk on every live device: [(d, r, c, hits, counts)]."""
-        rt = on([devs[d] for d in live], r_chunk)
-        ct = on([devs[d] for d in live], c_chunk)
-        return [(d, r_chunk, c_chunk, *step(
-            resident[d], circ[d], rt[devs[d]], ct[devs[d]], n, tau_scr,
-            tau_cb, coef)) for d in live]
+        """One chunk on every live device: [(d, r, c, hits, counts)]. The
+        tiles and K1's block lists go to each device in one copy, once for
+        each device and sharing (one list when a strip meets itself)."""
+        tiles, out = {}, []
+        for d in live:
+            key = (devs[d], circ[d].regs is resident[d].regs)
+            if key not in tiles:
+                tiles[key] = screen.launch_tiles(r_chunk, c_chunk, key[1],
+                                                 key[0])
+            out.append((d, r_chunk, c_chunk, *step(
+                resident[d], circ[d], tiles[key], n, tau_scr, tau_cb,
+                coef)))
+        return out
 
     def read(s, pending):
         """The wave's counts in one read, then the hit tiles' pairs."""

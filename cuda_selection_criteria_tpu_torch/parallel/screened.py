@@ -200,9 +200,9 @@ def _strip_aux_pass(s_a, z_a, e_rows, e_cols, r_tiles, c_tiles, coef_aux,
     return 2.0 * m_a * (m_a - z_a) <= (3.0 * s_a - z_a) * thresh
 
 
-def _screen_strip_pair(rows, cols, r_tiles, c_tiles, n_real, tau_scr,
-                       tau_cb, p, values, ti, n_bands, use_cb, use_smh,
-                       aux=None, coef_aux=None):
+def _screen_strip_pair(rows, cols, tiles, n_real, tau_scr, tau_cb, p,
+                       values, ti, n_bands, use_cb, use_smh, aux=None,
+                       coef_aux=None):
     """One chunk of the screen of row strip `rows` against column strip
     `cols` (Strips on one device), over local tile ids: (hits (T, ti, ti),
     per-tile counts (T,)). Every engine's screen step.
@@ -213,17 +213,19 @@ def _screen_strip_pair(rows, cols, r_tiles, c_tiles, n_real, tau_scr,
     and takes the two-pass form (screen_s_z, _strip_post), as in the
     reference. aux = (p_aux, values_aux) adds the hll-aux union gate: K2 at
     p_aux over the strips' aux registers and _strip_aux_pass, ANDed into
-    the hits; S_a and Z_a die with this call."""
+    the hits; S_a and Z_a die with this call. tiles: the chunk's local
+    tile ids with K1's blocks (screen.launch_tiles)."""
+    r_tiles, c_tiles = tiles.row_tiles, tiles.col_tiles
     if len(values) >= 2:
         if cols is rows and rows.base == 0:
             hits, counts = screen.screen_hits_fused(
-                rows.regs, r_tiles, c_tiles, rows.e, rows.fp, n_real,
-                tau_scr, tau_cb, p, values, ti, n_bands, use_cb, use_smh)
+                rows.regs, tiles, rows.e, rows.fp, n_real, tau_scr, tau_cb,
+                p, values, ti, n_bands, use_cb, use_smh)
         else:
             hits, counts = screen.screen_hits_fused_strips(
-                rows.regs, cols.regs, r_tiles, c_tiles, rows.e, cols.e,
-                rows.fp, cols.fp, rows.base, cols.base, n_real, tau_scr,
-                tau_cb, p, values, ti, n_bands, use_cb, use_smh)
+                rows.regs, cols.regs, tiles, rows.e, cols.e, rows.fp,
+                cols.fp, rows.base, cols.base, n_real, tau_scr, tau_cb, p,
+                values, ti, n_bands, use_cb, use_smh)
     else:
         s, z = screen.screen_s_z(
             rows.regs, r_tiles, c_tiles, p, values, ti=ti, tj=ti,
@@ -244,25 +246,24 @@ def _screen_strip_pair(rows, cols, r_tiles, c_tiles, n_real, tau_scr,
     return hits, counts
 
 
-def _screen_chunk(regs, r_tiles, c_tiles, e, fp, n_real, tau_scr, tau_cb,
-                  p, values, ti, n_bands, use_cb, use_smh):
-    """One chunk of the single-bank screen: (hits (T, ti, ti), per-tile
-    counts (T,)), _screen_strip_pair of the bank against itself."""
+def _screen_chunk(regs, tiles, e, fp, n_real, tau_scr, tau_cb, p, values,
+                  ti, n_bands, use_cb, use_smh):
+    """One chunk of the single-bank screen over tiles (screen.launch_tiles,
+    shared): (hits (T, ti, ti), per-tile counts (T,)), _screen_strip_pair
+    of the bank against itself."""
     side = Strip(regs, None, e, fp, 0)
-    return _screen_strip_pair(side, side, r_tiles, c_tiles, n_real, tau_scr,
-                              tau_cb, p, values, ti, n_bands, use_cb,
-                              use_smh)
+    return _screen_strip_pair(side, side, tiles, n_real, tau_scr, tau_cb, p,
+                              values, ti, n_bands, use_cb, use_smh)
 
 
-def _screen_chunk_hllaux(regs, aux_regs, r_tiles, c_tiles, e, fp, n_real,
-                         tau_scr, tau_cb, coef_aux, p, values, p_aux,
-                         values_aux, ti):
+def _screen_chunk_hllaux(regs, aux_regs, tiles, e, fp, n_real, tau_scr,
+                         tau_cb, coef_aux, p, values, p_aux, values_aux, ti):
     """One chunk of the single-bank hll_a / hll_an screen: the primary
     screen (K1 with CB, no LSH bands), then the aux-union gate at p_aux
     (K2 and _strip_aux_pass), ANDed into the hits."""
     side = Strip(regs, aux_regs, e, fp, 0)
-    return _screen_strip_pair(side, side, r_tiles, c_tiles, n_real, tau_scr,
-                              tau_cb, p, values, ti, 1, True, False,
+    return _screen_strip_pair(side, side, tiles, n_real, tau_scr, tau_cb, p,
+                              values, ti, 1, True, False,
                               aux=(p_aux, values_aux), coef_aux=coef_aux)
 
 
@@ -665,18 +666,19 @@ class ScreenPlan:
 
     def screen_chunk(self, r_chunk, c_chunk):
         """One fused screen launch over a chunk of tiles:
-        (hits (T, ti, ti), per-tile counts (T,))."""
+        (hits (T, ti, ti), per-tile counts (T,)). The tiles and K1's
+        block list (screen.launch_tiles) go to the device in one copy."""
+        tiles = screen.launch_tiles(r_chunk, c_chunk, True, self.device)
         if self.coef_aux is not None:
             return _screen_chunk_hllaux(
-                self.d_regs, self.d_aux_regs, self._tiles(r_chunk),
-                self._tiles(c_chunk), self.d_e, self.d_fp, self.n,
-                self.tau_scr, self.tau_cb, self.coef_aux, self.bank.p,
-                self.values, self.bank.aux_param, self.values_aux, self.ti)
+                self.d_regs, self.d_aux_regs, tiles, self.d_e, self.d_fp,
+                self.n, self.tau_scr, self.tau_cb, self.coef_aux,
+                self.bank.p, self.values, self.bank.aux_param,
+                self.values_aux, self.ti)
         return _screen_chunk(
-            self.d_regs, self._tiles(r_chunk), self._tiles(c_chunk),
-            self.d_e, self.d_fp, self.n, self.tau_scr, self.tau_cb,
-            self.bank.p, self.values, self.ti, self.n_bands, self.use_cb,
-            self.use_smh)
+            self.d_regs, tiles, self.d_e, self.d_fp, self.n, self.tau_scr,
+            self.tau_cb, self.bank.p, self.values, self.ti, self.n_bands,
+            self.use_cb, self.use_smh)
 
     def screen_tiles(self, rows, cols, chunk=64, checkpoint=None, wave=64,
                      screen_fn=None, quantum=1):
@@ -857,17 +859,15 @@ def make_sharded_screen_step(mesh, p, values, ti, n_bands, use_cb, use_smh,
         hits, counts = [], []
         for d, (regs, e, fp, aux_regs) in enumerate(replicas):
             sl = slice(d * width, (d + 1) * width)
-            rt = torch.from_numpy(np.ascontiguousarray(r_chunk[sl], np.int32)
-                                  ).to(regs.device)
-            ct = torch.from_numpy(np.ascontiguousarray(c_chunk[sl], np.int32)
-                                  ).to(regs.device)
+            tiles = screen.launch_tiles(r_chunk[sl], c_chunk[sl], True,
+                                        regs.device)
             if aux is None:
-                h, c = _screen_chunk(regs, rt, ct, e, fp, n_real, tau_scr,
+                h, c = _screen_chunk(regs, tiles, e, fp, n_real, tau_scr,
                                      tau_cb, p, values, ti, n_bands, use_cb,
                                      use_smh)
             else:
                 h, c = _screen_chunk_hllaux(
-                    regs, aux_regs, rt, ct, e, fp, n_real, tau_scr, tau_cb,
+                    regs, aux_regs, tiles, e, fp, n_real, tau_scr, tau_cb,
                     coef_aux, p, values, aux[0], aux[1], ti)
             hits.append(h.to(out_dev))
             counts.append(c.to(out_dev))

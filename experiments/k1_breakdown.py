@@ -16,8 +16,13 @@ Variants (only `base` computes the screen; the others are timing probes):
   no_load_no_mma  the pack, the gates, the barriers, the folds and the
                   epilogue
   pack_only       the pack stage alone
-Each is built with nvcc into the port's build directory and timed with
-CUDA events beside the card's name and power limit.
+  tile_addressed  the planes addressed by the tiles' block ids, not by
+                  their slots in the launch's block list: equal to base on
+                  this launch, whose list is every block of the bank in
+                  order, so the two differ only by the slot reads
+Each is built with nvcc into the port's build directory (its registers
+from ptxas printed) and timed with CUDA events beside the card's name and
+power limit.
 """
 
 import ctypes
@@ -46,17 +51,22 @@ MMA = ("          wgmma_b1(acc[b], smem_desc(sa + kk * 32), "
        "smem_desc(sb + kk * 32));")
 LOAD = "  auto load_stage = [&](int s) {\n"
 PACK = "  const int smem = kAtom + kRingBytes"
+SLOTS = ("  const int rplane = row_slot[t] * ti + lr0;\n"
+         "  const int cplane = col_slot[t] * ti + lc0;\n")
 VARIANTS = {
     "base": [],
     "no_mma": [(MMA, "          ;")],
     "no_load": [(LOAD, LOAD + "    return;\n")],
     "no_load_no_mma": [(MMA, "          ;"), (LOAD, LOAD + "    return;\n")],
     "pack_only": [(PACK, "  return (int)err;\n" + PACK)],
+    "tile_addressed": [(SLOTS, SLOTS.replace("row_slot", "row_tiles")
+                        .replace("col_slot", "col_tiles"))],
 }
 
 
 def build_variants():
-    """{name: library path}; one nvcc per variant, all started together."""
+    """{name: (library path, ptxas's register lines)}; one nvcc per
+    variant, all started together."""
     src = open(_build.source("screen_fused")).read()
     out_dir = os.path.join(_build.BUILD_DIR, "k1_breakdown")
     os.makedirs(out_dir, exist_ok=True)
@@ -80,6 +90,8 @@ def build_variants():
         os.remove(cu)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        paths[name] = (paths[name], [ln.strip() for ln in log.splitlines()
+                                     if "registers" in ln])
     return paths
 
 
@@ -98,17 +110,23 @@ def main():
     rows, cols = scheduler.triangle_block_ids(plan.e_s, plan.tau, 1024,
                                               use_cb_skip=False)
     chunk = screened.auto_chunk(1024)
-    args = [plan.d_regs,
-            torch.from_numpy(rows[:chunk].astype(np.int32)).to(dev),
-            torch.from_numpy(cols[:chunk].astype(np.int32)).to(dev),
-            plan.d_e, plan.d_fp]
+    tiles = screen.launch_tiles(rows[:chunk], cols[:chunk], True, dev)
+    if not torch.equal(tiles.row_blocks.cpu(),
+                       torch.arange(len(plan.d_regs) // 1024,
+                                    dtype=torch.int32)):
+        raise RuntimeError("k1_breakdown: the launch does not read every "
+                           "block, so tile_addressed would differ")
+    args = [plan.d_regs, tiles, plan.d_e, plan.d_fp]
     kw = dict(n_real=plan.n, tau_scr=plan.tau_scr, tau_cb=plan.tau_cb, p=14,
               values=plan.values, ti=1024, n_bands=1, use_cb=True,
               use_smh=False)
-    want = screen._screen_hits_fused_plain(*args, **kw)
+    want = screen._screen_hits_fused_plain(plan.d_regs, tiles.row_tiles,
+                                           tiles.col_tiles, plan.d_e,
+                                           plan.d_fp, **kw)
     entry, argtypes = _build.KERNELS["screen_fused"]
     print(card)
-    for name, path in paths.items():
+    for name, (path, regs_lines) in paths.items():
+        print(f"{name}: " + "; ".join(regs_lines))
         lib = ctypes.CDLL(path)
         fn = getattr(lib, entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -116,12 +134,12 @@ def main():
         got = screen.screen_hits_fused(*args, **kw)
         torch.cuda.synchronize()
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        if name == "base" and not equal:
-            raise RuntimeError("k1_breakdown: base != plain")
+        if name in ("base", "tile_addressed") and not equal:
+            raise RuntimeError(f"k1_breakdown: {name} != plain")
         ms = cs.cuda_ms(torch, lambda: screen.screen_hits_fused(*args, **kw),
                         5)
         print(f"[{card}] K1 {name}: {ms:.3f} ms per dense launch of {chunk} "
-              f"tiles" + ("" if name != "base" else ", bit-equal to plain"))
+              f"tiles" + (", bit-equal to plain" if equal else ""))
     return 0
 
 

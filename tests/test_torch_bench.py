@@ -90,7 +90,8 @@ def _jax_inputs(planted):
 
 
 def _span_ids(b, c0, width):
-    return tuple(t.numpy() for t in b.span_tiles[(c0, width)])
+    t = b.span_tiles[(c0, width)]
+    return t.row_tiles.numpy(), t.col_tiles.numpy()
 
 
 def test_setup_matches_jax_bench(planted, port_setup):

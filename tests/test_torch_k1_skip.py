@@ -138,8 +138,8 @@ def test_plane_words_pads_to_a_whole_stage(p):
 
 def _meta_args():
     regs = torch.zeros((256, 256), dtype=torch.uint8, device="meta")
-    tiles = torch.zeros(2, dtype=torch.int32, device="meta")
-    return dict(regs=regs, row_tiles=tiles, col_tiles=tiles,
+    two = torch.zeros(2, dtype=torch.int32, device="meta")
+    return dict(regs=regs, tiles=screen.LaunchTiles(*[two] * 6),
                 e=torch.zeros(256, device="meta"),
                 fp=torch.zeros((256, 1), dtype=torch.int32, device="meta"),
                 n_real=250, tau_scr=0.1, tau_cb=0.1, p=8, values=(0, 1, 3),
@@ -174,6 +174,9 @@ def test_wrapper_checks_arguments_before_the_device(change, match):
     each is reached here with meta tensors; inputs that pass them all stop
     at the device."""
     kw = _meta_args()
+    change = dict(change)
+    kw["tiles"] = kw["tiles"]._replace(**{
+        k: change.pop(k) for k in ("row_tiles", "col_tiles") if k in change})
     kw.update(change)
     with pytest.raises(ValueError, match=match):
         screen.screen_hits_fused(**kw)

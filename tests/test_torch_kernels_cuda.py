@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1 screen_fused, K2 weighted_cdf_sum, the gate
-prune's gate_counts) and their card paths against their plain versions,
+"""The port's CUDA kernels (K1 screen_fused with its launch's plane
+scratch, K2 weighted_cdf_sum, the gate prune's gate_counts, the plan's
+value_presence) and their card paths against their plain versions,
 bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
 torch ops (fed by the native FASTA reader) and the dense engine (indicator
@@ -57,15 +58,17 @@ def _inputs(seed, lo, hi, n, p, n_bands=4):
 
 def _compare(dev, regs, e, fp, rows, cols, vals, p, ti, use_cb, use_smh,
              tau_scr=0.4, tau_cb=0.35, n_real=None):
-    args = [torch.from_numpy(np.asarray(x)).to(dev)
-            for x in (regs, rows, cols, e, fp)]
+    regs_t, e_t, fp_t = [torch.from_numpy(np.asarray(x)).to(dev)
+                         for x in (regs, e, fp)]
+    tiles = screen.launch_tiles(rows, cols, True, dev)
     n_real = regs.shape[0] - 5 if n_real is None else n_real
     kw = dict(n_real=n_real, tau_scr=tau_scr, tau_cb=tau_cb, p=p,
               values=vals, ti=ti, n_bands=fp.shape[1], use_cb=use_cb,
               use_smh=use_smh)
     before = screen.screen_hits_fused.launches
-    got = screen.screen_hits_fused(*args, **kw)
-    want = screen._screen_hits_fused_plain(*args, **kw)
+    got = screen.screen_hits_fused(regs_t, tiles, e_t, fp_t, **kw)
+    want = screen._screen_hits_fused_plain(regs_t, tiles.row_tiles,
+                                           tiles.col_tiles, e_t, fp_t, **kw)
     torch.cuda.synchronize()
     assert screen.screen_hits_fused.launches == before + 1
     assert torch.equal(got[0], want[0])
@@ -220,10 +223,10 @@ def test_device_hist_fn_on_cuda_matches_cpu(cuda):
 @pytest.mark.cuda
 def test_wrapper_rejects_bad_inputs_on_cuda(cuda):
     regs = torch.zeros((128, 256), dtype=torch.int32, device=cuda)
-    tiles = torch.zeros(1, dtype=torch.int32, device=cuda)
+    tiles = screen.launch_tiles([0], [0], True, cuda)
     with pytest.raises(ValueError, match="uint8"):
         screen.screen_hits_fused(
-            regs, tiles, tiles, torch.zeros(128, device=cuda),
+            regs, tiles, torch.zeros(128, device=cuda),
             torch.zeros((128, 1), dtype=torch.int32, device=cuda), 128, 0.1,
             0.1, 8, (0, 1), 64, 1, True, False)
 
@@ -602,12 +605,13 @@ def _strip_compare(dev, rows_side, cols_side, bases, n_real, vals, p, ti,
     (regs_r, e_r, fp_r), (regs_c, e_c, fp_c) = [
         [torch.from_numpy(np.asarray(x)).to(dev) for x in side]
         for side in (rows_side, cols_side)]
-    r_t, c_t = [torch.from_numpy(x).to(dev) for x in tiles]
-    args = (regs_r, regs_c, r_t, c_t, e_r, e_c, fp_r, fp_c, *bases, n_real,
-            tau_scr, tau_cb, p, vals, ti, fp_r.shape[1], use_cb, use_smh)
+    lt = screen.launch_tiles(*tiles, False, dev)
+    rest = (e_r, e_c, fp_r, fp_c, *bases, n_real, tau_scr, tau_cb, p, vals,
+            ti, fp_r.shape[1], use_cb, use_smh)
     before = screen.screen_hits_fused_strips.launches
-    got = screen.screen_hits_fused_strips(*args)
-    want = screen._screen_hits_fused_strips_plain(*args)
+    got = screen.screen_hits_fused_strips(regs_r, regs_c, lt, *rest)
+    want = screen._screen_hits_fused_strips_plain(
+        regs_r, regs_c, lt.row_tiles, lt.col_tiles, *rest)
     torch.cuda.synchronize()
     assert screen.screen_hits_fused_strips.launches == before + 1
     assert torch.equal(got[0], want[0])
@@ -660,16 +664,15 @@ def test_single_bank_through_strip_entry(cuda, use_cb, use_smh):
     plain version."""
     regs, e, fp = _inputs(31 + use_cb + 2 * use_smh, 0, 11, 192, 8)
     t = [torch.from_numpy(x).to(cuda) for x in (regs, e, fp)]
-    rows = torch.tensor([0, 0, 1, 2], dtype=torch.int32, device=cuda)
-    cols = torch.tensor([0, 2, 1, 2], dtype=torch.int32, device=cuda)
+    tiles = screen.launch_tiles([0, 0, 1, 2], [0, 2, 1, 2], True, cuda)
     vals = screen.bank_values(regs)
     kw = dict(n_real=187, tau_scr=0.4, tau_cb=0.35, p=8, values=vals, ti=64,
               n_bands=4, use_cb=use_cb, use_smh=use_smh)
-    got = screen.screen_hits_fused_strips(t[0], t[0], rows, cols, t[1], t[1],
+    got = screen.screen_hits_fused_strips(t[0], t[0], tiles, t[1], t[1],
                                           t[2], t[2], 0, 0, **kw)
-    one = screen.screen_hits_fused(t[0], rows, cols, t[1], t[2], **kw)
-    want = screen._screen_hits_fused_plain(t[0], rows, cols, t[1], t[2],
-                                           **kw)
+    one = screen.screen_hits_fused(t[0], tiles, t[1], t[2], **kw)
+    want = screen._screen_hits_fused_plain(t[0], tiles.row_tiles,
+                                           tiles.col_tiles, t[1], t[2], **kw)
     for g, o, w in zip(got, one, want):
         assert torch.equal(g, o) and torch.equal(g, w)
 
@@ -684,17 +687,17 @@ def test_strip_views_of_one_bank(cuda, n_r, n_c):
     regs, e, fp = _inputs(240, 0, 11, 256, 8)
     bank = [torch.from_numpy(x).to(cuda) for x in (regs, e, fp)]
     short, long_ = [0, 1, 0], [2, 3, 3]
-    rows, cols = [torch.tensor(t, dtype=torch.int32, device=cuda) for t in (
-        (short, long_) if n_r < n_c else (long_, short))]
+    tiles = screen.launch_tiles(
+        *((short, long_) if n_r < n_c else (long_, short)), False, cuda)
     r_side = [x[:n_r] for x in bank]
     c_side = [x[:n_c] for x in bank]
     assert r_side[0].data_ptr() == c_side[0].data_ptr()
     # the column strip placed after the row strip: every pair is i < j
-    args = (r_side[0], c_side[0], rows, cols, r_side[1], c_side[1],
-            r_side[2], c_side[2], 0, n_r, n_r + n_c, 0.4, 0.35, 8,
-            screen.bank_values(regs), 64, 4, True, True)
-    got = screen.screen_hits_fused_strips(*args)
-    want = screen._screen_hits_fused_strips_plain(*args)
+    rest = (r_side[1], c_side[1], r_side[2], c_side[2], 0, n_r, n_r + n_c,
+            0.4, 0.35, 8, screen.bank_values(regs), 64, 4, True, True)
+    got = screen.screen_hits_fused_strips(r_side[0], c_side[0], tiles, *rest)
+    want = screen._screen_hits_fused_strips_plain(
+        r_side[0], c_side[0], tiles.row_tiles, tiles.col_tiles, *rest)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert int(want[1][1]) > 0  # tiles 1 and 3: one side past row 128
@@ -919,3 +922,188 @@ def test_gate_kernel_rejects_mixed_devices(cuda):
             t["e_rows"], t["e_cols"].cpu(), t["fp_rows"], t["fp_cols"],
             t["row_tiles"], t["col_tiles"], 0, 0, case["n_real"],
             case["tau_cb"], 4, 16, True, True)
+
+
+# The presence kernel (csrc/value_presence.cu, the plan's bank_values): the
+# bytes as HLL banks, aux banks, uniform bytes with a ragged tail, one
+# value, large values only in the head or the tail, a prefix of a
+# zero-padded bank, and a bank of many blocks' grid-stride loop.
+def _presence_bytes(name):
+    rng = np.random.default_rng(len(name))
+    if name in ("hll p=14", "aux p_aux=8"):
+        p = 14 if name == "hll p=14" else 8
+        n = 8 if p == 14 else 300
+        return synth.synthetic_hll_banks(
+            n, rng.integers(64, 60000, n), (p,), rng)[0].reshape(-1)
+    if name == "uniform 0-255, ragged":
+        return rng.integers(0, 256, 16 * 1000 + 13, dtype=np.uint8)
+    if name == "one value":
+        return np.full(4099, 7, np.uint8)
+    if name in ("64 first", "255 last"):
+        x = rng.integers(0, 52, 16 * 77 + 9, dtype=np.uint8)
+        x[0 if name == "64 first" else -1] = int(name.split()[0])
+        return x
+    if name == "prefix of a padded bank":
+        x = np.zeros((96, 1024), np.uint8)
+        x[:64] = rng.integers(1, 30, size=(64, 1024), dtype=np.uint8)
+        return x.reshape(-1)[:64 * 1024]
+    x = rng.integers(0, 52, (1 << 26) + 13, dtype=np.uint8)  # many blocks
+    x[-3] = 200
+    return x
+
+
+PRESENCE_CASES = ("hll p=14", "aux p_aux=8", "uniform 0-255, ragged",
+                  "one value", "64 first", "255 last",
+                  "prefix of a padded bank", "64 MiB + 13")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PRESENCE_CASES)
+@pytest.mark.parametrize("offset", [0, 1, 15])
+def test_presence_kernel_matches_plain(cuda, name, offset):
+    """bank_values on a CUDA tensor launches the kernel once and gives the
+    plain version's values (on the same card tensor and on the host), the
+    start at every alignment class that moves the head."""
+    x = _presence_bytes(name)[offset:]
+    d = torch.from_numpy(x).to(cuda)
+    before = screen.bank_values.launches
+    got = screen.bank_values(d)
+    torch.cuda.synchronize()
+    assert screen.bank_values.launches == before + 1
+    assert got == screen._bank_values_plain(d, 1 << 24) == \
+        screen.bank_values(x)
+    if name == "uniform 0-255, ragged":
+        assert got == tuple(range(256))
+
+
+@pytest.mark.cuda
+def test_presence_kernel_empty_and_2d(cuda):
+    """No bytes: no launch, no values; a 2-D bank and its row prefix."""
+    before = screen.bank_values.launches
+    assert screen.bank_values(torch.zeros(0, dtype=torch.uint8,
+                                          device=cuda)) == ()
+    assert screen.bank_values.launches == before
+    regs = np.zeros((8, 64), np.uint8)
+    regs[:5] = np.arange(5 * 64).reshape(5, 64) % 61 + 1
+    d = torch.from_numpy(regs).to(cuda)
+    assert screen.bank_values(d[:5]) == tuple(range(1, 62))
+    assert screen.bank_values(d) == tuple(range(0, 62))
+    with pytest.raises(ValueError, match="contiguous"):
+        screen.bank_values(d.t())
+
+
+# K1 with the plane scratch of its launch's blocks: 6 blocks of 64 rows,
+# tiles that touch the first and the last block, repeat blocks, sit on the
+# diagonal or scatter.
+K1_BLOCK_TILES = {
+    "first and last": ([0, 0, 5], [5, 0, 5]),
+    "repeated": ([2, 2, 2, 3, 3], [3, 3, 2, 3, 3]),
+    "diagonal": ([0, 1, 2, 3, 4, 5], [0, 1, 2, 3, 4, 5]),
+    "scattered": ([1, 4], [4, 5]),
+}
+
+
+def _launch_peak(fn):
+    """(fn(), device bytes allocated at the peak of fn beyond before)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def _scratch_bytes(tiles, ti, nbins, p):
+    """K1's plane scratch of a launch: its distinct blocks, once a side (a
+    shared list once in all), ti rows of nbins planes of plane_words(p)
+    uint32 words each."""
+    n_blocks = tiles.row_blocks.numel() + (
+        0 if tiles.col_blocks is tiles.row_blocks
+        else tiles.col_blocks.numel())
+    return n_blocks * ti * nbins * screen.plane_words(p) * 4
+
+
+def _held_to_scratch(peak, scratch, hits):
+    """A launch holds its plane scratch, its hits and its counts (one
+    512-byte allocator block) beyond what it was given: less than one more
+    block of planes (ti * nbins * plane_words(p) * 4 >= 8 KiB here)."""
+    assert scratch <= peak <= scratch + hits.nbytes + 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(K1_BLOCK_TILES))
+def test_k1_launch_blocks_match_plain(cuda, label):
+    """Bit-equal hits and counts; the plane scratch holds the launch's
+    distinct blocks once: n_blocks * ti * nbins * plane_words(p) * 4
+    bytes, all the launch holds beyond its hits and counts."""
+    regs, e, fp = _inputs(300 + len(label), 0, 12, 384, 8)
+    rows, cols = K1_BLOCK_TILES[label]
+    vals = screen.bank_values(regs)
+    t = [torch.from_numpy(x).to(cuda) for x in (regs, e, fp)]
+    tiles = screen.launch_tiles(rows, cols, True, cuda)
+    kw = dict(n_real=380, tau_scr=0.4, tau_cb=0.35, p=8, values=vals, ti=64,
+              n_bands=4, use_cb=True, use_smh=True)
+    screen.screen_hits_fused(t[0], tiles, t[1], t[2], **kw)  # warm-up
+    got, peak = _launch_peak(lambda: screen.screen_hits_fused(
+        t[0], tiles, t[1], t[2], **kw))
+    want = screen._screen_hits_fused_plain(t[0], tiles.row_tiles,
+                                           tiles.col_tiles, t[1], t[2], **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert int(want[1].sum()) > 0
+    scratch = _scratch_bytes(tiles, 64, len(vals) - 1, 8)
+    assert scratch == (len(np.unique(rows + cols)) * 64 * (len(vals) - 1)
+                       * screen.plane_words(8) * 4)
+    _held_to_scratch(peak, scratch, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["first and last", "repeated", "one tile"])
+def test_k1_strip_launch_blocks_match_plain(cuda, label):
+    """The strip entry with one block list a side (a 192-row row strip, a
+    256-row column strip: first and last blocks of each, repeats): bit-equal
+    to its plain version, scratch of both sides' blocks."""
+    rows, cols = {"first and last": ([0, 2, 2, 0], [3, 0, 3, 3]),
+                  "repeated": ([1, 1, 1], [2, 2, 2]),
+                  "one tile": ([2], [0])}[label]
+    rows_side, cols_side = _strip_inputs(330 + len(label), 0)
+    vals = screen.bank_values(np.concatenate([rows_side[0], cols_side[0]]))
+    (regs_r, e_r, fp_r), (regs_c, e_c, fp_c) = [
+        [torch.from_numpy(x).to(cuda) for x in side]
+        for side in (rows_side, cols_side)]
+    tiles = screen.launch_tiles(rows, cols, False, cuda)
+    rest = (e_r, e_c, fp_r, fp_c, 64, 64, 300, 0.4, 0.35, 8, vals, 64, 4,
+            True, True)
+    screen.screen_hits_fused_strips(regs_r, regs_c, tiles, *rest)  # warm-up
+    got, peak = _launch_peak(lambda: screen.screen_hits_fused_strips(
+        regs_r, regs_c, tiles, *rest))
+    want = screen._screen_hits_fused_strips_plain(
+        regs_r, regs_c, tiles.row_tiles, tiles.col_tiles, *rest)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    scratch = _scratch_bytes(tiles, 64, len(vals) - 1, 8)
+    assert scratch == ((len(set(rows)) + len(set(cols))) * 64
+                       * (len(vals) - 1) * screen.plane_words(8) * 4)
+    _held_to_scratch(peak, scratch, got[0])
+
+
+@pytest.mark.cuda
+def test_k1_engine_launches_read_their_blocks(cuda):
+    """The screened engine on the card passes each launch's blocks: a
+    chunk's scratch is its tiles' distinct blocks, not the bank."""
+    rng = np.random.default_rng(12)
+    regs = synth.synthetic_regs(640, rng.integers(400, 900, 640), 10, rng)
+    aux = synth.synthetic_aux(640, 16, rng)
+    synth.plant_near_duplicates(regs, aux, rng, 12)
+    bank = SketchBank(names=[f"g{i}" for i in range(640)], regs=regs, p=10,
+                      aux_kind="smh", aux=aux, aux_param=16)
+    plan = screened.ScreenPlan(bank, SelectionParams(tau=0.5), 64,
+                               device=cuda)
+    rows, cols = np.array([0, 0, 3], np.int32), np.array([0, 9, 3], np.int32)
+    plan.screen_chunk(rows, cols)  # warm-up
+    (hits, counts), peak = _launch_peak(lambda: plan.screen_chunk(rows,
+                                                                  cols))
+    want = screened.ScreenPlan(bank, SelectionParams(tau=0.5), 64,
+                               device="cpu").screen_chunk(rows, cols)
+    assert torch.equal(hits.cpu(), want[0]) and torch.equal(counts.cpu(),
+                                                           want[1])
+    block = 64 * (len(plan.values) - 1) * screen.plane_words(10) * 4
+    assert 3 * block <= peak < 10 * block  # blocks 0, 3, 9 of the bank's 10

@@ -76,8 +76,9 @@ def test_plain_strips_match_jax(bases, use_cb, use_smh):
     n_real = col_base + 88
     tau_scr, tau_cb = 0.3, 0.25
     got_h, got_c = screen.screen_hits_fused_strips(
-        *[torch.from_numpy(x) for x in (regs_r, regs_c, R_TILES, C_TILES,
-                                        e_r, e_c, fp_r, fp_c)],
+        torch.from_numpy(regs_r), torch.from_numpy(regs_c),
+        screen.launch_tiles(R_TILES, C_TILES, False, "cpu"),
+        *[torch.from_numpy(x) for x in (e_r, e_c, fp_r, fp_c)],
         row_base, col_base, n_real, tau_scr, tau_cb, P, vals, TI, 4, use_cb,
         use_smh)
     j = [jnp.asarray(x) for x in (regs_r, regs_c, R_TILES, C_TILES, e_r, e_c,
@@ -332,8 +333,11 @@ def test_strip_moves_share_tensors_on_a_repeated_device():
 def _strip_meta_args():
     regs = torch.zeros((256, 256), dtype=torch.uint8, device="meta")
     cols = torch.zeros((192, 256), dtype=torch.uint8, device="meta")
-    tiles = torch.zeros(2, dtype=torch.int32, device="meta")
-    return dict(regs_rows=regs, regs_cols=cols, r_tiles=tiles, c_tiles=tiles,
+    two = torch.zeros(2, dtype=torch.int32, device="meta")
+    one = torch.zeros(1, dtype=torch.int32, device="meta")
+    return dict(regs_rows=regs, regs_cols=cols,
+                tiles=screen.LaunchTiles(two, two, one, one.clone(), two,
+                                         two),
                 e_rows=torch.zeros(256, device="meta"),
                 e_cols=torch.zeros(192, device="meta"),
                 fp_rows=torch.zeros((256, 1), dtype=torch.int32,

@@ -36,9 +36,9 @@ COLS = np.array([0, 2, 1, 2], np.int32)
 def _port_fused(regs, e, fp, vals, n_real, tau_scr, tau_cb, p, ti, use_cb,
                 use_smh, rows=ROWS, cols=COLS):
     hits, counts = screen.screen_hits_fused(
-        torch.from_numpy(regs), torch.from_numpy(rows),
-        torch.from_numpy(cols), torch.from_numpy(e), torch.from_numpy(fp),
-        n_real, tau_scr, tau_cb, p, vals, ti, fp.shape[1], use_cb, use_smh)
+        torch.from_numpy(regs), screen.launch_tiles(rows, cols, True, "cpu"),
+        torch.from_numpy(e), torch.from_numpy(fp), n_real, tau_scr, tau_cb,
+        p, vals, ti, fp.shape[1], use_cb, use_smh)
     return hits.numpy(), counts.numpy()
 
 
@@ -130,9 +130,8 @@ def test_single_value_chunk_matches_jax():
     vals = screen.bank_values(regs)
     assert len(vals) == 1
     hits, counts = screened._screen_chunk(
-        torch.from_numpy(regs), torch.from_numpy(ROWS),
-        torch.from_numpy(COLS), torch.from_numpy(e), torch.from_numpy(fp),
-        n - 5, np.float32(0.1), np.float32(0.05), p, vals, ti, 1, True,
+        torch.from_numpy(regs), screen.launch_tiles(ROWS, COLS, True, "cpu"),
+        torch.from_numpy(e), torch.from_numpy(fp), n - 5, np.float32(0.1), np.float32(0.05), p, vals, ti, 1, True,
         False)
     jh, jc = jscreened._screen_chunk(
         jnp.asarray(regs), jnp.asarray(ROWS), jnp.asarray(COLS),
@@ -173,19 +172,20 @@ def test_wrapper_rejects_unsupported_inputs():
     """The wrapper's argument checks run before any kernel is touched;
     a meta tensor reaches them on a machine without a card."""
     regs = torch.zeros((128, 256), dtype=torch.uint8, device="meta")
-    tiles = torch.zeros(1, dtype=torch.int32, device="meta")
+    one = torch.zeros(1, dtype=torch.int32, device="meta")
+    tiles = screen.LaunchTiles(one, one, one, one, one, one)
     e = torch.zeros(128, device="meta")
     fp = torch.zeros((128, 1), dtype=torch.int32, device="meta")
     # argument checks come before the device check (all of them:
     # tests/test_torch_k1_skip.py)
     with pytest.raises(ValueError, match="uint8"):
-        screen.screen_hits_fused(regs.to(torch.int32), tiles, tiles, e, fp,
+        screen.screen_hits_fused(regs.to(torch.int32), tiles, e, fp,
                                  128, 0.1, 0.1, 8, (0, 1), 64, 1, True, False)
     with pytest.raises(ValueError, match="multiple of 64"):
-        screen.screen_hits_fused(regs, tiles, tiles, e, fp, 128, 0.1, 0.1, 8,
+        screen.screen_hits_fused(regs, tiles, e, fp, 128, 0.1, 0.1, 8,
                                  (0, 1), 96, 1, True, False)
     with pytest.raises(ValueError, match="unsupported device"):
         screen.screen_hits_fused(
-            regs, tiles, tiles, torch.zeros(128, device="meta"),
+            regs, tiles, torch.zeros(128, device="meta"),
             torch.zeros((128, 1), dtype=torch.int32, device="meta"), 128,
             0.1, 0.1, 8, (0, 1), 64, 1, True, False)
