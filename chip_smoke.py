@@ -55,9 +55,23 @@ Phases (any failure exits non-zero, without the final result line):
                 the strips' ends), then every tile of a 524,288-row
                 triangle shaped as smh_a-524k's (131,328 tiles, 8 bands),
                 the kernel timed over it beside its plain version in
-                256-tile chunks and its bound. The presence kernel (the
-                plan's bank_values) vs its plain version on 16 MiB + 13
-                uniform bytes 0-255, from an aligned start and from byte 1
+                256-tile chunks and its bound. The presence kernel
+                (bank_values, the aux bank's present values) vs its plain
+                version on 16 MiB + 13 uniform bytes 0-255, from an aligned
+                start and from byte 1. The row-histogram kernel (the plan's
+                row_hist: every row's register histogram and the present
+                values in one pass) vs its plain version, bit-equal
+                histograms and values: rows of 100 and 48 registers (not
+                16 bytes a lane), rows that start unaligned, row counts
+                that are not a multiple of the CTA's 8 rows, all-zero rows,
+                values up to 64 - p + 1, and a byte of 64 that both
+                versions refuse; then the N=16384 bench bank as the phase
+                3 plan uploaded it (its cards from the card's histograms
+                bit-equal to host_cards), timed beside its plain version,
+                its bound and one torch.bincount of row * 64 + reg. K1's
+                cases above include banks read through a shuffled row map
+                (the plan's layout: its own row order and a zero row), and
+                the bench launches read the plan's bank through its map
   4. cli      - planted .hll/.smh32/.hll_8 files for N=2048 genomes, read
                 by the native threaded loaders and the numpy readers
                 (bit-equal, both walls); the native fused union
@@ -69,19 +83,21 @@ Phases (any failure exits non-zero, without the final result line):
                 hll_an must equal the exact host reference's (its wall,
                 on the native histograms)
   5. main     - host_cards on the N=16384 bank (its wall) bit-equal to
-                the MLE of the numpy row histograms (their wall);
+                the MLE of the numpy row histograms (their wall) and to
+                the cards the phase 3 plan set from the card's histograms;
                 select_pairs(smh_a, tau=0.9) on N=16384 genomes at p=14
                 (256 MiB of registers on the card) with planted
                 near-duplicates: every planted pair the exact oracle passes
                 is emitted, every emitted pair is oracle-confirmed with the
                 identical Jaccard, and K1, the gate-count kernel and
-                the presence kernel were launched; stage walls, a
+                the row-histogram kernel were launched; stage walls, a
                 profiler trace of one warm run and the screen's pairs/s
                 over the full triangle
   6. hll      - select_pairs(hll_a) and (hll_an), tau=0.9, on N=16384
                 genomes at p=14 with aux HLLs at p_aux=8 from the same
-                hashes, planted near-duplicates: the checks of phase 5, K1
-                and K2 launched; stage walls, peak device memory, a
+                hashes, planted near-duplicates: the checks of phase 5, K1,
+                K2, the row-histogram kernel and the presence kernel (the
+                aux bank) launched; stage walls, peak device memory, a
                 profiler trace of one warm hll_a run and the hll screen's
                 (K1 + K2 + aux compare) pairs/s over the full triangle
   7. fasta    - a synthetic bacterial corpus (96 gzipped FASTA genomes of
@@ -155,9 +171,13 @@ Phases (any failure exits non-zero, without the final result line):
                 (upload_stats), the plan stage's peak device memory within
                 the padded bank + 0.5 GiB, the whole run's peak beside the
                 card's, host RAM, the planted pairs recovered and phase 5's
-                checks; before it, the presence kernel on that bank's 2 GiB
-                against its plain version, timed beside it, its bound and
-                one torch.bincount of its uint8 bytes; validate_ring_scale.run
+                checks; before it, the presence kernel and the
+                row-histogram kernel on that bank's 2 GiB against their
+                plain versions, timed beside them and their bounds, the
+                presence kernel beside one torch.bincount of its uint8
+                bytes (the row histograms' bincount of row * 64 + reg
+                would take a 16 GiB int64 index, not timed);
+                validate_ring_scale.run
                 on the same bank on one strip and on two strips of the
                 card (K1's strip entry), pairs equal
  12. bench    - the bench protocol (experiments/bench.py, kernel_tuning.py,
@@ -221,6 +241,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
                        "pass of 16-byte loads, a 64-bit register mask a "
                        "thread for values below 64, shared atomicOr for "
                        "the rest, one global atomicOr a block and word"),
+    # not a Pallas kernel: the histogram half of SketchBank.compute_cards (a
+    # host np.bincount; estimators.hll_histogram on the CPU backend)
+    "row_hist": (f"{PKG}/csrc/row_hist.cu",
+                 "cuda_selection_criteria_tpu/models/bank.py:97",
+                 "SketchBank.compute_cards' bincount of row * 64 + reg: one "
+                 "warp a row, 16-byte loads, private 16-bit counters of the "
+                 "non-zero bytes in shared memory, the present-value mask "
+                 "of the same pass"),
 }
 
 
@@ -275,11 +303,13 @@ def kernel_vs_plain(torch, screen, args, kw):
     entry with one bank on both sides and bases 0) and its plain version on
     the same card tensors; return the max |difference| over hits and
     counts (must be 0) and the hits. args: (regs, tiles, e, fp), tiles the
-    launch's screen.LaunchTiles with one shared block list."""
+    launch's screen.LaunchTiles with one shared block list; kw may hold
+    the bank's row_map, which the strip entry reads on both sides."""
     got = screen.screen_hits_fused(*args, **kw)
     regs, tiles, e, fp = args
+    strip_kw = dict(kw, col_map=kw.get("row_map"))
     strip = screen.screen_hits_fused_strips(regs, regs, tiles, e, e, fp, fp,
-                                            0, 0, **kw)
+                                            0, 0, **strip_kw)
     want = screen._screen_hits_fused_plain(regs, tiles.row_tiles,
                                            tiles.col_tiles, e, fp, **kw)
     torch.cuda.synchronize()
@@ -362,10 +392,13 @@ def phase_kernel_p8(torch, screen, screened, dev):
     p, ti, n = 8, 64, 192
     tiles = screen.launch_tiles([0, 0, 1, 2], [0, 2, 1, 2], True, dev)
     worst = 0
-    cases = [(cb, smh, lo, 11) for cb in (True, False)
+    cases = [(cb, smh, lo, 11, False) for cb in (True, False)
              for smh in (True, False) for lo in (0, 2)]
-    cases.append((True, False, 0, 26))  # truncated value list
-    for use_cb, use_smh, lo, hi in cases:
+    cases.append((True, False, 0, 26, False))  # truncated value list
+    # the plan's layout: the rows in another order, one zero row after
+    # them, read through a map that sends the last positions to it
+    cases += [(True, True, 2, 11, True), (False, False, 0, 11, True)]
+    for use_cb, use_smh, lo, hi, mapped in cases:
         rng = np.random.default_rng(31 + use_cb + 2 * use_smh + lo + hi)
         regs = rng.integers(lo, hi, size=(n, 1 << p), dtype=np.uint8)
         e = np.sort(rng.uniform(0, 5000, n)).astype(np.float32)
@@ -376,13 +409,24 @@ def phase_kernel_p8(torch, screen, screened, dev):
         vals = screen.bank_values(regs)
         if hi == 26:
             vals = screen.truncate_values(vals, 40.0, p)
-        args = [torch.from_numpy(regs).to(dev), tiles,
-                torch.from_numpy(e).to(dev), torch.from_numpy(fp).to(dev)]
         kw = dict(n_real=n - 5, tau_scr=0.4, tau_cb=0.35, p=p, values=vals,
                   ti=ti, n_bands=4, use_cb=use_cb, use_smh=use_smh)
+        d_regs = torch.from_numpy(regs).to(dev)
+        if mapped:
+            perm = rng.permutation(n).astype(np.int32)
+            perm[-5:] = n  # the padded positions read the zero row
+            regs[-5:] = 0
+            kw["values"] = vals = screen.bank_values(regs)
+            bank = np.zeros((n + 1, 1 << p), np.uint8)
+            bank[perm[:-5]] = regs[:-5]
+            d_regs = torch.from_numpy(bank).to(dev)
+            kw["row_map"] = torch.from_numpy(perm).to(dev)
+        args = [d_regs, tiles, torch.from_numpy(e).to(dev),
+                torch.from_numpy(fp).to(dev)]
         err, hits = kernel_vs_plain(torch, screen, args, kw)
         print(f"  p=8 ti=64 cb={use_cb} smh={use_smh} zeros={lo == 0} "
-              f"bins={len(vals) - 1}: hits={hits} max_abs_err={err}")
+              f"bins={len(vals) - 1}{' through a row map' * mapped}: "
+              f"hits={hits} max_abs_err={err}")
         check(err == 0, f"p=8 kernel != plain (cb={use_cb}, smh={use_smh})")
         worst = max(worst, err)
     return worst
@@ -508,7 +552,11 @@ def k1_config(torch, screen, label, args, kw, card):
     n_ids = int(torch.unique(torch.cat([rows, cols])).numel())
     bound_ms, bound_by = bound(gated * nbins * r / b1,
                                (len(rows) * ti * ti + n_ids * ti * r) / hbm)
-    library_ms = int_mm_ms(torch, regs, rows, cols, kw["values"], ti, ti)
+    row_map = kw.get("row_map")  # the yardstick gets the sorted rows
+    sorted_regs = regs if row_map is None else regs[row_map.long()]
+    library_ms = int_mm_ms(torch, sorted_regs, rows, cols, kw["values"], ti,
+                           ti)
+    del sorted_regs
     ms2 = cuda_ms(torch, lambda: screen.screen_hits_fused(*args, **kw), 5)
     print(f"  [{card}] K1 {label}: {ms:.3f} / {ms2:.3f} ms (two turns) vs "
           f"plain {plain_ms:.3f} ms per launch; {gated} of "
@@ -530,23 +578,31 @@ def k1_pack(torch, screen, launch, tiles, kw, r, card, label, reps=3):
     r bytes read once and their planes written once, at HBM_BYTES_PER_S),
     and the plane scratch bytes of a launch: its LaunchTiles' distinct
     blocks (a shared list once), ti rows of nbins planes of
-    plane_words(p) uint32 words each."""
+    plane_words(p) uint32 words each. A later profiler session of a
+    process once came back with no device events though its launches ran
+    (NVIDIA H100 80GB HBM3, torch 2.11): such a trace is taken again
+    once, and a second empty one fails the run."""
     from cuda_selection_criteria_tpu_torch.utils.profiling import (
         device_trace)
 
     _, hbm = rates()
     launch()
     torch.cuda.synchronize()
-    with device_trace() as prof:
-        for _ in range(reps):
-            launch()
-        torch.cuda.synchronize()
     cpu = torch.autograd.DeviceType.CPU
-    pack_us, kernels = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type != cpu and "pack_planes_kernel" in ev.key:
-            pack_us += ev.self_device_time_total
-            kernels += ev.count
+    for attempt in range(2):
+        with device_trace() as prof:
+            for _ in range(reps):
+                launch()
+            torch.cuda.synchronize()
+        pack_us, kernels = 0.0, 0
+        for ev in prof.key_averages():
+            if ev.device_type != cpu and "pack_planes_kernel" in ev.key:
+                pack_us += ev.self_device_time_total
+                kernels += ev.count
+        if kernels:
+            break
+        print(f"  K1 {label}: the trace shows no pack_planes_kernel "
+              f"(attempt {attempt + 1}); tracing again", flush=True)
     check(kernels > 0, f"K1 {label}: the trace shows no pack_planes_kernel")
     ti = kw["ti"]
     n_blocks = tiles.row_blocks.numel() + (
@@ -567,24 +623,26 @@ def k1_pack(torch, screen, launch, tiles, kw, r, card, label, reps=3):
 
 def k1_strips_config(torch, screen, plan, card):
     """K1's strip variant on the ring's shape: 64 tile pairs at p=14,
-    ti=1024 between two 4096-row strips of the hll bench bank (rows
-    4096-8191 against rows 8192-12287, its 16 tile pairs four times; the
-    hll_a primary call: CB, no bands), against its plain version
-    (bit-equal), timed beside it, its bound and torch._int_mm with a
-    column bank; the bound as in k1_config."""
+    ti=1024 between two 4096-row strips of the hll bench bank (sorted rows
+    4096-8191 against sorted rows 8192-12287, each strip the plan's bank
+    read through its slice of the plan's row map; its 16 tile pairs four
+    times; the hll_a primary call: CB, no bands), against its plain
+    version (bit-equal), timed beside it, its bound and torch._int_mm with
+    a column bank (the strips' sorted rows); the bound as in k1_config."""
     b1, hbm = rates()
     ti, r = 1024, 1 << 14
     rows = slice(4096, 8192)
     cols = slice(8192, 12288)
     rr, cc = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")
     tiles = screen.launch_tiles(np.tile(rr.ravel(), 4), np.tile(cc.ravel(), 4),
-                                False, plan.d_regs.device)
+                                False, plan.d_bank.device)
     r_t, c_t = tiles.row_tiles, tiles.col_tiles
-    args = (plan.d_regs[rows], plan.d_regs[cols], tiles, plan.d_e[rows],
+    args = (plan.d_bank, plan.d_bank, tiles, plan.d_e[rows],
             plan.d_e[cols], plan.d_fp[rows], plan.d_fp[cols], 4096, 8192)
     kw = dict(n_real=plan.n, tau_scr=plan.tau_scr, tau_cb=plan.tau_cb, p=14,
               values=plan.values, ti=ti, n_bands=1, use_cb=True,
-              use_smh=False)
+              use_smh=False, row_map=plan.d_rows[rows],
+              col_map=plan.d_rows[cols])
     err, hits = strips_vs_plain(torch, screen, args, kw)
     nbins = len(kw["values"]) - 1
     print(f"  K1 strips dense (hll_a primary) p=14 ti={ti} tiles={len(r_t)} "
@@ -603,8 +661,11 @@ def k1_strips_config(torch, screen, plan, card):
     del g
     bound_ms, bound_by = bound(gated * nbins * r / b1,
                                (len(r_t) * ti * ti + 8 * ti * r) / hbm)
-    library_ms = int_mm_ms(torch, args[0], r_t, c_t, kw["values"], ti, ti,
-                           regs_cols=args[1])
+    strip_r = plan.d_bank[kw["row_map"].long()]
+    strip_c = plan.d_bank[kw["col_map"].long()]
+    library_ms = int_mm_ms(torch, strip_r, r_t, c_t, kw["values"], ti, ti,
+                           regs_cols=strip_c)
+    del strip_r, strip_c
     ms2 = cuda_ms(torch, lambda: screen.screen_hits_fused_strips(*args, **kw),
                   5)
     print(f"  [{card}] K1 strips dense: {ms:.3f} / {ms2:.3f} ms (two turns) "
@@ -688,6 +749,122 @@ def presence_config(torch, screen, d, card, label):
           f"of the uint8 bytes) {library_ms:.3f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, bytes=flat.numel())
+
+
+def row_hist_vs_plain(torch, screen, d, label):
+    """The row-histogram kernel (row_hist on the card tensor d) against
+    its plain version on the same tensor: (max |difference| over the
+    histograms and the 256-entry presence vectors, the kernel's histograms
+    and values)."""
+    got, vals = screen.row_hist(d)
+    want, want_vals = screen._row_hist_plain(d, 2048)
+    torch.cuda.synchronize()
+    err = int(np.abs(np.isin(np.arange(256), vals).astype(np.int64)
+                     - np.isin(np.arange(256), want_vals)).max())
+    if got.numel():
+        err = max(err, int((got.to(torch.int64) - want.to(torch.int64))
+                           .abs().max()))
+    print(f"  row_hist {label}: {d.shape[0]} rows of {d.shape[1]}, "
+          f"{len(vals)} values {vals[:1]}..{vals[-1:]}, max_abs_err={err}")
+    check(err == 0, f"row_hist {label}: kernel != plain")
+    check(got.dtype == torch.int32 and got.shape == (d.shape[0], 64),
+          f"row_hist {label}: histograms of the wrong shape")
+    return err, got, vals
+
+
+def hll_like(rng, n, r, top):
+    """uint8 (n, r) registers skewed as HLL rows of 2048 hashes at p=14
+    (about 12% non-zero, geometric values), capped at `top`."""
+    hit = rng.random((n, r)) < 0.12
+    vals = np.minimum(rng.geometric(0.5, (n, r)), top)
+    return np.where(hit, vals, 0).astype(np.uint8)
+
+
+def phase_row_hist_edges(torch, screen, dev):
+    """The row-histogram kernel against its plain version where its design
+    has edges: 1001 skewed rows at p=14 with all-zero rows and the HLL
+    maximum 64 - 14 + 1 (1001 rows: not a multiple of the CTA's 8), rows
+    of 100 registers (not 16 bytes a lane; every row starts at another
+    alignment), rows of 48 uniform values 0..63, 9 rows of 2^14 from byte
+    1 of a buffer (unaligned heads and tails), and a byte of 64, which
+    both versions refuse with ValueError."""
+    rng = np.random.default_rng(0x4157)
+    worst = 0
+    skewed = hll_like(rng, 1001, 1 << 14, 51)
+    skewed[[0, 500, 1000]] = 0
+    skewed[7, 99] = 51
+    cases = [("skewed p=14 with zero rows", skewed),
+             ("R=100", hll_like(rng, 13, 100, 51)),
+             ("R=48 uniform 0..63", rng.integers(0, 64, (37, 48),
+                                                 dtype=np.uint8))]
+    for label, regs in cases:
+        err, got, _ = row_hist_vs_plain(torch, screen,
+                                        torch.from_numpy(regs).to(dev), label)
+        want = np.stack([np.bincount(row, minlength=64) for row in regs])
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"row_hist {label}: != numpy's row bincounts")
+        worst = max(worst, err)
+    flat = torch.from_numpy(hll_like(rng, 1, 9 * (1 << 14) + 1, 51)
+                            .reshape(-1)).to(dev)
+    err, _, _ = row_hist_vs_plain(torch, screen,
+                                  flat[1:].view(9, 1 << 14),
+                                  "9 rows from byte 1")
+    worst = max(worst, err)
+    bad = torch.from_numpy(hll_like(rng, 24, 1 << 14, 51)).to(dev)
+    bad[17, 4321] = 64
+    for fn in (screen.row_hist, lambda d: screen._row_hist_plain(d, 2048)):
+        try:
+            fn(bad)
+        except ValueError as exc:
+            print(f"  row_hist a byte of 64: ValueError ({exc})")
+        else:
+            check(False, "row_hist took a register value of 64")
+    return worst
+
+
+def row_hist_config(torch, screen, d, card, label, library=True):
+    """The row-histogram kernel on the card tensor d (a bank's rows)
+    against its plain version (bit-equal histograms and values), timed
+    beside it, its bound (the bytes read once and the histograms written
+    once at HBM_BYTES_PER_S, against one comparison a byte at
+    INT32_OPS_PER_S) and, with library, the library yardstick: one
+    torch.bincount of row * 64 + reg with its int64 index (the cast and
+    the add timed with it), its histograms checked against the kernel's
+    first. The plain version is the 2048-row bincount loop that CPU
+    tensors run. Returns (record, the kernel's histograms)."""
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+
+    err, got, _ = row_hist_vs_plain(torch, screen, d, label)
+    n, r = d.shape
+    offs = torch.arange(n, device=d.device, dtype=torch.int64)[:, None] * 64
+
+    def bincount():
+        return torch.bincount((d.to(torch.int64) + offs).view(-1),
+                              minlength=n * 64).view(n, 64)
+
+    library_ms = None
+    if library:
+        check(torch.equal(bincount().to(torch.int32), got),
+              f"row_hist {label}: torch.bincount's histograms differ")
+    ms = cuda_ms(torch, lambda: screen.row_hist(d), 10)
+    plain_ms = cuda_ms(torch, lambda: screen._row_hist_plain(d, 2048), 2)
+    if library:
+        library_ms = cuda_ms(torch, bincount, 2)
+    ms2 = cuda_ms(torch, lambda: screen.row_hist(d), 10)
+    bound_ms, bound_by = bound(n * r / hopper.INT32_OPS_PER_S,
+                               (n * r + n * 256 + 32)
+                               / hopper.HBM_BYTES_PER_S)
+    lib = (f"{library_ms:.3f} ms" if library else
+           f"not timed (its int64 index would hold {n * r * 8 / 2**30:.0f} "
+           "GiB)")
+    print(f"  [{card}] row_hist {label} ({n} x {r} bytes): {ms:.3f} / "
+          f"{ms2:.3f} ms (two turns, with the 32-byte read-back) vs plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}), share "
+          f"of the bound {bound_ms / ms:.3f}; library (one torch.bincount of "
+          f"row * 64 + reg) {lib}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms,
+                bytes=n * r), got
 
 
 def k2_vs_plain(torch, screen, args, kw):
@@ -1055,7 +1232,8 @@ def run_main_path(torch, screen, select_pairs, bank, params, dev, card):
           f"{launches['screen_fused']}, K2 launches "
           f"{launches['weighted_cdf_sum']}, gate_counts launches "
           f"{launches['gate_counts']}, value_presence launches "
-          f"{launches['value_presence']}, peak device memory "
+          f"{launches['value_presence']}, row_hist launches "
+          f"{launches['row_hist']}, peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return out, launches
 
@@ -1635,12 +1813,13 @@ def phase_checkpoint(torch, screen, screened, bank, params, dev, card):
 
 
 LAUNCH_KEYS = ("screen_fused", "strips", "weighted_cdf_sum", "gate_counts",
-               "value_presence")
+               "value_presence", "row_hist")
 
 
 def reset_launches(screen):
     for fn in (screen.screen_hits_fused, screen.screen_hits_fused_strips,
-               screen.screen_s_z, screen.gate_counts, screen.bank_values):
+               screen.screen_s_z, screen.gate_counts, screen.bank_values,
+               screen.row_hist):
         fn.launches = 0
 
 
@@ -1653,7 +1832,8 @@ def read_launches(screen):
             "strips": screen.screen_hits_fused_strips.launches,
             "weighted_cdf_sum": screen.screen_s_z.launches,
             "gate_counts": screen.gate_counts.launches,
-            "value_presence": screen.bank_values.launches}
+            "value_presence": screen.bank_values.launches,
+            "row_hist": screen.row_hist.launches}
 
 
 def multi_device_run(torch, screen, engine, bank, params, mesh, dev, card,
@@ -1732,8 +1912,10 @@ def phase_multi_device(torch, mods, banks, screened_out, lst, ref4, dev,
         check(ls["screen_fused"] > 0, f"sharded -c {crit} never launched K1")
         check(ls["gate_counts"] > 0, f"sharded -c {crit} never launched the "
               "gate-count kernel")
-        check(ls["value_presence"] > 0, f"sharded -c {crit} never launched "
-              "the presence kernel")
+        check(ls["row_hist"] > 0, f"sharded -c {crit} never launched the "
+              "row-histogram kernel")
+        check(crit == "smh_a" or ls["value_presence"] > 0, f"sharded -c "
+              f"{crit} never launched the presence kernel (the aux bank)")
         check(crit == "smh_a" or ls["weighted_cdf_sum"] > 0,
               f"sharded -c {crit} never launched K2")
         mods["verify_pairs"](bank, [(i, i + 1) for i in picks], out, crit)
@@ -2068,8 +2250,10 @@ def phase_scale(torch, mods, dev, card):
     visible card) and on two strips (two virtual devices of the card, so
     K1's strip entry runs at this scale), pairs equal to 11b's; before 11b
     the presence kernel on the 11b bank against its plain version, timed
-    (presence_config). Returns ({kernel: launches} summed over the phase's
-    runs, each read right after its own reset; the presence record)."""
+    (presence_config) and the row-histogram kernel (row_hist_config; its
+    cards bit-equal to the bank's). Returns ({kernel: launches} summed over
+    the phase's runs, each read right after its own reset; the presence
+    record; the row-histogram record)."""
     screen, v131, vring = (mods["screen"], mods["validate_131k_scale"],
                            mods["validate_ring_scale"])
     total = dict.fromkeys(LAUNCH_KEYS, 0)
@@ -2107,7 +2291,13 @@ def phase_scale(torch, mods, dev, card):
     d_regs = torch.from_numpy(bank.regs).to(dev)
     presence = presence_config(torch, screen, d_regs, card,
                                f"N={SCALE_N} bank")
-    del d_regs
+    rows_2g, hist = row_hist_config(torch, screen, d_regs, card,
+                                    f"N={SCALE_N} bank", library=False)
+    # the harness's bank holds truncated cardinalities (synth.bench_bank)
+    check(np.array_equal(bank.cards, np.trunc(mods["mle_rows"](
+        hist.cpu().numpy(), 14))), "the cards of the card's histograms "
+          f"differ from the N={SCALE_N} bank's")
+    del d_regs, hist
     torch.cuda.empty_cache()
     params = mods["SelectionParams"](tau=0.9, criterion="smh_a")
     reset_launches(screen)
@@ -2144,8 +2334,8 @@ def phase_scale(torch, mods, dev, card):
           "K1")
     check(launches["gate_counts"] > 0, "validate_131k_scale never launched "
           "the gate-count kernel")
-    check(launches["value_presence"] > 0, "validate_131k_scale never "
-          "launched the presence kernel")
+    check(launches["row_hist"] > 0, "validate_131k_scale never launched "
+          "the row-histogram kernel")
     mods["verify_pairs"](bank, [(i, i + 1) for i in picks], pairs, "smh_a")
     add(launches)
 
@@ -2174,7 +2364,7 @@ def phase_scale(torch, mods, dev, card):
               "never launched the gate-count kernel")
         add(launches)
     check(total["strips"] > 0, "phase 11 never launched K1's strip entry")
-    return total, presence
+    return total, presence, rows_2g
 
 
 # Phase 12's sizes: the bench's headline bank (bench.py's N_GENOMES),
@@ -2361,12 +2551,12 @@ def main():
     tri_r, tri_c = scheduler.triangle_block_ids(plan.e_s, plan.tau, 1024,
                                                 use_cb_skip=False)
     chunk = screened.auto_chunk(1024)
-    args = [plan.d_regs,
+    args = [plan.d_bank,
             screen.launch_tiles(tri_r[:chunk], tri_c[:chunk], True, dev),
             plan.d_e, plan.d_fp]
     kw = dict(n_real=plan.n, tau_scr=plan.tau_scr, tau_cb=plan.tau_cb, p=14,
               values=plan.values, ti=1024, n_bands=plan.n_bands,
-              use_cb=True, use_smh=True)
+              use_cb=True, use_smh=True, row_map=plan.d_rows)
     hparams = SelectionParams(tau=0.9, criterion="hll_a")
     hplan = screened.ScreenPlan(hbank, hparams, 1024, device=dev)
     hr, hc = scheduler.triangle_block_ids(hplan.e_s, hplan.tau, 1024,
@@ -2376,10 +2566,10 @@ def main():
     # gated: the smh_a call (CB and LSH bands)
     k1 = {"dense": k1_config(
         torch, screen, "dense (hll_a primary)",
-        [hplan.d_regs, h64, hplan.d_e, hplan.d_fp],
+        [hplan.d_bank, h64, hplan.d_e, hplan.d_fp],
         dict(n_real=hplan.n, tau_scr=hplan.tau_scr, tau_cb=hplan.tau_cb,
              p=14, values=hplan.values, ti=1024, n_bands=1, use_cb=True,
-             use_smh=False), card)}
+             use_smh=False, row_map=hplan.d_rows), card)}
     k1["gated"] = k1_config(torch, screen, "gated (smh_a)", args, kw, card)
     k1["strips"] = k1_strips_config(torch, screen, hplan, card)
     max_err = max(max_err, k1["dense"]["max_abs_err"],
@@ -2416,6 +2606,19 @@ def main():
     gate = phase_gate(torch, screen, screened, scheduler, criteria, dev,
                       card)
     presence_err = phase_presence_uniform(torch, screen, dev)
+    rows_err = phase_row_hist_edges(torch, screen, dev)
+    # the plan's bank is the bench bank in its own row order, a zero row
+    # after it; the plan set the bank's cards from these histograms
+    rows_16k, hist = row_hist_config(torch, screen, plan.d_bank[:bank.n],
+                                     card, f"N={bank.n} bench bank")
+    check(np.array_equal(bank.cards.view(np.int64), models.bank.host_cards(
+        bank.regs, 14).view(np.int64)), "the plan's cards (the card's "
+          "histograms) differ from host_cards")
+    check(np.array_equal(hist.cpu().numpy(), fastx.row_hist(bank.regs)),
+          "row_hist differs from the native row histograms")
+    del hist
+    print("  the phase 3 plan's cards (the card's histograms, the host MLE) "
+          "bit-equal to host_cards; the histograms equal to fastx.row_hist")
 
     print("== phase 4: selection CLI, N=2048", flush=True)
     rng4 = np.random.default_rng(2048)
@@ -2528,13 +2731,22 @@ def main():
           f"the same MLE: {t_plain:.4f} s; cards bit-equal")
     check(np.array_equal(cards.view(np.int64), want.view(np.int64)),
           "host_cards differs from the MLE of the numpy row histograms")
-    out, launches = run_main_path(torch, screen, select_pairs, bank, params,
+    check(np.array_equal(cards.view(np.int64), bank.cards.view(np.int64)),
+          "host_cards differs from the cards the plan set")
+    # a bank with no cards yet, as a user's loader gives it: the plan
+    # computes them from the card's row histograms
+    fresh = models.SketchBank(names=bank.names, regs=bank.regs, p=14,
+                              aux_kind="smh", aux=bank.aux, aux_param=32)
+    out, launches = run_main_path(torch, screen, select_pairs, fresh, params,
                                   dev, card)
+    check(fresh.has_cards() and np.array_equal(
+        fresh.cards.view(np.int64), cards.view(np.int64)),
+          "the main path's cards differ from host_cards")
     check(launches["screen_fused"] > 0, "main path never launched K1")
     check(launches["gate_counts"] > 0, "main path never launched the "
           "gate-count kernel")
-    check(launches["value_presence"] > 0, "main path never launched the "
-          "presence kernel")
+    check(launches["row_hist"] > 0, "main path never launched the "
+          "row-histogram kernel")
     verify_pairs(hostref, bank, [(i, i + 1) for i in picks], out, "smh_a")
     screened_out = {"smh_a": out}  # phase 9 holds the other engines to it
     device_profile(torch, lambda: select_pairs(bank, params, device=dev),
@@ -2548,7 +2760,7 @@ def main():
 
     def sweep():
         for tiles in dev_tiles:
-            screen.screen_hits_fused(plan.d_regs, tiles, plan.d_e,
+            screen.screen_hits_fused(plan.d_bank, tiles, plan.d_e,
                                      plan.d_fp, **kw)
 
     tri_ms = cuda_ms(torch, sweep, 3)
@@ -2565,9 +2777,10 @@ def main():
                                 SelectionParams(tau=0.9, criterion=crit),
                                 dev, card)
         check(hl["screen_fused"] > 0 and hl["weighted_cdf_sum"] > 0
-              and hl["gate_counts"] > 0 and hl["value_presence"] > 0,
-              f"-c {crit} never launched K1, K2, the gate-count kernel and "
-              "the presence kernel")
+              and hl["gate_counts"] > 0 and hl["value_presence"] > 0
+              and hl["row_hist"] > 0,
+              f"-c {crit} never launched K1, K2, the gate-count kernel, the "
+              "presence kernel and the row-histogram kernel")
         verify_pairs(hostref, hbank, [(i, i + 1) for i in hpicks], out,
                      crit)
         screened_out[crit] = out
@@ -2650,7 +2863,8 @@ def main():
                 validate_ring_scale=validate_ring_scale,
                 validate_screened=validate_screened,
                 validate_hllaux=validate_hllaux)
-    scale, presence = phase_scale(torch, mods, dev, card)
+    mods.update(mle_rows=models.bank.mle_rows)
+    scale, presence, rows_2g = phase_scale(torch, mods, dev, card)
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
     print("== phase 12: the bench protocol (bench, kernel_tuning, "
@@ -2703,7 +2917,15 @@ def main():
             sharded=dict(launches=md["sharded"]["value_presence"]),
             l5=dict(launches=l5["value_presence"]),
             scale=dict(launches=scale["value_presence"]),
-            bench=dict(launches=bench_launches["value_presence"]))}
+            bench=dict(launches=bench_launches["value_presence"])),
+        "row_hist": dict(
+            rows_16k, max_abs_err=max(rows_err, rows_16k["max_abs_err"],
+                                      rows_2g["max_abs_err"]),
+            scale=dict(rows_2g, launches=scale["row_hist"]),
+            ring=dict(launches=md["ring"]["row_hist"]),
+            sharded=dict(launches=md["sharded"]["row_hist"]),
+            l5=dict(launches=l5["row_hist"]),
+            bench=dict(launches=bench_launches["row_hist"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

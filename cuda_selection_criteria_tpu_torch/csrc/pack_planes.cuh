@@ -20,21 +20,26 @@ namespace {
 
 // planes[n * row_words + k * Wp + w], bit t = [regs[g, 32w + t] <= thr[k]]
 // for w < R/32, and 0 for R/32 <= w < Wp; the row's words from nbins * Wp
-// to row_words are 0 too. Scratch row n holds bank row g = n when blocks is
-// null, else g = blocks[n / ti] * ti + n % ti: the slot-addressed pack of a
-// K1 launch, whose scratch holds only the row blocks its tiles read.
+// to row_words are 0 too. Scratch row n holds sorted row g = n when blocks
+// is null, else g = blocks[n / ti] * ti + n % ti: the slot-addressed pack of
+// a K1 launch, whose scratch holds only the row blocks its tiles read. The
+// sorted row g is bank row g when map is null, else bank row map[g]: the
+// screened plan keeps its bank in its own row order on the card and sorts
+// through the map.
 __global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
                                    long long n_rows, int R, int Wp,
                                    const int* __restrict__ thr, int nbins,
                                    long long row_words,
                                    const int* __restrict__ blocks, int ti,
+                                   const int* __restrict__ map,
                                    uint32_t* __restrict__ planes) {
   const int W = R / 32;
   long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (gid >= n_rows * Wp) return;
   long long n = gid / Wp;
   int w = (int)(gid % Wp);
-  const long long g = blocks ? (long long)blocks[n / ti] * ti + n % ti : n;
+  long long g = blocks ? (long long)blocks[n / ti] * ti + n % ti : n;
+  if (map) g = map[g];
   uint32_t* row = planes + n * row_words;
   for (long long x = (long long)nbins * Wp + w; x < row_words; x += Wp)
     row[x] = 0u;
@@ -70,23 +75,27 @@ __global__ void pack_planes_kernel(const uint8_t* __restrict__ regs,
 // (16-byte aligned, R a multiple of 32) into caller-allocated `planes` of
 // n_rows * row_words words, Wp >= R/32, row_words >= nbins * Wp (0 stands
 // for nbins * Wp: the planes of a row end where the next row's begin).
-// blocks null packs the bank's first n_rows rows; otherwise n_rows is a
-// multiple of ti and scratch rows s * ti .. s * ti + ti - 1 get the bank's
-// block blocks[s] (int32 on the card, in units of ti rows).
+// blocks null packs the first n_rows sorted rows; otherwise n_rows is a
+// multiple of ti and scratch rows s * ti .. s * ti + ti - 1 get the sorted
+// block blocks[s] (int32 on the card, in units of ti rows). map null: the
+// bank's rows are the sorted rows; otherwise sorted row g is bank row
+// map[g] (int32 on the card).
 inline cudaError_t launch_pack_planes(const void* regs, long long n_rows,
                                       int R, int Wp, const void* thr,
                                       int nbins, void* planes,
                                       cudaStream_t st,
                                       long long row_words = 0,
                                       const void* blocks = nullptr,
-                                      int ti = 1) {
+                                      int ti = 1,
+                                      const void* map = nullptr) {
   if (row_words == 0) row_words = (long long)nbins * Wp;
   const long long total = n_rows * Wp;
   const unsigned grid = (unsigned)((total + 255) / 256);
   pack_planes_kernel<<<grid, 256, 0, st>>>(
       static_cast<const uint8_t*>(regs), n_rows, R, Wp,
       static_cast<const int*>(thr), nbins, row_words,
-      static_cast<const int*>(blocks), ti, static_cast<uint32_t*>(planes));
+      static_cast<const int*>(blocks), ti, static_cast<const int*>(map),
+      static_cast<uint32_t*>(planes));
   return cudaGetLastError();
 }
 

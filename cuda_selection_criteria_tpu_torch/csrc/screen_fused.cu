@@ -23,7 +23,10 @@
 // row bank, its e and fp, column tiles the column bank, its e and fp, each in
 // local ids; the triangle and tail gates compare the global ids row_base +
 // local row and col_base + local column. One bank with bases 0 is the
-// single-bank screen.
+// single-bank screen. A side's tiles count sorted rows; with a row map
+// (int32, one entry a sorted row) the pack reads sorted row g from bank row
+// map[g], so the screened plan's bank stays in its own row order on the card
+// (the map sends padded positions to a zero row).
 //
 // Bound on the card. The counts are (K-1) * R register comparisons a pair
 // that passes the gates: 7.4e12 for the first 64 tiles of the bench
@@ -47,7 +50,7 @@
 // blocks: the caller lists each side's distinct blocks (the TPU kernel's
 // BlockSpec index maps read only the tiles' rows too), the pack writes
 // block list[s] into scratch slot s, and each tile carries the slots of its
-// row and column blocks (ops/screen.LaunchBlocks). The slots address the
+// row and column blocks (ops/screen.LaunchTiles). The slots address the
 // planes and nothing else; the gates, e, fp and the hits keep the tile
 // ids. One CTA of two warpgroups owns a 128 x 128 block of pairs, each
 // warpgroup an m64n128 accumulator tile (64 pairs a thread); ti = 64 (or
@@ -325,10 +328,12 @@ screen_kernel(const uint32_t* __restrict__ planes_r,
 }  // namespace
 
 // Launches the pack stage and the screen on `stream`; returns the
-// cudaError_t of the launches. row_blocks (n_row_blocks int32) lists the
-// distinct row blocks of regs that the tiles read, col_blocks
-// (n_col_blocks) those of regs_cols; row_slot / col_slot (n_tiles int32)
-// give each tile's place in them. `planes` / `planes_cols` are
+// cudaError_t of the launches. row_map / col_map (int32, one entry a sorted
+// row, or null for a bank whose rows are the sorted rows) give the bank row
+// of each sorted row of regs / regs_cols. row_blocks (n_row_blocks int32)
+// lists the distinct sorted row blocks of regs that the tiles read,
+// col_blocks (n_col_blocks) those of regs_cols; row_slot / col_slot
+// (n_tiles int32) give each tile's place in them. `planes` / `planes_cols` are
 // caller-allocated scratch of n_row_blocks / n_col_blocks * ti * nbins * Wp
 // uint32, Wp = max(R/32, 32) (ops/screen.plane_words); with planes_cols ==
 // planes (the caller's sign that regs_cols is regs and one block list
@@ -336,7 +341,8 @@ screen_kernel(const uint32_t* __restrict__ planes_r,
 // packed once; distinct scratch always gets regs_cols' blocks packed into
 // it. `counts` must be zeroed by the caller. Nothing is allocated here.
 extern "C" int csc_screen_fused(
-    const void* regs, const void* regs_cols, int R, const void* thr,
+    const void* regs, const void* regs_cols, const void* row_map,
+    const void* col_map, int R, const void* thr,
     const void* weights, int nbins, float tail, int want_z, float two_m,
     float two_m2, void* planes, void* planes_cols, int Wp,
     const void* row_blocks, int n_row_blocks, const void* col_blocks,
@@ -349,11 +355,12 @@ extern "C" int csc_screen_fused(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
       launch_pack_planes(regs, (long long)n_row_blocks * ti, R, Wp, thr,
-                         nbins, planes, st, 0, row_blocks, ti);
+                         nbins, planes, st, 0, row_blocks, ti, row_map);
   if (err != cudaSuccess) return (int)err;
   if (planes_cols != planes) {
     err = launch_pack_planes(regs_cols, (long long)n_col_blocks * ti, R, Wp,
-                             thr, nbins, planes_cols, st, 0, col_blocks, ti);
+                             thr, nbins, planes_cols, st, 0, col_blocks, ti,
+                             col_map);
     if (err != cudaSuccess) return (int)err;
   }
   const int smem = kAtom + kRingBytes + (want_z ? kSlotBytes : 0);

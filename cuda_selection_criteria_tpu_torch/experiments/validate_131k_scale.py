@@ -6,7 +6,8 @@ genomes of 2048 hashes at p=14 with 32 SMH buckets; N=131,072 is 2 GiB of
 registers) with 128 planted near-duplicate pairs, so the cascade has real
 survivors, and drives the screened engine's cascade stage by stage:
 
-    ScreenPlan (sort, fingerprints, the bank's upload, present values)
+    ScreenPlan (the bank's upload, row histograms and present values,
+                sort, fingerprints)
     ->  schedule (host tiling + block CB)  ->  gate warm-up (2 tiles)
     ->  gate prune  ->  one warm-up screen launch
     ->  chunked screen in waves (K1)
@@ -195,7 +196,7 @@ def run(bank, params, ti=None, chunk=None, wave=48, device=None):
         "candidates": len(cand), "pairs_emitted": len(pairs),
         **stages, **prune,
         "upload_stats": plan.upload_stats,
-        "device_bank_bytes": plan.d_regs.nbytes,
+        "device_bank_bytes": plan.d_bank.nbytes,
         "plan_peak_allocated_bytes": plan_peak,
         "total_secs": total,
         "total_with_warmup_secs": total + warmup,

@@ -3,9 +3,12 @@ and the build path that makes them from FASTA/FASTQ files.
 
 Host numpy, like cuda_selection_criteria_tpu/models/bank.py: registers
 (N, 2^p) uint8, aux sketches stacked, cardinalities from the host f64
-ERTL-MLE over the row histograms of a native threaded pass. The screened
-engine uploads the registers to the device itself
-(parallel/screened.ScreenPlan). build_bank_from_files decodes the files on
+ERTL-MLE over the row histograms. A bank made without cardinalities
+computes them at their first read (host_cards: the row histograms of a
+native threaded pass), unless the screened engine has set them first: its
+plan (parallel/screened.ScreenPlan) uploads the registers to the device
+itself, and takes the row histograms there from the same pass that finds
+the present values. build_bank_from_files decodes the files on
 host threads and builds the sketches on the device with torch ops
 (ops/kmers, ops/hll_build, ops/smh_build), or on the host with the native
 single-pass builder (backend="native"). The sketch-file loaders read
@@ -103,7 +106,11 @@ class SketchBank:
       names: list of genome file paths (identity for output lines).
       regs: uint8 (N, 2^p) primary HLL registers.
       p: primary precision (14).
-      cards: float64 (N,) ERTL-MLE cardinalities (host f64).
+      cards: float64 (N,) ERTL-MLE cardinalities (host f64). None at
+        construction leaves them unknown: the first read computes them
+        (host_cards), unless something has set them before (the screened
+        plan does, from the device's row histograms; has_cards says
+        whether they are known).
       aux_kind: None | "hll" | "smh".
       aux: uint8 (N, 2^p_aux) HLL registers, or uint64 (N, m) SMH buckets.
       aux_param: p_aux for "hll", m for "smh".
@@ -117,9 +124,9 @@ class SketchBank:
     aux: np.ndarray = None
     aux_param: int = None
 
-    def __post_init__(self):
-        if self.cards is None:
-            self.cards = host_cards(self.regs, self.p)
+    def has_cards(self):
+        """Whether the cardinalities are known without computing them."""
+        return self._cards is not None
 
     @property
     def n(self):
@@ -130,9 +137,10 @@ class SketchBank:
                     aux_kind=None, aux_param=None):
         """The port's bank from a reference SketchBank's numpy fields
         (names, regs, p, cards, aux, aux_kind, aux_param): state carried
-        across from the JAX package. cards=None recomputes them with
-        host_cards: the native threaded row histograms, then the host f64
-        MLE over row chunks on host threads."""
+        across from the JAX package. cards=None leaves them to be
+        computed: by the screened plan on the device, or by host_cards (the
+        native threaded row histograms, then the host f64 MLE over row
+        chunks on host threads) at their first read."""
         return cls(
             names=list(names),
             regs=np.ascontiguousarray(regs, np.uint8),
@@ -259,6 +267,23 @@ class SketchBank:
                  if "aux" in parts[0] else None),
             aux_param=int(parts[0]["aux_param"]) or None,
         )
+
+
+def _get_cards(bank):
+    if bank._cards is None:
+        bank._cards = host_cards(bank.regs, bank.p)
+    return bank._cards
+
+
+def _set_cards(bank, cards):
+    bank._cards = cards
+
+
+# The dataclass's `cards` field (its __init__ argument) becomes a property
+# over _cards: the default None is read by __init__ at class creation, and
+# the assignment there goes through the setter.
+SketchBank._cards = None
+SketchBank.cards = property(_get_cards, _set_cards)
 
 
 def load_hll_bank(paths, p, io_threads=16):

@@ -39,7 +39,7 @@ _LL = ctypes.c_longlong
 # kernel name (csrc/<name>.cu) -> (C entry point, its ctypes argtypes)
 KERNELS = {
     "screen_fused": ("csc_screen_fused", [
-        _P, _P, _I,              # regs, regs_cols, R
+        _P, _P, _P, _P, _I,      # regs, regs_cols, row_map, col_map, R
         _P, _P, _I, _F, _I,      # thr, weights, nbins, tail, want_z
         _F, _F, _P, _P, _I,      # 2m, 2m^2, planes, planes_cols, Wp
         _P, _I, _P, _I,          # row_blocks, n, col_blocks, n
@@ -62,6 +62,9 @@ KERNELS = {
     ]),
     "value_presence": ("csc_value_presence", [
         _P, _LL, _P, _P,         # bytes, n, mask (8 words), stream
+    ]),
+    "row_hist": ("csc_row_hist", [
+        _P, _LL, _I, _P, _P, _P,  # regs, n_rows, R, hist, mask, stream
     ]),
 }
 

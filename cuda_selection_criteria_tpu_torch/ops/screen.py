@@ -13,10 +13,11 @@ certificate"). screen_hits_fused (K1, csrc/screen_fused.cu), its strip
 variant screen_hits_fused_strips (the same kernel with rows and columns
 from two banks, the ring engine's screen), screen_s_z (K2, the raw S
 and Z; csrc/weighted_cdf_sum.cu), gate_counts (the gate prune;
-csrc/gate_counts.cu) and bank_values (the plan's present values;
-csrc/value_presence.cu) run their hand-written CUDA kernels on CUDA
-tensors and their plain PyTorch versions on CPU tensors; each plain
-version is also its kernel's reference on the card.
+csrc/gate_counts.cu), bank_values (present values; csrc/
+value_presence.cu) and row_hist (the plan's row histograms and present
+values in one pass; csrc/row_hist.cu) run their hand-written CUDA kernels
+on CUDA tensors and their plain PyTorch versions on CPU tensors; each
+plain version is also its kernel's reference on the card.
 """
 
 import functools
@@ -78,6 +79,65 @@ def bank_values(regs, chunk=1 << 24):
 
 
 bank_values.launches = 0
+
+
+def _row_hist_plain(regs, chunk_rows):
+    """Plain PyTorch version of the row-histogram kernel (the
+    counterpart of models/bank._row_hists_numpy): one torch.bincount of
+    row * 64 + reg a chunk of `chunk_rows` rows, each chunk cast to int64
+    on its own. (int32 (N, 64) histograms, present values)."""
+    n = regs.shape[0]
+    hist = torch.empty((n, 64), dtype=torch.int32, device=regs.device)
+    for c0 in range(0, n, chunk_rows):
+        sub = regs[c0:c0 + chunk_rows].to(torch.int64)
+        if sub.numel() and int(sub.max()) >= 64:
+            raise ValueError("row_hist: a register value >= 64")
+        sub += torch.arange(sub.shape[0], device=regs.device)[:, None] * 64
+        hist[c0:c0 + chunk_rows] = torch.bincount(
+            sub.view(-1), minlength=sub.shape[0] * 64).view(-1, 64)
+    present = torch.nonzero((hist > 0).any(0)).view(-1).tolist()
+    return hist, tuple(present)
+
+
+def row_hist(regs, chunk_rows=2048):
+    """Register histograms of every row of a uint8 (N, R) bank tensor and
+    the bank's present values, in one pass: (int32 (N, 64) tensor on the
+    bank's device, hist[i, v] = #{r : regs[i, r] == v}; sorted tuple of the
+    distinct values, as bank_values gives them). The histograms feed the
+    host f64 MLE of the cardinalities (models/bank.mle_rows), the values the
+    screen's telescope. Raises ValueError for a register value >= 64, as
+    native.row_hist does (such a value has no bin).
+
+    CPU tensors run _row_hist_plain (chunk_rows rows a bincount). A CUDA
+    tensor, contiguous, launches the hand-written kernel (csrc/row_hist.cu:
+    one warp a row, private counters of the non-zero bytes, the 256-bit
+    present-value mask of the same bytes) on the current stream and reads
+    the mask back in one 32-byte copy, or raises; there is no fallback."""
+    who = "row_hist"
+    _check(who, regs.dtype == torch.uint8 and regs.dim() == 2,
+           f"a 2-D uint8 bank expected, got {regs.dim()}-D {regs.dtype}")
+    dev = regs.device
+    if dev.type == "cpu":
+        return _row_hist_plain(regs, chunk_rows)
+    _check(who, regs.is_contiguous(), "a contiguous bank expected")
+    _check(who, dev.type == "cuda", f"unsupported device {dev}")
+    n, r = regs.shape
+    _check(who, r < 1 << 21, "rows of 2^21 registers or more")
+    hist = torch.empty((n, 64), dtype=torch.int32, device=dev)
+    mask = torch.zeros(8, dtype=torch.int32, device=dev)
+    if n and r:
+        _launch("row_hist", dev, regs.data_ptr(), n, r, hist.data_ptr(),
+                mask.data_ptr())
+        row_hist.launches += 1
+    else:
+        hist.zero_()
+    words = mask.cpu().numpy()
+    if words[2:].any():  # the error word: a byte of 64 or more
+        raise ValueError("row_hist: a register value >= 64")
+    return hist, mask_values(words)
+
+
+row_hist.launches = 0
 
 
 FP_BAND_LOG2 = 8  # the reference's default truncation band
@@ -194,17 +254,27 @@ def _screen_s_z_plain(regs, row_tiles, col_tiles, p, values, ti, tj,
     return torch.stack(s_out), (torch.stack(z_out) if want_z else None)
 
 
-def _check_bank(who, regs, dev, r, rows_per_tile, name):
+def _check_bank(who, regs, dev, r, rows_per_tile, name, row_map=None):
+    """A bank whose sorted rows the tiles index: its own rows, or those of
+    row_map (int32, sorted row -> bank row) when one is given. Returns the
+    number of sorted rows."""
     _check(who, regs.device == dev and regs.dtype == torch.uint8
            and regs.dim() == 2 and regs.is_contiguous()
            and regs.shape[1] == r,
            f"{name} must be contiguous uint8 (N_pad, 2^p) on {dev}")
     _check(who, r % 32 == 0 and regs.data_ptr() % 16 == 0,
            f"needs p >= 5 and a 16-byte aligned {name}")
-    _check(who, rows_per_tile % 64 == 0
-           and regs.shape[0] % rows_per_tile == 0,
+    n_sorted = regs.shape[0]
+    if row_map is not None:
+        _check(who, row_map.device == dev and row_map.dtype == torch.int32
+               and row_map.dim() == 1 and row_map.is_contiguous(),
+               f"the row map of {name} must be contiguous int32 (N_pad,) on "
+               f"{dev}")
+        n_sorted = row_map.shape[0]
+    _check(who, rows_per_tile % 64 == 0 and n_sorted % rows_per_tile == 0,
            f"the tile edge of {name} must be a multiple of 64 dividing its "
            "rows")
+    return n_sorted
 
 
 def _check_tiles(who, row_tiles, col_tiles, dev):
@@ -432,14 +502,23 @@ def _fused_gates(row_tiles, col_tiles, e, fp, n_real, tau_scr, tau_cb, ti,
                         tau_scr, tau_cb, ti, n_bands, use_cb, use_smh)
 
 
+def _sorted_block(regs, row_map, t, ti):
+    """Sorted rows t * ti .. t * ti + ti - 1 of a bank: a slice, or a
+    gather through its row map (sorted row -> bank row)."""
+    if row_map is None:
+        return regs[t * ti:(t + 1) * ti]
+    return regs[row_map[t * ti:(t + 1) * ti].to(torch.int64)]
+
+
 def _screen_hits_fused_strips_plain(regs_rows, regs_cols, r_tiles, c_tiles,
                                     e_rows, e_cols, fp_rows, fp_cols,
                                     row_base, col_base, n_real, tau_scr,
                                     tau_cb, p, values, ti, n_bands, use_cb,
-                                    use_smh):
+                                    use_smh, row_map=None, col_map=None):
     """Plain PyTorch version of K1 over a row strip and a column strip (the
     reference's screen_hits_fused_strips: _screen_fused_call behind the
-    strip gates): (int8 hits (T, ti, ti), int32 counts (T,))."""
+    strip gates): (int8 hits (T, ti, ti), int32 counts (T,)). row_map /
+    col_map: each side's rows through its map, as the kernel reads them."""
     values, weights, tail, want_z = telescope(p, values)
     if len(values) < 2:
         raise ValueError("the fused screen needs >= 2 present values")
@@ -452,9 +531,9 @@ def _screen_hits_fused_strips_plain(regs_rows, regs_cols, r_tiles, c_tiles,
     hits = torch.empty((len(r_tiles), ti, ti), dtype=torch.int8,
                        device=regs_rows.device)
     for t, (r, c) in enumerate(zip(r_tiles.tolist(), c_tiles.tolist())):
-        s, z = _cdf_sum(regs_rows[r * ti:(r + 1) * ti],
-                        regs_cols[c * ti:(c + 1) * ti], values[:-1], weights,
-                        want_z)
+        s, z = _cdf_sum(_sorted_block(regs_rows, row_map, r, ti),
+                        _sorted_block(regs_cols, col_map, c, ti), values[:-1],
+                        weights, want_z)
         s = s + float(tail)
         e_sum = e_r[t][:, None] + e_c[t][None, :]
         if want_z:
@@ -467,13 +546,14 @@ def _screen_hits_fused_strips_plain(regs_rows, regs_cols, r_tiles, c_tiles,
 
 def _screen_hits_fused_plain(regs, row_tiles, col_tiles, e, fp, n_real,
                              tau_scr, tau_cb, p, values, ti, n_bands, use_cb,
-                             use_smh):
+                             use_smh, row_map=None):
     """Plain PyTorch version of K1 on one bank (the reference's
     _screen_fused_call + _fused_gates): the strip version with both sides
     the same and bases 0."""
     return _screen_hits_fused_strips_plain(
         regs, regs, row_tiles, col_tiles, e, e, fp, fp, 0, 0, n_real,
-        tau_scr, tau_cb, p, values, ti, n_bands, use_cb, use_smh)
+        tau_scr, tau_cb, p, values, ti, n_bands, use_cb, use_smh, row_map,
+        row_map)
 
 
 K1_STAGE_WORDS = 32  # plane words of a row that one pipeline stage holds
@@ -554,13 +634,14 @@ def launch_tiles(row_tiles, col_tiles, shared, device):
     return LaunchTiles(rt, ct, rb, rest[0] if rest else rb, rs, cs)
 
 
-def _check_launch_tiles(who, tiles, regs, regs_cols, ti, dev, same):
-    """A LaunchTiles whose tile ids and block lists fit their banks; one
-    shared list needs one bank on both sides. Returns the tile count."""
+def _check_launch_tiles(who, tiles, n_rows, n_cols, ti, dev, same):
+    """A LaunchTiles whose tile ids and block lists fit their banks of
+    n_rows and n_cols sorted rows; one shared list needs one bank on both
+    sides. Returns the tile count."""
     n_tiles = _check_tiles(who, tiles.row_tiles, tiles.col_tiles, dev)
     for name, x, most in (
-            ("row_blocks", tiles.row_blocks, regs.shape[0] // ti),
-            ("col_blocks", tiles.col_blocks, regs_cols.shape[0] // ti)):
+            ("row_blocks", tiles.row_blocks, n_rows // ti),
+            ("col_blocks", tiles.col_blocks, n_cols // ti)):
         _check(who, x.device == dev and x.dtype == torch.int32
                and x.dim() == 1 and 1 <= x.shape[0] <= most
                and x.is_contiguous(),
@@ -578,38 +659,43 @@ def _check_launch_tiles(who, tiles, regs, regs_cols, ti, dev, same):
     return n_tiles
 
 
-def _check_side(who, regs, e, fp, n_bands, dev, names):
-    """The cardinalities and fingerprints of one side's bank."""
+def _check_side(who, n_sorted, e, fp, n_bands, dev, names):
+    """The cardinalities and fingerprints of one side's n_sorted rows."""
     _check(who, e.device == dev and e.dtype == torch.float32
-           and e.shape == (regs.shape[0],) and e.is_contiguous(),
+           and e.shape == (n_sorted,) and e.is_contiguous(),
            f"{names[0]} must be contiguous float32 (N_pad,)")
     _check(who, fp.device == dev and fp.dtype == torch.int32
-           and fp.shape == (regs.shape[0], n_bands) and fp.is_contiguous(),
+           and fp.shape == (n_sorted, n_bands) and fp.is_contiguous(),
            f"{names[1]} must be contiguous int32 (N_pad, n_bands)")
 
 
 def _launch_fused(who, regs, regs_cols, tiles, e, e_cols, fp, fp_cols,
                   row_base, col_base, n_real, tau_scr, tau_cb, p, values, ti,
-                  n_bands, use_cb, use_smh, names):
+                  n_bands, use_cb, use_smh, names, row_map=None,
+                  col_map=None):
     """Checks the arguments of K1 and launches csc_screen_fused on the
     current stream: (hits, counts). names: the row side's (bank, e, fp)
     names in the messages. The plane scratch holds the launch's row blocks
     only (tiles, a LaunchTiles). A column bank that is the row bank (the
-    same tensor object) with one shared block list is packed once: the
-    column plane scratch is then the row scratch, and the kernel packs a
-    second list only when the two scratch pointers differ."""
+    same tensor object, through the same map) with one shared block list
+    is packed once: the column plane scratch is then the row scratch, and
+    the kernel packs a second list only when the two scratch pointers
+    differ. row_map / col_map: int32 (N_pad,) sorted row -> bank row of
+    each side, or None where the bank's rows are the sorted rows; the
+    caller vouches that every entry names a row of its bank."""
     dev = regs.device
     values, weights, tail, want_z = telescope(p, values)
     r = 1 << p
-    same = regs_cols is regs
+    same = regs_cols is regs and col_map is row_map
     _check(who, len(values) >= 2, "needs >= 2 present values")
     _check(who, 0 <= values[0] and values[-1] <= 255, "values outside uint8")
-    _check_bank(who, regs, dev, r, ti, names[0])
+    n_rows = n_cols = _check_bank(who, regs, dev, r, ti, names[0], row_map)
     if not same:
-        _check_bank(who, regs_cols, dev, r, ti, "regs_cols")
-    n_tiles = _check_launch_tiles(who, tiles, regs, regs_cols, ti, dev, same)
-    _check_side(who, regs, e, fp, n_bands, dev, names[1:])
-    _check_side(who, regs_cols, e_cols, fp_cols, n_bands, dev,
+        n_cols = _check_bank(who, regs_cols, dev, r, ti, "regs_cols",
+                             col_map)
+    n_tiles = _check_launch_tiles(who, tiles, n_rows, n_cols, ti, dev, same)
+    _check_side(who, n_rows, e, fp, n_bands, dev, names[1:])
+    _check_side(who, n_cols, e_cols, fp_cols, n_bands, dev,
                 ("e_cols", "fp_cols"))
     _check(who, dev.type == "cuda", f"unsupported device {dev}")
 
@@ -628,7 +714,10 @@ def _launch_fused(who, regs, regs_cols, tiles, e, e_cols, fp, fp_cols,
     m_f = np.float32(r)
     one_tau = np.float32(1.0) + np.float32(tau_scr)
     _launch("screen_fused", dev,
-            regs.data_ptr(), regs_cols.data_ptr(), r, thr.data_ptr(),
+            regs.data_ptr(), regs_cols.data_ptr(),
+            None if row_map is None else row_map.data_ptr(),
+            None if col_map is None else col_map.data_ptr(), r,
+            thr.data_ptr(),
             w.data_ptr(), nbins, float(tail), int(want_z),
             float(np.float32(2.0) * m_f), float(np.float32(2.0) * m_f * m_f),
             planes.data_ptr(), planes_c.data_ptr(), wp,
@@ -643,7 +732,7 @@ def _launch_fused(who, regs, regs_cols, tiles, e, e_cols, fp, fp_cols,
 
 
 def screen_hits_fused(regs, tiles, e, fp, n_real, tau_scr, tau_cb, p, values,
-                      ti, n_bands, use_cb, use_smh):
+                      ti, n_bands, use_cb, use_smh, row_map=None):
     """Fused screen over a (row, col) tile list: (int8 hits (T, ti, ti),
     int32 counts (T,)).
 
@@ -656,25 +745,29 @@ def screen_hits_fused(regs, tiles, e, fp, n_real, tau_scr, tau_cb, p, values,
     sides the same and bases 0.
 
     Args:
-      regs: uint8 (N_pad, 2^p) sorted, padded register bank.
+      regs: uint8 (N_pad, 2^p) sorted, padded register bank; with row_map,
+        the bank in any row order (the screened plan's: its own order and
+        one zero row).
       tiles: the launch's LaunchTiles (launch_tiles, shared=True): int32
-        (T,) row / col block indices in units of ti rows, with the blocks
-        they read and their slots.
+        (T,) row / col block indices in units of ti sorted rows, with the
+        blocks they read and their slots.
       e: float32 (N_pad,) truncated cardinalities (0 on padded rows).
       fp: int32 (N_pad, n_bands) LSH band fingerprints (read if use_smh).
       n_real: number of real (unpadded) rows.
       tau_scr, tau_cb: f32 screen and CB thresholds.
       values: sorted present register values (screen truncation applied).
+      row_map: optional int32 (N_pad,) bank row of each sorted row; the
+        pack stage (and the plain version) read the rows through it.
     """
     if regs.device.type == "cpu":
         return _screen_hits_fused_plain(regs, tiles.row_tiles,
                                         tiles.col_tiles, e, fp, n_real,
                                         tau_scr, tau_cb, p, values, ti,
-                                        n_bands, use_cb, use_smh)
+                                        n_bands, use_cb, use_smh, row_map)
     out = _launch_fused(
         "screen_hits_fused", regs, regs, tiles, e, e, fp, fp, 0, 0, n_real,
         tau_scr, tau_cb, p, values, ti, n_bands, use_cb, use_smh,
-        ("regs", "e", "fp"))
+        ("regs", "e", "fp"), row_map, row_map)
     screen_hits_fused.launches += 1
     return out
 
@@ -685,7 +778,7 @@ screen_hits_fused.launches = 0
 def screen_hits_fused_strips(regs_rows, regs_cols, tiles, e_rows, e_cols,
                              fp_rows, fp_cols, row_base, col_base, n_real,
                              tau_scr, tau_cb, p, values, ti, n_bands, use_cb,
-                             use_smh):
+                             use_smh, row_map=None, col_map=None):
     """Fused screen over a row strip and a column strip (the ring engine's
     screen step): (int8 hits (T, ti, ti), int32 counts (T,)).
 
@@ -696,19 +789,21 @@ def screen_hits_fused_strips(regs_rows, regs_cols, tiles, e_rows, e_cols,
     The triangle and n_real gates use the global ids row_base + local and
     col_base + local. CPU tensors run _screen_hits_fused_strips_plain; CUDA
     tensors launch K1 (csrc/screen_fused.cu) or raise, with no fallback.
-    Passing the row strip's tensors as the column strip's packs its planes
-    once.
+    Passing the row strip's tensors (and map) as the column strip's packs
+    its planes once. row_map / col_map: optional int32 bank row of each
+    local sorted row of a side, read as screen_hits_fused reads its map.
     """
     if regs_rows.device.type == "cpu":
         return _screen_hits_fused_strips_plain(
             regs_rows, regs_cols, tiles.row_tiles, tiles.col_tiles, e_rows,
             e_cols, fp_rows, fp_cols, row_base, col_base, n_real, tau_scr,
-            tau_cb, p, values, ti, n_bands, use_cb, use_smh)
+            tau_cb, p, values, ti, n_bands, use_cb, use_smh, row_map,
+            col_map)
     out = _launch_fused(
         "screen_hits_fused_strips", regs_rows, regs_cols, tiles, e_rows,
         e_cols, fp_rows, fp_cols, row_base, col_base, n_real, tau_scr,
         tau_cb, p, values, ti, n_bands, use_cb, use_smh,
-        ("regs_rows", "e_rows", "fp_rows"))
+        ("regs_rows", "e_rows", "fp_rows"), row_map, col_map)
     screen_hits_fused_strips.launches += 1
     return out
 

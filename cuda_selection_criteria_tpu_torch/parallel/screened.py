@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..models.bank import mle_rows
 from ..ops import criteria, screen
 from ..ops.estimators import hll_histogram
 from ..utils.device import resolve
@@ -124,20 +125,26 @@ GATE_LAUNCH_TILES = 65536
 
 class Strip(NamedTuple):
     """One side of a screen: uint8 registers (rows, 2^p), uint8 aux-HLL
-    registers or None, f32 cardinalities, int32 fingerprints, and the
-    global sorted position of its first row. The single-device engine's
-    bank is one strip at base 0; the ring's strips cover the bank."""
+    registers or None, f32 cardinalities, int32 fingerprints, the global
+    sorted position of its first row, and the int32 row map of its
+    registers or None. The single-device engine's bank is one strip at
+    base 0 whose registers are the plan's bank in its own row order, read
+    through the map (sorted position -> bank row; the aux registers, e and
+    fp are sorted); the ring's strips cover the bank, sorted, with no map."""
     regs: torch.Tensor
     aux: Optional[torch.Tensor]
     e: torch.Tensor
     fp: torch.Tensor
     base: int
+    rows: Optional[torch.Tensor] = None
 
     def to(self, device):
         """The strip on `device`: new tensors, or these on their own
         device (never written in place, so sharing is safe)."""
         return Strip(*(None if t is None else t.to(device, non_blocking=True)
-                       for t in self[:4]), self.base)
+                       for t in self[:4]), self.base,
+                     None if self.rows is None
+                     else self.rows.to(device, non_blocking=True))
 
 
 def _strip_gate_counts(e_rows, e_cols, fp_rows, fp_cols, row_base, col_base,
@@ -211,21 +218,23 @@ def _screen_strip_pair(rows, cols, tiles, n_real, tau_scr, tau_cb, p,
     both sides at base 0 is the single-bank call (screen_hits_fused),
     anything else its strip variant. A single-value bank has constant S/Z
     and takes the two-pass form (screen_s_z, _strip_post), as in the
-    reference. aux = (p_aux, values_aux) adds the hll-aux union gate: K2 at
-    p_aux over the strips' aux registers and _strip_aux_pass, ANDed into
-    the hits; S_a and Z_a die with this call. tiles: the chunk's local
-    tile ids with K1's blocks (screen.launch_tiles)."""
+    reference (constants: the registers are not read, so no map is needed
+    there). aux = (p_aux, values_aux) adds the hll-aux union gate: K2 at
+    p_aux over the strips' aux registers (sorted) and _strip_aux_pass,
+    ANDed into the hits; S_a and Z_a die with this call. tiles: the chunk's
+    local tile ids with K1's blocks (screen.launch_tiles)."""
     r_tiles, c_tiles = tiles.row_tiles, tiles.col_tiles
     if len(values) >= 2:
         if cols is rows and rows.base == 0:
             hits, counts = screen.screen_hits_fused(
                 rows.regs, tiles, rows.e, rows.fp, n_real, tau_scr, tau_cb,
-                p, values, ti, n_bands, use_cb, use_smh)
+                p, values, ti, n_bands, use_cb, use_smh, row_map=rows.rows)
         else:
             hits, counts = screen.screen_hits_fused_strips(
                 rows.regs, cols.regs, tiles, rows.e, cols.e, rows.fp,
                 cols.fp, rows.base, cols.base, n_real, tau_scr, tau_cb, p,
-                values, ti, n_bands, use_cb, use_smh)
+                values, ti, n_bands, use_cb, use_smh, row_map=rows.rows,
+                col_map=cols.rows)
     else:
         s, z = screen.screen_s_z(
             rows.regs, r_tiles, c_tiles, p, values, ti=ti, tj=ti,
@@ -247,21 +256,24 @@ def _screen_strip_pair(rows, cols, tiles, n_real, tau_scr, tau_cb, p,
 
 
 def _screen_chunk(regs, tiles, e, fp, n_real, tau_scr, tau_cb, p, values,
-                  ti, n_bands, use_cb, use_smh):
+                  ti, n_bands, use_cb, use_smh, rows=None):
     """One chunk of the single-bank screen over tiles (screen.launch_tiles,
     shared): (hits (T, ti, ti), per-tile counts (T,)), _screen_strip_pair
-    of the bank against itself."""
-    side = Strip(regs, None, e, fp, 0)
+    of the bank against itself. rows: the bank's row map (sorted position
+    -> bank row), or None for a sorted bank."""
+    side = Strip(regs, None, e, fp, 0, rows)
     return _screen_strip_pair(side, side, tiles, n_real, tau_scr, tau_cb, p,
                               values, ti, n_bands, use_cb, use_smh)
 
 
 def _screen_chunk_hllaux(regs, aux_regs, tiles, e, fp, n_real, tau_scr,
-                         tau_cb, coef_aux, p, values, p_aux, values_aux, ti):
+                         tau_cb, coef_aux, p, values, p_aux, values_aux, ti,
+                         rows=None):
     """One chunk of the single-bank hll_a / hll_an screen: the primary
     screen (K1 with CB, no LSH bands), then the aux-union gate at p_aux
-    (K2 and _strip_aux_pass), ANDed into the hits."""
-    side = Strip(regs, aux_regs, e, fp, 0)
+    (K2 and _strip_aux_pass, on the sorted aux bank), ANDed into the hits.
+    rows: the primary bank's row map, as _screen_chunk takes it."""
+    side = Strip(regs, aux_regs, e, fp, 0, rows)
     return _screen_strip_pair(side, side, tiles, n_real, tau_scr, tau_cb, p,
                               values, ti, 1, True, False,
                               aux=(p_aux, values_aux), coef_aux=coef_aux)
@@ -278,13 +290,15 @@ def extract_hit_coords(hits, ts):
             for t, lo, hi in zip(ts, bounds[:-1], bounds[1:])]
 
 
-def make_device_hist_fn(d_regs, d_e, p, tau, delta, chunk=8192):
+def make_device_hist_fn(d_regs, d_e, p, tau, delta, chunk=8192, rows=None):
     """Device union-histogram provider with the certain-reject bound, for
     PairOracle: (ii, kk) -> (B, q+2) exact counts; rows the certified bound
     rejects come back as a sentinel (c[q+1] = m -> MLE inf -> dropped).
 
     d_regs/d_e: the sorted, padded device bank and its f32 sorted
-    cardinalities. The callable carries the .dispatch/.fetch halves and
+    cardinalities; with rows (int32 sorted position -> bank row, the
+    screened plan's map), d_regs is the bank in any row order, read
+    through the map. The callable carries the .dispatch/.fetch halves and
     the .tau that PairOracle checks."""
     q = 64 - p
     m = 1 << p
@@ -299,7 +313,8 @@ def make_device_hist_fn(d_regs, d_e, p, tau, delta, chunk=8192):
                          ).to(dev)
 
     def hist_flag(ii, kk):
-        merged = torch.maximum(d_regs[ii], d_regs[kk])
+        bi, bk = (ii, kk) if rows is None else (rows[ii], rows[kk])
+        merged = torch.maximum(d_regs[bi], d_regs[bk])
         h = hll_histogram(merged, p)  # (B, q+2) exact counts
         s = (h.to(torch.float32) * w[None, :]).sum(-1)
         t_lb = screen.mle_lower_bound(s, h[:, 0].to(torch.float32), p)
@@ -432,7 +447,9 @@ def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
     """Slab-pipelined upload of sorted bank rows [lo, lo + rows_out) to one
     device: a uint8 (rows_out, R) tensor on resolve(device) holding rows
     order[lo:lo + count] of bank_regs, rows past len(order) zero. Port of
-    the reference's upload_sorted_rows with pack=None.
+    the reference's upload_sorted_rows with pack=None. order=None uploads
+    the bank in its own row order (rows lo .. lo + count, rows past the
+    bank's end zero): each slab is then a contiguous copy, not a gather.
 
     The host gathers a slab of slab_bytes // R sorted rows into one of two
     reused arenas (pinned on CUDA) and copies it into the output with a
@@ -452,7 +469,8 @@ def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
     cuda = dev.type == "cuda"
     r = bank_regs.shape[1]
     slab = max(1, slab_bytes // max(r, 1))
-    count = max(0, min(len(order) - lo, rows_out))
+    total = len(bank_regs) if order is None else len(order)
+    count = max(0, min(total - lo, rows_out))
     out = torch.empty((rows_out, r), dtype=torch.uint8, device=dev)
     out[count:].zero_()
     if count == 0:
@@ -473,9 +491,12 @@ def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
     events = [None, None]
 
     def gather(dst, rows, a, b):
-        # mode="clip": the indices are valid, and "raise" would gather
-        # into a buffer of numpy's own first
-        np.take(bank_regs, rows[a:b], axis=0, out=dst[a:b], mode="clip")
+        if isinstance(rows, slice):  # order=None: a contiguous slab
+            np.copyto(dst[a:b], bank_regs[rows][a:b])
+        else:
+            # mode="clip": the indices are valid, and "raise" would gather
+            # into a buffer of numpy's own first
+            np.take(bank_regs, rows[a:b], axis=0, out=dst[a:b], mode="clip")
 
     with contextlib.ExitStack() as ctx:
         if cuda:
@@ -487,8 +508,9 @@ def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
             if events[idx % 2] is not None:
                 events[idx % 2].synchronize()  # its last copy has finished
             ph["token_wait_secs"] += time.perf_counter() - tp
-            rows = order[lo + k0: lo + min(k0 + slab, count)]
-            k = len(rows)
+            span = slice(lo + k0, lo + min(k0 + slab, count))
+            rows = span if order is None else order[span]
+            k = span.stop - span.start
             tp = time.perf_counter()
             if pool is None:
                 gather(hosts[idx % 2], rows, 0, k)
@@ -512,12 +534,25 @@ def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
 class ScreenPlan:
     """Everything the screen cascade needs, prepared once per bank/params:
     the sorted+padded arrays, the device-resident bank, and the
-    conservative thresholds. upload_secs is the wall of the register
-    banks' uploads inside __init__ (upload_sorted_rows, each ending in a
-    synchronize; the reference plan's upload_secs), and upload_stats the
-    primary bank's upload split: upload_sorted_rows's keys and
-    wire_wait_secs, the wall the host stages leave, as the reference
-    computes it."""
+    conservative thresholds.
+
+    The primary bank goes to the device once, in its own row order, with
+    one zero row after it (d_bank, n + 1 rows); one pass of the
+    row-histogram kernel (screen.row_hist) over its real rows gives every
+    row's register histogram and the present values. A bank without
+    cardinalities gets them here from those histograms (models/bank.
+    mle_rows, the host f64 MLE: bit-equal to host_cards); then the order
+    sorts by them. The sorted stages read d_bank through d_rows, the int32
+    map sorted position -> bank row whose positions n .. n_pad - 1 name the
+    zero row; e, the fingerprints and the aux bank are sorted as before.
+
+    upload_secs is the wall of the register banks' uploads inside __init__
+    (upload_sorted_rows, each ending in a synchronize; the reference plan's
+    upload_secs), and upload_stats the primary bank's upload split:
+    upload_sorted_rows's keys and wire_wait_secs, the wall the host stages
+    leave, as the reference computes it. cards_secs is the wall of the
+    histogram pass, its read-back and, when the bank had no cardinalities,
+    their copy to the host and the MLE."""
 
     VALID = ("smh_a", "smh_only", "cb", "baseline", "hll_a", "hll_an")
 
@@ -535,6 +570,28 @@ class ScreenPlan:
         self.tau = params.tau_eff
         self.use_cb = crit not in ("baseline", "smh_only")
         self.use_smh = crit in ("smh_a", "smh_only")
+        n = self.n
+
+        t_up = time.perf_counter()
+        self.upload_stats = {}
+        self.d_bank = upload_sorted_rows(bank.regs, None, 0, n + 1,
+                                         self.device, stats=self.upload_stats)
+        self.upload_secs = time.perf_counter() - t_up
+        if self.upload_stats:
+            self.upload_stats["wire_wait_secs"] = round(
+                self.upload_secs - self.upload_stats["gather_secs"]
+                - self.upload_stats["pack_secs"]
+                - self.upload_stats["put_ret_secs"], 2)
+
+        # One pass over the real rows: their histograms (the cards, when
+        # the bank has none yet) and the present values. The histograms
+        # die here, before the screen.
+        t_cards = time.perf_counter()
+        hists, present = screen.row_hist(self.d_bank[:n])
+        if not bank.has_cards():
+            bank.cards = mle_rows(hists.cpu().numpy(), bank.p)
+        del hists
+        self.cards_secs = time.perf_counter() - t_cards
 
         order = bank.sorted_by_cardinality()
         self.order = order
@@ -542,11 +599,14 @@ class ScreenPlan:
         self.aux_s = bank.aux[order] if bank.aux is not None else None
         self._regs_s = None
 
-        # Pad the sorted bank to a tile multiple; padded rows have e == 0
-        # and are masked out by the n_real / e_b > 0 gates.
-        n = self.n
+        # Pad the sorted positions to a tile multiple; padded positions have
+        # e == 0 (masked out by the n_real / e_b > 0 gates) and read the
+        # zero row.
         n_pad = -(-n // ti) * ti
         self.n_pad = n_pad
+        rows = np.full(n_pad, n, np.int32)
+        rows[:n] = order
+        self.d_rows = torch.from_numpy(rows).to(self.device)
         e_p = np.zeros(n_pad, np.float32)
         e_p[:n] = self.e_s
         self.d_e = torch.from_numpy(e_p).to(self.device)
@@ -563,22 +623,10 @@ class ScreenPlan:
             self.d_fp = torch.zeros((n_pad, 1), dtype=torch.int32,
                                     device=self.device)
 
-        t_up = time.perf_counter()
-        self.upload_stats = {}
-        self.d_regs = upload_sorted_rows(bank.regs, order, 0, n_pad,
-                                         self.device, stats=self.upload_stats)
-        self.upload_secs = time.perf_counter() - t_up
-        if self.upload_stats:
-            self.upload_stats["wire_wait_secs"] = round(
-                self.upload_secs - self.upload_stats["gather_secs"]
-                - self.upload_stats["pack_secs"]
-                - self.upload_stats["put_ret_secs"], 2)
-
         # Truncated telescope: a one-sided (overestimating) harmonic sum
         # with fewer bins (ops/screen.truncate_values).
         max_card = float(self.e_s.max(initial=1.0))
-        self.values = screen.truncate_values(
-            screen.bank_values(self.d_regs[:n]), max_card, bank.p)
+        self.values = screen.truncate_values(present, max_card, bank.p)
         self.tau_scr = np.float32(screen_tau(self.tau, params.screen_delta))
 
         # Device aux-union gate of the hll-aux criteria: the exact gate
@@ -671,14 +719,14 @@ class ScreenPlan:
         tiles = screen.launch_tiles(r_chunk, c_chunk, True, self.device)
         if self.coef_aux is not None:
             return _screen_chunk_hllaux(
-                self.d_regs, self.d_aux_regs, tiles, self.d_e, self.d_fp,
+                self.d_bank, self.d_aux_regs, tiles, self.d_e, self.d_fp,
                 self.n, self.tau_scr, self.tau_cb, self.coef_aux,
                 self.bank.p, self.values, self.bank.aux_param,
-                self.values_aux, self.ti)
+                self.values_aux, self.ti, self.d_rows)
         return _screen_chunk(
-            self.d_regs, tiles, self.d_e, self.d_fp, self.n, self.tau_scr,
+            self.d_bank, tiles, self.d_e, self.d_fp, self.n, self.tau_scr,
             self.tau_cb, self.bank.p, self.values, self.ti, self.n_bands,
-            self.use_cb, self.use_smh)
+            self.use_cb, self.use_smh, self.d_rows)
 
     def screen_tiles(self, rows, cols, chunk=64, checkpoint=None, wave=64,
                      screen_fn=None, quantum=1):
@@ -762,7 +810,8 @@ class ScreenPlan:
             tau = float(self.params.tau)
         delta = reject_delta_for(self.bank.p, self.params.screen_delta)
         return make_device_hist_fn(
-            self.d_regs, self.d_e, self.bank.p, tau, delta, chunk=chunk)
+            self.d_bank, self.d_e, self.bank.p, tau, delta, chunk=chunk,
+            rows=self.d_rows)
 
     def confirm(self, cand):
         """Cascade stage 3: exact host adjudication of the candidates, with
@@ -786,13 +835,13 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
     Returns reference-ordered [(name_i, name_j, jacc)]. ti/chunk default
     to auto_tile/auto_chunk. stats: optional dict, filled with the wall
     seconds of each stage (plan, schedule, prune, screen, confirm), the
-    plan's upload_secs (inside plan_secs) and the tile and candidate
-    counts; the screen and prune walls end in a device-to-host copy, so
-    they include the device work. checkpoint: the screen stage's progress
-    file (ScreenPlan.screen_tiles). Each stage runs inside a
-    torch.profiler.record_function span of its name (plan, schedule,
-    prune, screen, confirm), which a trace shows; with the profiler off a
-    span costs a few microseconds of host time."""
+    plan's upload_secs and cards_secs (both inside plan_secs) and the tile
+    and candidate counts; the screen and prune walls end in a
+    device-to-host copy, so they include the device work. checkpoint: the
+    screen stage's progress file (ScreenPlan.screen_tiles). Each stage runs
+    inside a torch.profiler.record_function span of its name (plan,
+    schedule, prune, screen, confirm), which a trace shows; with the
+    profiler off a span costs a few microseconds of host time."""
     if bank.n < 2:
         return []
     if ti is None:
@@ -809,7 +858,8 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
         rows, cols = plan.schedule()
     t2 = time.perf_counter()
     st.update(plan_secs=t1 - t0, upload_secs=plan.upload_secs,
-              schedule_secs=t2 - t1, tiles_scheduled=len(rows))
+              cards_secs=plan.cards_secs, schedule_secs=t2 - t1,
+              tiles_scheduled=len(rows))
     if not len(rows):
         return []
     with span("prune"):
@@ -848,27 +898,28 @@ def make_sharded_screen_step(mesh, p, values, ti, n_bands, use_cb, use_smh,
 
     step(replicas, r_chunk, c_chunk, n_real, tau_scr, tau_cb, coef_aux,
          out_dev) -> (hits, counts)
-      replicas: replicate_bank's list, one (regs, e, fp, aux_regs) per
-        mesh position; r_chunk, c_chunk: numpy int32 tile ids, their
-        length a multiple of the device count."""
+      replicas: replicate_bank's list, one (bank, rows, e, fp, aux_regs)
+        per mesh position (the plan's bank and its row map); r_chunk,
+        c_chunk: numpy int32 tile ids, their length a multiple of the
+        device count."""
     n_dev = mesh.shape["rows"]
 
     def step(replicas, r_chunk, c_chunk, n_real, tau_scr, tau_cb, coef_aux,
              out_dev):
         width = len(r_chunk) // n_dev
         hits, counts = [], []
-        for d, (regs, e, fp, aux_regs) in enumerate(replicas):
+        for d, (regs, rows, e, fp, aux_regs) in enumerate(replicas):
             sl = slice(d * width, (d + 1) * width)
             tiles = screen.launch_tiles(r_chunk[sl], c_chunk[sl], True,
                                         regs.device)
             if aux is None:
                 h, c = _screen_chunk(regs, tiles, e, fp, n_real, tau_scr,
                                      tau_cb, p, values, ti, n_bands, use_cb,
-                                     use_smh)
+                                     use_smh, rows)
             else:
                 h, c = _screen_chunk_hllaux(
                     regs, aux_regs, tiles, e, fp, n_real, tau_scr, tau_cb,
-                    coef_aux, p, values, aux[0], aux[1], ti)
+                    coef_aux, p, values, aux[0], aux[1], ti, rows)
             hits.append(h.to(out_dev))
             counts.append(c.to(out_dev))
         return torch.cat(hits), torch.cat(counts)
@@ -918,13 +969,14 @@ def select_pairs_screened_sharded(bank, params, mesh=None, ti=512, chunk=64,
     step = make_sharded_screen_step(mesh, bank.p, plan.values, ti,
                                     plan.n_bands, plan.use_cb, plan.use_smh,
                                     aux=aux)
-    replicas = replicate_bank(mesh, plan.d_regs, plan.d_e, plan.d_fp,
-                              plan.d_aux_regs)
+    replicas = replicate_bank(mesh, plan.d_bank, plan.d_rows, plan.d_e,
+                              plan.d_fp, plan.d_aux_regs)
     t1 = time.perf_counter()
     rows, cols = plan.schedule()
     t2 = time.perf_counter()
     st.update(plan_secs=t1 - t0, upload_secs=plan.upload_secs,
-              schedule_secs=t2 - t1, tiles_scheduled=len(rows))
+              cards_secs=plan.cards_secs, schedule_secs=t2 - t1,
+              tiles_scheduled=len(rows))
     if not len(rows):
         return []
     rows, cols = plan.prune_tiles(rows, cols)

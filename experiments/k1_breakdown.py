@@ -112,15 +112,14 @@ def main():
     chunk = screened.auto_chunk(1024)
     tiles = screen.launch_tiles(rows[:chunk], cols[:chunk], True, dev)
     if not torch.equal(tiles.row_blocks.cpu(),
-                       torch.arange(len(plan.d_regs) // 1024,
-                                    dtype=torch.int32)):
+                       torch.arange(plan.n_pad // 1024, dtype=torch.int32)):
         raise RuntimeError("k1_breakdown: the launch does not read every "
                            "block, so tile_addressed would differ")
-    args = [plan.d_regs, tiles, plan.d_e, plan.d_fp]
+    args = [plan.d_bank, tiles, plan.d_e, plan.d_fp]
     kw = dict(n_real=plan.n, tau_scr=plan.tau_scr, tau_cb=plan.tau_cb, p=14,
               values=plan.values, ti=1024, n_bands=1, use_cb=True,
-              use_smh=False)
-    want = screen._screen_hits_fused_plain(plan.d_regs, tiles.row_tiles,
+              use_smh=False, row_map=plan.d_rows)
+    want = screen._screen_hits_fused_plain(plan.d_bank, tiles.row_tiles,
                                            tiles.col_tiles, plan.d_e,
                                            plan.d_fp, **kw)
     entry, argtypes = _build.KERNELS["screen_fused"]

@@ -232,7 +232,8 @@ def test_validate_harnesses_baseline_keys(monkeypatch, small_planted):
     rec, _ = validate_131k_scale.run(bank, params, ti=64, chunk=8,
                                      device="cpu")
     assert rec["vs_baseline"] is None and rec["resident_vs_baseline"] is None
-    assert rec["device_bank_bytes"] == 256 << 14
+    # the plan's bank: the 256 rows in their own order and one zero row
+    assert rec["device_bank_bytes"] == (256 + 1) << 14
     assert rec["plan_peak_allocated_bytes"] is None  # a card's number
     assert set(rec["upload_stats"]) == {
         "slabs", "gather_secs", "put_ret_secs", "token_wait_secs",

@@ -144,9 +144,9 @@ def test_plan_without_aux_gate_matches_jax():
     rows, cols = pp.schedule()
     hits, counts = pp.screen_chunk(rows, cols)
     want = screened._screen_chunk(
-        pp.d_regs, screen.launch_tiles(rows, cols, True, pp.device), pp.d_e,
+        pp.d_bank, screen.launch_tiles(rows, cols, True, pp.device), pp.d_e,
         pp.d_fp, pp.n, pp.tau_scr, pp.tau_cb, pp.bank.p, pp.values, pp.ti, 1,
-        True, False)
+        True, False, pp.d_rows)
     assert torch.equal(hits, want[0]) and torch.equal(counts, want[1])
 
 
@@ -166,9 +166,9 @@ def test_screen_chunk_hllaux_matches_jax(crit, tau, z_score):
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
     assert counts.dtype == torch.int32
     primary, _ = screened._screen_chunk(
-        pp.d_regs, screen.launch_tiles(rows, cols, True, pp.device), pp.d_e,
+        pp.d_bank, screen.launch_tiles(rows, cols, True, pp.device), pp.d_e,
         pp.d_fp, pp.n, pp.tau_scr, pp.tau_cb, pp.bank.p, pp.values, pp.ti, 1,
-        True, False)
+        True, False, pp.d_rows)
     assert 0 < int(counts.sum()) < int(primary.sum())
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 screen_fused with its launch's plane
-scratch, K2 weighted_cdf_sum, the gate prune's gate_counts, the plan's
-value_presence) and their card paths against their plain versions,
+scratch and the plan's row map, K2 weighted_cdf_sum, the gate prune's
+gate_counts, value_presence, the plan's row_hist) and their card paths
+against their plain versions,
 bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
 torch ops (fed by the native FASTA reader) and the dense engine (indicator
@@ -794,9 +795,10 @@ def test_upload_sorted_rows_on_cuda_bytes(cuda, slab_rows):
 @pytest.mark.cuda
 def test_plan_stage_peak_within_bank_and_half_a_gib(cuda):
     """ScreenPlan.__init__ on the N=65,536 bench bank (1 GiB of registers)
-    holds the padded bank and at most 0.5 GiB more on the card (the
-    upload's slabs live on the host), and its device bank is the host's
-    sorted rows."""
+    holds its bank and at most 0.5 GiB more on the card (the upload's
+    slabs live on the host; the row histograms, 16 MiB, die in the plan),
+    its device bank is the host's rows in their own order and one zero
+    row, and read through the plan's row map it is the sorted rows."""
     regs, aux, e = synth.bench_bank(65536)
     bank = SketchBank(names=[f"g{i}" for i in range(len(regs))], regs=regs,
                       p=14, cards=e, aux_kind="smh", aux=aux, aux_param=32)
@@ -806,12 +808,16 @@ def test_plan_stage_peak_within_bank_and_half_a_gib(cuda):
     plan = screened.ScreenPlan(bank, SelectionParams(tau=0.9), 1024,
                                device=cuda)
     peak = torch.cuda.max_memory_allocated() - before
-    assert plan.d_regs.nbytes == plan.n_pad << 14
-    assert peak <= plan.d_regs.nbytes + (1 << 29)
+    assert plan.d_bank.nbytes == (plan.n + 1) << 14
+    assert peak <= plan.d_bank.nbytes + (1 << 29)
     assert plan.upload_stats["slabs"] == 8
-    np.testing.assert_array_equal(plan.d_regs[:4096].cpu().numpy(),
+    np.testing.assert_array_equal(plan.d_bank[:4096].cpu().numpy(),
+                                  regs[:4096])
+    assert not plan.d_bank[-1].any()
+    rows = plan.d_rows.long()
+    np.testing.assert_array_equal(plan.d_bank[rows[:4096]].cpu().numpy(),
                                   regs[plan.order[:4096]])
-    np.testing.assert_array_equal(plan.d_regs[-4096:].cpu().numpy(),
+    np.testing.assert_array_equal(plan.d_bank[rows[-4096:]].cpu().numpy(),
                                   regs[plan.order[-4096:]])
 
 
@@ -1107,3 +1113,152 @@ def test_k1_engine_launches_read_their_blocks(cuda):
                                                            want[1])
     block = 64 * (len(plan.values) - 1) * screen.plane_words(10) * 4
     assert 3 * block <= peak < 10 * block  # blocks 0, 3, 9 of the bank's 10
+
+
+# The row-histogram kernel: skewed HLL rows at p = 14 with all-zero rows
+# and the HLL maximum; rows of 100 and 48 registers (not 16 bytes a lane,
+# each row at another alignment); row counts that are not a multiple of the
+# CTA's 8 rows; a start one byte into a buffer; uniform values 0..63.
+def _hll_like(rng, n, r, top=51):
+    hit = rng.random((n, r)) < 0.12
+    return np.where(hit, np.minimum(rng.geometric(0.5, (n, r)), top),
+                    0).astype(np.uint8)
+
+
+def _row_hist_bank(name):
+    rng = np.random.default_rng(len(name) + 7)
+    if name == "p=14 skewed, zero rows":
+        x = _hll_like(rng, 203, 1 << 14)
+        x[[0, 101, 202]] = 0
+        x[5, 77] = 51
+        return x, 0
+    if name == "R=100":
+        return _hll_like(rng, 13, 100), 0
+    if name == "R=48 uniform":
+        return rng.integers(0, 64, (37, 48), dtype=np.uint8), 0
+    if name == "one row":
+        return _hll_like(rng, 1, 1 << 10), 0
+    return _hll_like(rng, 9, 1 << 14), 1  # "from byte 1"
+
+
+ROW_HIST_CASES = ("p=14 skewed, zero rows", "R=100", "R=48 uniform",
+                  "one row", "from byte 1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ROW_HIST_CASES)
+def test_row_hist_kernel_matches_plain(cuda, name):
+    """row_hist on a CUDA tensor launches the kernel once and gives the
+    plain version's histograms and values, numpy's row bincounts and
+    bank_values' values."""
+    regs, offset = _row_hist_bank(name)
+    flat = torch.from_numpy(np.concatenate(
+        [np.zeros(offset, np.uint8), regs.reshape(-1)])).to(cuda)
+    d = flat[offset:].view(regs.shape)
+    before = screen.row_hist.launches
+    hist, vals = screen.row_hist(d)
+    torch.cuda.synchronize()
+    assert screen.row_hist.launches == before + 1
+    want, want_vals = screen._row_hist_plain(d, 2048)
+    assert hist.dtype == torch.int32 and torch.equal(hist, want)
+    np.testing.assert_array_equal(
+        hist.cpu().numpy(),
+        np.stack([np.bincount(row, minlength=64) for row in regs]))
+    assert vals == want_vals == screen.bank_values(regs)
+
+
+@pytest.mark.cuda
+def test_row_hist_kernel_refuses_64_and_takes_empty(cuda):
+    """A register of 64 (or more) raises ValueError, as the plain version
+    and native.row_hist do; no rows launch nothing."""
+    regs = _hll_like(np.random.default_rng(64), 24, 1 << 12)
+    for v in (64, 255):
+        bad = regs.copy()
+        bad[17, 999] = v
+        d = torch.from_numpy(bad).to(cuda)
+        with pytest.raises(ValueError, match=">= 64"):
+            screen.row_hist(d)
+        with pytest.raises(ValueError, match=">= 64"):
+            screen._row_hist_plain(d, 2048)
+    before = screen.row_hist.launches
+    hist, vals = screen.row_hist(torch.zeros((0, 64), dtype=torch.uint8,
+                                             device=cuda))
+    assert hist.shape == (0, 64) and vals == ()
+    assert screen.row_hist.launches == before
+
+
+@pytest.mark.cuda
+def test_plan_cards_from_the_card_are_host_cards(cuda):
+    """A bank without cards: the plan's row_hist pass and the host MLE give
+    host_cards' bits, and its order is the stable argsort of them; a bank
+    with cards keeps its own."""
+    rng = np.random.default_rng(5)
+    regs = synth.synthetic_regs(3000, rng.integers(64, 9000, 3000), 12, rng)
+    bank = SketchBank(names=[f"g{i}" for i in range(3000)], regs=regs, p=12)
+    assert not bank.has_cards()
+    before = screen.row_hist.launches
+    plan = screened.ScreenPlan(bank, SelectionParams(tau=0.9,
+                                                     criterion="cb"),
+                               512, device=cuda)
+    assert screen.row_hist.launches == before + 1
+    want = host_cards(regs, 12)
+    assert bank.has_cards()
+    np.testing.assert_array_equal(bank.cards.view(np.int64),
+                                  want.view(np.int64))
+    np.testing.assert_array_equal(plan.order,
+                                  np.argsort(want, kind="stable"))
+    assert plan.values == screen.truncate_values(
+        screen.bank_values(regs), float(np.trunc(want).max()), 12)
+    e = np.full(3000, 7.0)
+    kept = SketchBank(names=bank.names, regs=regs, p=12, cards=e)
+    screened.ScreenPlan(kept, SelectionParams(tau=0.9, criterion="cb"), 512,
+                        device=cuda)
+    assert kept.cards is e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_smh", [True, False])
+def test_k1_through_a_row_map_matches_plain(cuda, use_smh):
+    """K1 on a bank in another row order with one zero row, read through a
+    map (the plan's layout): bit-equal to its plain version through the
+    map and to the kernel on the gathered sorted bank, through both entry
+    points; the strip entry with slices of the map on each side."""
+    regs, e, fp = _inputs(900 + use_smh, 0, 12, 384, 8)
+    regs[-5:] = 0
+    rng = np.random.default_rng(901)
+    perm = rng.permutation(384).astype(np.int32)
+    perm[-5:] = 384
+    bank = np.zeros((385, 256), np.uint8)
+    bank[perm[:-5]] = regs[:-5]
+    d_bank, d_map, d_sorted, e_t, fp_t = [
+        torch.from_numpy(x).to(cuda) for x in (bank, perm, regs, e, fp)]
+    vals = screen.bank_values(regs)
+    tiles = screen.launch_tiles([0, 0, 2, 5, 3], [0, 4, 2, 5, 5], True, cuda)
+    kw = dict(n_real=379, tau_scr=0.4, tau_cb=0.35, p=8, values=vals, ti=64,
+              n_bands=4, use_cb=True, use_smh=use_smh)
+    got = screen.screen_hits_fused(d_bank, tiles, e_t, fp_t, row_map=d_map,
+                                   **kw)
+    strip = screen.screen_hits_fused_strips(
+        d_bank, d_bank, tiles, e_t, e_t, fp_t, fp_t, 0, 0, row_map=d_map,
+        col_map=d_map, **kw)
+    plain = screen._screen_hits_fused_plain(
+        d_bank, tiles.row_tiles, tiles.col_tiles, e_t, fp_t, row_map=d_map,
+        **kw)
+    on_sorted = screen.screen_hits_fused(d_sorted, tiles, e_t, fp_t, **kw)
+    torch.cuda.synchronize()
+    for out in (strip, plain, on_sorted):
+        assert torch.equal(got[0], out[0]) and torch.equal(got[1], out[1])
+    assert int(got[1].sum()) > 0
+    st = screen.launch_tiles([0, 1, 2], [2, 0, 1], False, cuda)
+    rows, cols = slice(64, 256), slice(128, 320)
+    args = (d_bank, d_bank, st, e_t[rows], e_t[cols], fp_t[rows], fp_t[cols],
+            64, 128)
+    skw = dict(kw, row_map=d_map[rows], col_map=d_map[cols])
+    got = screen.screen_hits_fused_strips(*args, **skw)
+    want = screen.screen_hits_fused_strips(
+        d_sorted[rows], d_sorted[cols], st, *args[3:], **kw)
+    plain = screen._screen_hits_fused_strips_plain(
+        d_bank, d_bank, st.row_tiles, st.col_tiles, *args[3:], **skw)
+    torch.cuda.synchronize()
+    for out in (want, plain):
+        assert torch.equal(got[0], out[0]) and torch.equal(got[1], out[1])

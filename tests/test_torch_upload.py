@@ -104,14 +104,19 @@ def _padded(x, order, n_pad):
 
 @pytest.mark.parametrize("crit", ["smh_a", "hll_a"])
 def test_plan_device_banks_are_sorted_rows(crit):
-    """ScreenPlan's d_regs (and for hll_a d_aux_regs) equal the sorted
-    rows zero-padded to a tile multiple, and the JAX plan's; upload_stats
-    has the JAX plan's keys."""
+    """ScreenPlan's device bank read through its row map (and for hll_a
+    d_aux_regs) equals the sorted rows zero-padded to a tile multiple, and
+    the JAX plan's d_regs; the bank itself is the rows in their own order
+    and one zero row; upload_stats has the JAX plan's keys."""
     jb, jp, pp = _plans(crit, 70, 16)
     assert pp.n_pad == 80
     want = _padded(jb.regs, pp.order, pp.n_pad)
-    np.testing.assert_array_equal(pp.d_regs.numpy(), want)
-    np.testing.assert_array_equal(pp.d_regs.numpy(), np.asarray(jp.d_regs))
+    np.testing.assert_array_equal(pp.d_bank.numpy(),
+                                  _padded(jb.regs, np.arange(70), 71))
+    assert pp.d_rows.dtype == torch.int32
+    sorted_rows = pp.d_bank[pp.d_rows.long()].numpy()
+    np.testing.assert_array_equal(sorted_rows, want)
+    np.testing.assert_array_equal(sorted_rows, np.asarray(jp.d_regs))
     assert set(pp.upload_stats) == set(jp.upload_stats) == \
         UPLOAD_KEYS | {"wire_wait_secs"}
     assert pp.upload_stats["slabs"] == 1 and pp.upload_secs > 0.0
