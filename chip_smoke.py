@@ -68,7 +68,19 @@ Phases (any failure exits non-zero, without the final result line):
                 versions refuse; then the N=16384 bench bank as the phase
                 3 plan uploaded it (its cards from the card's histograms
                 bit-equal to host_cards), timed beside its plain version,
-                its bound and one torch.bincount of row * 64 + reg. K1's
+                its bound and one torch.bincount of row * 64 + reg. The
+                ERTL-MLE kernel (estimators.ertl_mle: the plan's cards, the
+                dense engines' union MLE) vs its plain version, bit-equal
+                estimates and log1p flags in f64 and f32 on int32, int64
+                and float32 histograms at p=8 and 14 (pair unions, rows on
+                the log1p branch, empty, saturated and one-bin rows, 1306
+                rows: not a multiple of its 128-row CTA), its f64 estimates
+                0 ulp from hostref.ertl_mle_batch off the log1p branch,
+                cards_from_hists bit-equal to the host MLE with its host
+                rows; then timed beside its plain version and its bound on
+                the 16k bank's histograms, on 524,288 rows (those
+                histograms 32 times) and on one dense tile's 512 x 512
+                unions at p=14 (f32 and f64) and p_aux=8. K1's
                 cases above include banks read through a shuffled row map
                 (the plan's layout: its own row order and a zero row), and
                 the bench launches read the plan's bank through its map
@@ -84,13 +96,14 @@ Phases (any failure exits non-zero, without the final result line):
                 on the native histograms)
   5. main     - host_cards on the N=16384 bank (its wall) bit-equal to
                 the MLE of the numpy row histograms (their wall) and to
-                the cards the phase 3 plan set from the card's histograms;
+                the cards the phase 3 plan set from the card's histograms
+                and the MLE kernel;
                 select_pairs(smh_a, tau=0.9) on N=16384 genomes at p=14
                 (256 MiB of registers on the card) with planted
                 near-duplicates: every planted pair the exact oracle passes
                 is emitted, every emitted pair is oracle-confirmed with the
-                identical Jaccard, and K1, the gate-count kernel and
-                the row-histogram kernel were launched; stage walls, a
+                identical Jaccard, and K1, the gate-count kernel, the
+                row-histogram kernel and the MLE kernel were launched; stage walls, a
                 profiler trace of one warm run and the screen's pairs/s
                 over the full triangle
   6. hll      - select_pairs(hll_a) and (hll_an), tau=0.9, on N=16384
@@ -118,8 +131,8 @@ Phases (any failure exits non-zero, without the final result line):
                 emitted, no 0.02 copy emitted, K1 and K2 launched);
                 time_smh -m 32 rows well-formed, K1 launched in its
                 smh_a_kernel row
-  8. dense    - the dense exact engine (indicator products and the
-                ERTL-MLE as torch ops; no hand-written kernel): the
+  8. dense    - the dense exact engine (indicator products as torch
+                ops, the ERTL-MLE through its kernel on every tile): the
                 selection CLI with --engine dense on phase 4's files for
                 smh_a (--precision bf16 and int8), smh_only, cb, baseline,
                 hll_a and hll_an equal to the host reference and the
@@ -127,8 +140,8 @@ Phases (any failure exits non-zero, without the final result line):
                 the phase 5 and 6 banks (smh_a, hll_a) with the checks of
                 phase 5, its wall and per-tile split (products, MLE)
                 beside the screened engine's wall; the card's f64 MLE in
-                ulp from hostref.ertl_mle_batch and the f32 MLE's relative
-                error; a checkpointed screened sweep cut to two records
+                ulp from hostref.ertl_mle_batch (0 on pair unions) and the
+                f32 MLE's relative error; a checkpointed screened sweep cut to two records
                 and a torn line resumes to the same pairs with fewer K1
                 launches
   9. multi    - the multi-device engines on a mesh that names the card four
@@ -194,8 +207,9 @@ Phases (any failure exits non-zero, without the final result line):
 
 The last two lines are a JSON record of the kernels (launches on the main
 paths of phases 5 to 7, times, bounds, library times, K2's p=14 record,
-and the launches of phase 9's ring and tile-sharded runs, of phase 10, of
-phase 11 and of phase 12's bench in records of their own) and the result
+the MLE's other shapes, and the launches of phase 8's dense engine (the
+MLE), of phase 9's ring and tile-sharded runs, of phase 10, of phase 11
+and of phase 12's bench in records of their own) and the result
 line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -249,6 +263,16 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
                  "warp a row, 16-byte loads, private 16-bit counters of the "
                  "non-zero bytes in shared memory, the present-value mask "
                  "of the same pass"),
+    # not a Pallas kernel: the JAX estimators.ertl_mle is an XLA while
+    # loop, the device branch of SketchBank.compute_cards
+    # (cuda_selection_criteria_tpu/models/bank.py:80-104) and the dense
+    # engines' union MLE
+    "ertl_mle": (f"{PKG}/csrc/ertl_mle.cu",
+                 "cuda_selection_criteria_tpu/ops/estimators.py:78",
+                 "estimators.ertl_mle (an XLA while loop): one thread a "
+                 "row, the CTA's rows staged in shared memory at a 65-word "
+                 "stride, every operation a round-to-nearest intrinsic, a "
+                 "log1p-branch flag a row"),
 }
 
 
@@ -867,6 +891,170 @@ def row_hist_config(torch, screen, d, card, label, library=True):
                 bytes=n * r), got
 
 
+def mle_rows(hostref, synth, p, seed):
+    """int64 histograms at p where the MLE kernel has edges: 1001 unions of
+    seeded synthetic rows, 300 rows on the log1p branch (registers only at
+    q-1, q and q+1, as phase 8's set), an empty row, a saturated one, one
+    bin, zeros with saturated registers and two far bins: 1306 rows, not a
+    multiple of the kernel's 128-row CTA."""
+    rng = np.random.default_rng(seed)
+    q, m = 64 - p, 1 << p
+    regs = synth.synthetic_regs(256, rng.integers(50, 200_000, 256), p, rng)
+    unions = hostref.pair_union_histograms_np(
+        regs, *rng.integers(0, 256, size=(2, 1001)))
+    deg = np.zeros((300, 64), np.int64)
+    deg[:, q] = rng.integers(1, m // 3, 300)
+    deg[:, q - 1] = rng.integers(0, 3, 300)
+    deg[:, q + 1] = m - deg[:, q] - deg[:, q - 1]
+    edge = np.zeros((5, 64), np.int64)
+    edge[0, 0] = m
+    edge[1, q + 1] = m
+    edge[2, 7] = m
+    edge[3, 0], edge[3, q + 1] = m // 2, m - m // 2
+    edge[4, 1], edge[4, q] = m - 3, 3
+    return np.concatenate([unions, deg, edge])
+
+
+def mle_vs_plain(torch, estimators, counts, p, dtype):
+    """The MLE kernel on the card tensor `counts` against its plain version
+    on the same tensor: (max |difference| of the estimates, inf against inf
+    counting 0, plus the rows whose log1p flags differ; the kernel's
+    estimates and flags)."""
+    got, flags = estimators.ertl_mle(counts, p, dtype=dtype, branch=True)
+    want = estimators._ertl_mle_plain(counts, p, dtype=dtype)
+    want_flags = estimators.log1p_branch(counts, p, dtype)
+    torch.cuda.synchronize()
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    same = (g == w) | (np.isnan(g) & np.isnan(w))
+    with np.errstate(invalid="ignore"):  # inf - inf where both are inf
+        diff = np.where(same, 0.0, np.abs(g.astype(np.float64) - w))
+    err = float(diff.max(initial=0.0)) + int((flags != want_flags).sum())
+    check(got.dtype == dtype and got.shape == want.shape,
+          "ertl_mle: estimates of the wrong dtype or shape")
+    return err, got, flags
+
+
+def phase_mle_edges(torch, estimators, models, hostref, synth, dev, card):
+    """The MLE kernel against its plain version on mle_rows at p=8 and 14,
+    read as int32, int64 and float32, in f64 and f32: bit-equal estimates
+    and flags; the f64 estimates 0 ulp from hostref.ertl_mle_batch on every
+    row off the log1p branch; then cards_from_hists on them bit-equal to
+    the host MLE (bank.mle_rows) with its host rows. Returns the largest
+    error."""
+    worst = 0.0
+    for p in (8, 14):
+        h = mle_rows(hostref, synth, p, 0x3E70 + p)
+        want = hostref.ertl_mle_batch(h, p)
+        for in_dtype in (torch.int32, torch.int64, torch.float32):
+            d = torch.from_numpy(h).to(dev, in_dtype)
+            for dtype in (torch.float64, torch.float32):
+                err, got, flags = mle_vs_plain(torch, estimators, d, p, dtype)
+                worst = max(worst, err)
+                check(err == 0, f"ertl_mle p={p} {in_dtype} {dtype}: kernel "
+                      "!= plain")
+                if dtype != torch.float64:
+                    continue
+                g, f = got.cpu().numpy(), flags.cpu().numpy()
+                ulps = np.where(g == want, 0, np.abs(
+                    g.view(np.int64) - want.view(np.int64)))
+                check(ulps[~f].max() == 0, f"ertl_mle p={p}: the f64 kernel "
+                      "is not 0 ulp from ertl_mle_batch off the log1p branch")
+                if in_dtype == torch.int32:
+                    print(f"  ertl_mle p={p}: {len(h)} rows, {int(f.sum())} "
+                          f"on the log1p branch; kernel bit-equal to plain "
+                          f"(int32, int64, f32 histograms; f64 and f32); f64 "
+                          f"0 ulp from ertl_mle_batch on the {int((~f).sum())}"
+                          f" rows off the branch, at most {int(ulps[f].max())}"
+                          f" ulp on it")
+        cards, host_rows = models.bank.cards_from_hists(
+            torch.from_numpy(h).to(dev, torch.int32), p)
+        check(np.array_equal(cards.view(np.int64), models.bank.mle_rows(
+            h, p).view(np.int64)), f"cards_from_hists p={p} differs from "
+              "the host MLE")
+        print(f"  [{card}] cards_from_hists p={p}: bit-equal to the host MLE "
+              f"on {len(h)} rows, {host_rows} recomputed on the host")
+    return worst
+
+
+def mle_config(torch, estimators, counts, p, dtype, card, label, branch):
+    """The MLE kernel on the card tensor `counts` (the histograms a caller
+    holds) against its plain version (bit-equal), timed beside it (two
+    turns, CUDA events) and its bound: the operations these rows' loops
+    need (the plain version's work counter) at the card's FP64 or FP32
+    rate outside the tensor cores, against the q + 2 bins of each row read
+    once and the estimates (and with branch the flags) written once.
+    branch: time the call with the log1p flags (the cards' call) or
+    without (the dense engine's). Library: none (no PyTorch call computes
+    this MLE). Returns the record."""
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+
+    err, _, _ = mle_vs_plain(torch, estimators, counts, p, dtype)
+    check(err == 0, f"ertl_mle {label}: kernel != plain")
+    n = counts.shape[:-1].numel()
+    work = {}
+    estimators._ertl_mle_plain(counts, p, dtype=dtype, work=work)
+
+    def kernel():
+        return estimators.ertl_mle(counts, p, dtype=dtype, branch=branch)
+
+    def plain():
+        return estimators._ertl_mle_plain(counts, p, dtype=dtype)
+
+    ms = cuda_ms(torch, kernel, 20)
+    plain_ms = cuda_ms(torch, plain, 2)
+    ms2 = cuda_ms(torch, kernel, 20)
+    f64 = dtype == torch.float64
+    rate = hopper.FP64_OPS_PER_S if f64 else hopper.FP32_OPS_PER_S
+    out_bytes = n * (8 if f64 else 4) + (n if branch else 0)
+    bound_ms, bound_by = bound(
+        work["ops"] / rate,
+        (n * (66 - p) * counts.element_size() + out_bytes)
+        / hopper.HBM_BYTES_PER_S)
+    print(f"  [{card}] ertl_mle {label} ({n} rows, p={p}, "
+          f"{str(counts.dtype)[6:]} in, {str(dtype)[6:]}"
+          f"{', flags' if branch else ''}): {ms:.4f} / {ms2:.4f} ms (two "
+          f"turns) vs plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by}: {work['ops']} operations, "
+          f"{work['secant_steps']} secant steps, {work['update_steps']} "
+          f"inner updates), share of the bound {bound_ms / ms:.3f}; "
+          "library none")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                rows=n, ops=work["ops"], secant_steps=work["secant_steps"])
+
+
+def phase_mle(torch, estimators, pairwise, models, hostref, synth, hist,
+              regs, aux, p_aux, dev, card):
+    """The MLE kernel in phase 3: its edges (phase_mle_edges), then timed
+    at the shapes its callers give it: the cards' call (f64 with flags) on
+    the N=16384 bench bank's row histograms `hist` and on 524,288 rows
+    (those histograms 32 times: the smh_a-524k cell's row count, rows of
+    the same 2048-hash shape), and the dense engine's calls (its default
+    f32 on the card, and f64) on one 512 x 512 tile's union histograms of
+    the sorted bench bank `regs` at p=14 and of its aux HLLs `aux` at
+    p_aux. Returns (largest error, the 524,288-row record with the others
+    beside it)."""
+    err = phase_mle_edges(torch, estimators, models, hostref, synth, dev,
+                          card)
+    rec = mle_config(torch, estimators, hist.repeat(32, 1), 14,
+                     torch.float64, card, "524,288 rows (the 16k bank's "
+                     "histograms 32 times)", True)
+    rec["n16k"] = mle_config(torch, estimators, hist, 14, torch.float64,
+                             card, "N=16384 bench bank", True)
+    unions = pairwise.union_histograms(regs[:512], regs[512:1024], 14)
+    rec["tile_f32"] = mle_config(torch, estimators, unions, 14,
+                                 torch.float32, card, "one 512 x 512 tile's "
+                                 "unions", False)
+    rec["tile_f64"] = mle_config(torch, estimators, unions, 14,
+                                 torch.float64, card, "one 512 x 512 tile's "
+                                 "unions", False)
+    aux_unions = pairwise.union_histograms(aux[:512], aux[512:1024], p_aux)
+    rec["aux_tile_f32"] = mle_config(torch, estimators, aux_unions, p_aux,
+                                     torch.float32, card, "one 512 x 512 "
+                                     "tile's aux unions", False)
+    return max(err, rec["max_abs_err"]), rec
+
+
 def k2_vs_plain(torch, screen, args, kw):
     """Launch K2 and its plain version on the same card tensors; return
     the max |difference| over S and Z (must be 0)."""
@@ -1233,7 +1421,10 @@ def run_main_path(torch, screen, select_pairs, bank, params, dev, card):
           f"{launches['weighted_cdf_sum']}, gate_counts launches "
           f"{launches['gate_counts']}, value_presence launches "
           f"{launches['value_presence']}, row_hist launches "
-          f"{launches['row_hist']}, peak device memory "
+          f"{launches['row_hist']}, ertl_mle launches "
+          f"{launches['ertl_mle']} (cards_host_rows "
+          f"{stats['cards_host_rows']}, cards {stats['cards_secs']:.4f} s), "
+          f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return out, launches
 
@@ -1692,8 +1883,7 @@ def phase_dense_main(torch, mods, bank, picks, crit, dev, card):
     screen, pairwise, estimators = mods["screen"], mods["pairwise"], \
         mods["estimators"]
     params = mods["SelectionParams"](tau=0.9, criterion=crit, engine="dense")
-    screen.screen_hits_fused.launches = 0
-    screen.screen_s_z.launches = 0
+    reset_launches(screen)
     torch.cuda.synchronize()
     stats = {}
     t0 = time.perf_counter()
@@ -1701,6 +1891,9 @@ def phase_dense_main(torch, mods, bank, picks, crit, dev, card):
     wall = time.perf_counter() - t0
     k_launches = (screen.screen_hits_fused.launches,
                   screen.screen_s_z.launches)
+    mle_launches = estimators.ertl_mle.launches
+    check(mle_launches >= stats["tiles"], f"dense -c {crit}: the engine "
+          "did not launch the MLE kernel on every tile")
     verify_pairs(mods["hostref"], bank, [(i, i + 1) for i in picks], out,
                  crit)
     sparams = mods["SelectionParams"](tau=0.9, criterion=crit)
@@ -1717,7 +1910,8 @@ def phase_dense_main(torch, mods, bank, picks, crit, dev, card):
           f" s); {stats['tiles']} tiles of 512 x 512, {tile_ms:.3f} ms a "
           f"tile; {stats['candidates']} candidates, {len(out)} pairs, equal "
           f"to the screened engine's (warm wall {s_wall:.3f} s, "
-          f"{wall / s_wall:.1f}x); K1 / K2 launches {k_launches}")
+          f"{wall / s_wall:.1f}x); K1 / K2 launches {k_launches}; ertl_mle "
+          f"launches {mle_launches}")
 
     order = bank.sorted_by_cardinality()
     rows = torch.from_numpy(bank.regs[order[:1024]]).to(dev)
@@ -1744,7 +1938,8 @@ def phase_dense_main(torch, mods, bank, picks, crit, dev, card):
     print(f"  [{card}] one 512 x 512 tile's parts alone: {parts}; the parts "
           f"the engine runs sum to {alone:.3f} ms, against {tile_ms:.3f} ms "
           f"a tile in the engine's run")
-    return dict(wall=wall, screened_wall=s_wall, tile_ms=tile_ms, **split)
+    return dict(wall=wall, screened_wall=s_wall, tile_ms=tile_ms,
+                mle_launches=mle_launches, **split)
 
 
 def phase_dense_mle(torch, estimators, hostref, banks, dev, card):
@@ -1777,8 +1972,9 @@ def phase_dense_mle(torch, estimators, hostref, banks, dev, card):
               f"relative error {rel:.3g} (screen_margin 1e-4)")
         check(rel <= 1e-5, f"f32 MLE error {rel} above 1e-5")
         res[label] = (int(ulps.max()), rel)
-    check(res["pair unions"][0] <= 2, "the card's f64 MLE is more than 2 ulp "
-          "from the host oracle's on pair unions")
+    check(res["pair unions"][0] == 0, "the card's f64 MLE (the kernel) is "
+          "not 0 ulp from the host oracle's on pair unions, which take no "
+          "log1p")
     check(res["log1p branch"][0] <= 4, "the card's f64 MLE is more than 4 "
           "ulp from the host oracle's on the log1p branch")
     return res
@@ -1813,13 +2009,14 @@ def phase_checkpoint(torch, screen, screened, bank, params, dev, card):
 
 
 LAUNCH_KEYS = ("screen_fused", "strips", "weighted_cdf_sum", "gate_counts",
-               "value_presence", "row_hist")
+               "value_presence", "row_hist", "ertl_mle")
 
 
 def reset_launches(screen):
+    from cuda_selection_criteria_tpu_torch.ops import estimators
     for fn in (screen.screen_hits_fused, screen.screen_hits_fused_strips,
                screen.screen_s_z, screen.gate_counts, screen.bank_values,
-               screen.row_hist):
+               screen.row_hist, estimators.ertl_mle):
         fn.launches = 0
 
 
@@ -1827,13 +2024,15 @@ def read_launches(screen):
     """{kernel: launches} since reset_launches (keys LAUNCH_KEYS); K1's two
     entry points launch the same kernel, "strips" counts the strip entry
     alone."""
+    from cuda_selection_criteria_tpu_torch.ops import estimators
     return {"screen_fused": screen.screen_hits_fused.launches
             + screen.screen_hits_fused_strips.launches,
             "strips": screen.screen_hits_fused_strips.launches,
             "weighted_cdf_sum": screen.screen_s_z.launches,
             "gate_counts": screen.gate_counts.launches,
             "value_presence": screen.bank_values.launches,
-            "row_hist": screen.row_hist.launches}
+            "row_hist": screen.row_hist.launches,
+            "ertl_mle": estimators.ertl_mle.launches}
 
 
 def multi_device_run(torch, screen, engine, bank, params, mesh, dev, card,
@@ -2251,7 +2450,8 @@ def phase_scale(torch, mods, dev, card):
     K1's strip entry runs at this scale), pairs equal to 11b's; before 11b
     the presence kernel on the 11b bank against its plain version, timed
     (presence_config) and the row-histogram kernel (row_hist_config; its
-    cards bit-equal to the bank's). Returns ({kernel: launches} summed over
+    cards, through the MLE kernel (cards_from_hists), bit-equal to the host
+    MLE of the same histograms and to the bank's). Returns ({kernel: launches} summed over
     the phase's runs, each read right after its own reset; the presence
     record; the row-histogram record)."""
     screen, v131, vring = (mods["screen"], mods["validate_131k_scale"],
@@ -2293,10 +2493,17 @@ def phase_scale(torch, mods, dev, card):
                                f"N={SCALE_N} bank")
     rows_2g, hist = row_hist_config(torch, screen, d_regs, card,
                                     f"N={SCALE_N} bank", library=False)
-    # the harness's bank holds truncated cardinalities (synth.bench_bank)
-    check(np.array_equal(bank.cards, np.trunc(mods["mle_rows"](
-        hist.cpu().numpy(), 14))), "the cards of the card's histograms "
-          f"differ from the N={SCALE_N} bank's")
+    # the cards of the card's histograms through the MLE kernel, bit-equal
+    # to the host MLE of the same histograms; the harness's bank holds them
+    # truncated (synth.bench_bank)
+    cards, host_rows = mods["cards_from_hists"](hist, 14)
+    check(np.array_equal(cards.view(np.int64), mods["mle_rows"](
+        hist.cpu().numpy(), 14).view(np.int64)), "cards_from_hists of the "
+          f"N={SCALE_N} bank differs from the host MLE")
+    check(np.array_equal(bank.cards, np.trunc(cards)), "the cards of the "
+          f"card's histograms differ from the N={SCALE_N} bank's")
+    print(f"  [{card}] cards_from_hists N={SCALE_N}: bit-equal to the host "
+          f"MLE, {host_rows} rows on the host")
     del d_regs, hist
     torch.cuda.empty_cache()
     params = mods["SelectionParams"](tau=0.9, criterion="smh_a")
@@ -2616,9 +2823,16 @@ def main():
           "histograms) differ from host_cards")
     check(np.array_equal(hist.cpu().numpy(), fastx.row_hist(bank.regs)),
           "row_hist differs from the native row histograms")
+    print("  the phase 3 plan's cards (the card's histograms, the MLE "
+          f"kernel, {plan.cards_host_rows} rows on the host) bit-equal to "
+          "host_cards; the histograms equal to fastx.row_hist")
+    h_order = hbank.sorted_by_cardinality()[:1024]
+    mle_err, mle = phase_mle(
+        torch, estimators, pairwise, models, hostref, synth, hist,
+        torch.from_numpy(bank.regs[bank.sorted_by_cardinality()[:1024]])
+        .to(dev), torch.from_numpy(hbank.aux[h_order]).to(dev),
+        hbank.aux_param, dev, card)
     del hist
-    print("  the phase 3 plan's cards (the card's histograms, the host MLE) "
-          "bit-equal to host_cards; the histograms equal to fastx.row_hist")
 
     print("== phase 4: selection CLI, N=2048", flush=True)
     rng4 = np.random.default_rng(2048)
@@ -2747,6 +2961,8 @@ def main():
           "gate-count kernel")
     check(launches["row_hist"] > 0, "main path never launched the "
           "row-histogram kernel")
+    check(launches["ertl_mle"] > 0, "main path never launched the MLE "
+          "kernel (the plan's cards)")
     verify_pairs(hostref, bank, [(i, i + 1) for i in picks], out, "smh_a")
     screened_out = {"smh_a": out}  # phase 9 holds the other engines to it
     device_profile(torch, lambda: select_pairs(bank, params, device=dev),
@@ -2822,8 +3038,9 @@ def main():
     mods = dict(screen=screen, pairwise=pairwise, estimators=estimators,
                 hostref=hostref, select_pairs=select_pairs,
                 SelectionParams=SelectionParams)
-    phase_dense_main(torch, mods, bank, picks, "smh_a", dev, card)
-    phase_dense_main(torch, mods, hbank, hpicks, "hll_a", dev, card)
+    dense_mle = sum(phase_dense_main(torch, mods, b, pk, crit, dev, card)[
+        "mle_launches"] for b, pk, crit in ((bank, picks, "smh_a"),
+                                            (hbank, hpicks, "hll_a")))
     phase_dense_mle(torch, estimators, hostref, [bank.regs, regs4], dev,
                     card)
     phase_checkpoint(torch, screen, screened, bank, params, dev, card)
@@ -2863,7 +3080,8 @@ def main():
                 validate_ring_scale=validate_ring_scale,
                 validate_screened=validate_screened,
                 validate_hllaux=validate_hllaux)
-    mods.update(mle_rows=models.bank.mle_rows)
+    mods.update(mle_rows=models.bank.mle_rows,
+                cards_from_hists=models.bank.cards_from_hists)
     scale, presence, rows_2g = phase_scale(torch, mods, dev, card)
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
@@ -2925,7 +3143,15 @@ def main():
             ring=dict(launches=md["ring"]["row_hist"]),
             sharded=dict(launches=md["sharded"]["row_hist"]),
             l5=dict(launches=l5["row_hist"]),
-            bench=dict(launches=bench_launches["row_hist"]))}
+            bench=dict(launches=bench_launches["row_hist"])),
+        "ertl_mle": dict(
+            mle, max_abs_err=mle_err,
+            dense=dict(launches=dense_mle),
+            ring=dict(launches=md["ring"]["ertl_mle"]),
+            sharded=dict(launches=md["sharded"]["ertl_mle"]),
+            l5=dict(launches=l5["ertl_mle"]),
+            scale=dict(launches=scale["ertl_mle"]),
+            bench=dict(launches=bench_launches["ertl_mle"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

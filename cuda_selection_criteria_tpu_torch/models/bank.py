@@ -7,8 +7,9 @@ ERTL-MLE over the row histograms. A bank made without cardinalities
 computes them at their first read (host_cards: the row histograms of a
 native threaded pass), unless the screened engine has set them first: its
 plan (parallel/screened.ScreenPlan) uploads the registers to the device
-itself, and takes the row histograms there from the same pass that finds
-the present values. build_bank_from_files decodes the files on
+itself, takes the row histograms there from the same pass that finds
+the present values, and the MLE of them on the card (cards_from_hists).
+build_bank_from_files decodes the files on
 host threads and builds the sketches on the device with torch ops
 (ops/kmers, ops/hll_build, ops/smh_build), or on the host with the native
 single-pass builder (backend="native"). The sketch-file loaders read
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ..native import fastx as native
-from ..ops import hll_build, smh_build
+from ..ops import estimators, hll_build, smh_build
 from ..ops.hashes import umin, wang_hash64
 from ..ops.kmers import canonical_kmers
 from ..utils import fasta, formats
@@ -96,6 +97,29 @@ def mle_rows(hists, p):
         return np.concatenate(list(pool.map(
             lambda c0: ertl_mle_batch(hists[c0:c0 + MLE_CHUNK], p),
             starts)))
+
+
+def cards_from_hists(hists, p):
+    """f64 ERTL-MLE cardinalities of (N, >= q+2) register histograms where
+    they lie (the device branch of the JAX SketchBank.compute_cards),
+    bit-equal to host_cards of the same rows: (float64 (N,) numpy array,
+    the number of rows the host recomputed).
+
+    estimators.ertl_mle computes every row in f64 with its flag of the
+    log1p branch (on the card the kernel csrc/ertl_mle.cu), and only the
+    estimates and the flags come to the host. The flagged rows, whose
+    secant start calls log1p, where CUDA's, glibc's and SLEEF's differ by
+    an ulp, are computed again by hostref.ertl_mle_batch over their own
+    histograms: the cards feed the sort and the reference's size_t
+    truncation, so every bit counts. Bank rows of real genomes have zero
+    registers and take no log1p."""
+    est, branch = estimators.ertl_mle(hists, p, branch=True)
+    cards = est.cpu().numpy()
+    rows = np.flatnonzero(branch.cpu().numpy())
+    if rows.size:
+        idx = torch.from_numpy(rows).to(hists.device)
+        cards[rows] = ertl_mle_batch(hists[idx].cpu().numpy(), p)
+    return cards, int(rows.size)
 
 
 @dataclass

@@ -34,6 +34,7 @@ GXX_LIBS = ["-lz", "-lpthread"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _LL = ctypes.c_longlong
 
 # kernel name (csrc/<name>.cu) -> (C entry point, its ctypes argtypes)
@@ -65,6 +66,10 @@ KERNELS = {
     ]),
     "row_hist": ("csc_row_hist", [
         _P, _LL, _I, _P, _P, _P,  # regs, n_rows, R, hist, mask, stream
+    ]),
+    "ertl_mle": ("csc_ertl_mle", [
+        _P, _I, _LL, _LL, _I,    # counts, in_kind, n_rows, row stride, p
+        _I, _D, _P, _P, _P,      # f64, eps, est, branch, stream
     ]),
 }
 

@@ -104,8 +104,8 @@ def row_hist(regs, chunk_rows=2048):
     the bank's present values, in one pass: (int32 (N, 64) tensor on the
     bank's device, hist[i, v] = #{r : regs[i, r] == v}; sorted tuple of the
     distinct values, as bank_values gives them). The histograms feed the
-    host f64 MLE of the cardinalities (models/bank.mle_rows), the values the
-    screen's telescope. Raises ValueError for a register value >= 64, as
+    f64 MLE of the cardinalities (models/bank.cards_from_hists), the
+    values the screen's telescope. Raises ValueError for a register value >= 64, as
     native.row_hist does (such a value has no bin).
 
     CPU tensors run _row_hist_plain (chunk_rows rows a bincount). A CUDA

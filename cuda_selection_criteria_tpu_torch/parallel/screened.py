@@ -34,7 +34,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.bank import mle_rows
+from ..models.bank import cards_from_hists
 from ..ops import criteria, screen
 from ..ops.estimators import hll_histogram
 from ..utils.device import resolve
@@ -541,8 +541,9 @@ class ScreenPlan:
     row-histogram kernel (screen.row_hist) over its real rows gives every
     row's register histogram and the present values. A bank without
     cardinalities gets them here from those histograms (models/bank.
-    mle_rows, the host f64 MLE: bit-equal to host_cards); then the order
-    sorts by them. The sorted stages read d_bank through d_rows, the int32
+    cards_from_hists: the f64 MLE kernel where the histograms lie, the
+    log1p-branch rows again on the host; bit-equal to host_cards); then
+    the order sorts by them. The sorted stages read d_bank through d_rows, the int32
     map sorted position -> bank row whose positions n .. n_pad - 1 name the
     zero row; e, the fingerprints and the aux bank are sorted as before.
 
@@ -552,7 +553,9 @@ class ScreenPlan:
     upload_sorted_rows's keys and wire_wait_secs, the wall the host stages
     leave, as the reference computes it. cards_secs is the wall of the
     histogram pass, its read-back and, when the bank had no cardinalities,
-    their copy to the host and the MLE."""
+    the MLE, the copy of its estimates and flags to the host and the host
+    rows; cards_host_rows the number of those host rows (None when the
+    bank had its cardinalities)."""
 
     VALID = ("smh_a", "smh_only", "cb", "baseline", "hll_a", "hll_an")
 
@@ -588,8 +591,10 @@ class ScreenPlan:
         # die here, before the screen.
         t_cards = time.perf_counter()
         hists, present = screen.row_hist(self.d_bank[:n])
+        self.cards_host_rows = None
         if not bank.has_cards():
-            bank.cards = mle_rows(hists.cpu().numpy(), bank.p)
+            bank.cards, self.cards_host_rows = cards_from_hists(hists,
+                                                                bank.p)
         del hists
         self.cards_secs = time.perf_counter() - t_cards
 
@@ -835,9 +840,10 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
     Returns reference-ordered [(name_i, name_j, jacc)]. ti/chunk default
     to auto_tile/auto_chunk. stats: optional dict, filled with the wall
     seconds of each stage (plan, schedule, prune, screen, confirm), the
-    plan's upload_secs and cards_secs (both inside plan_secs) and the tile
-    and candidate counts; the screen and prune walls end in a
-    device-to-host copy, so they include the device work. checkpoint: the
+    plan's upload_secs and cards_secs (both inside plan_secs), its
+    cards_host_rows and the tile and candidate counts; the screen and
+    prune walls end in a device-to-host copy, so they include the device
+    work. checkpoint: the
     screen stage's progress file (ScreenPlan.screen_tiles). Each stage runs
     inside a torch.profiler.record_function span of its name (plan,
     schedule, prune, screen, confirm), which a trace shows; with the
@@ -858,7 +864,8 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
         rows, cols = plan.schedule()
     t2 = time.perf_counter()
     st.update(plan_secs=t1 - t0, upload_secs=plan.upload_secs,
-              cards_secs=plan.cards_secs, schedule_secs=t2 - t1,
+              cards_secs=plan.cards_secs,
+              cards_host_rows=plan.cards_host_rows, schedule_secs=t2 - t1,
               tiles_scheduled=len(rows))
     if not len(rows):
         return []
@@ -975,7 +982,8 @@ def select_pairs_screened_sharded(bank, params, mesh=None, ti=512, chunk=64,
     rows, cols = plan.schedule()
     t2 = time.perf_counter()
     st.update(plan_secs=t1 - t0, upload_secs=plan.upload_secs,
-              cards_secs=plan.cards_secs, schedule_secs=t2 - t1,
+              cards_secs=plan.cards_secs,
+              cards_host_rows=plan.cards_host_rows, schedule_secs=t2 - t1,
               tiles_scheduled=len(rows))
     if not len(rows):
         return []

@@ -11,7 +11,10 @@ tensor-core utilization use it. HBM_BYTES_PER_S: the H100 SXM's published
 the CUDA cores, 132 SMs x 64 INT32 lanes (the Hopper white paper's SM:
 64 INT32 and 128 FP32 lanes) at the 1.98 GHz boost clock that the
 published 67 TFLOP/s f32 rate assumes (132 x 128 x 2 x 1.98e9); the gate
-prune's bound.
+prune's bound. FP64_OPS_PER_S and FP32_OPS_PER_S: NVIDIA's data-sheet
+FP64 (34 TFLOP/s) and FP32 (67 TFLOP/s) rates of the H100 SXM outside the
+tensor cores; the ERTL-MLE kernel's bound, an FMA counted as two
+operations there and each of the kernel's unfused operations as one.
 
 The baseline of the bench's vs_baseline ratios is the reference CUDA
 kernel's definition (bench.py of the JAX package: the union stage reads
@@ -29,6 +32,8 @@ from .device import resolve
 B1_COMPARISONS_PER_S = 7.889e15
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP64_OPS_PER_S = 34e12
+FP32_OPS_PER_S = 67e12
 
 _measured = {}  # CUDA device index -> bytes/s, measured once a process
 

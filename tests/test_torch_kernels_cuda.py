@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1 screen_fused with its launch's plane
 scratch and the plan's row map, K2 weighted_cdf_sum, the gate prune's
-gate_counts, value_presence, the plan's row_hist) and their card paths
+gate_counts, value_presence, the plan's row_hist, the ERTL-MLE
+ertl_mle) and their card paths
 against their plain versions,
 bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
@@ -1189,18 +1190,23 @@ def test_row_hist_kernel_refuses_64_and_takes_empty(cuda):
 
 @pytest.mark.cuda
 def test_plan_cards_from_the_card_are_host_cards(cuda):
-    """A bank without cards: the plan's row_hist pass and the host MLE give
-    host_cards' bits, and its order is the stable argsort of them; a bank
-    with cards keeps its own."""
+    """A bank without cards: the plan's row_hist pass and the MLE kernel
+    (cards_from_hists, no row on the host) give host_cards' bits, and its
+    order is the stable argsort of them; a bank with cards keeps its
+    own."""
     rng = np.random.default_rng(5)
     regs = synth.synthetic_regs(3000, rng.integers(64, 9000, 3000), 12, rng)
     bank = SketchBank(names=[f"g{i}" for i in range(3000)], regs=regs, p=12)
     assert not bank.has_cards()
     before = screen.row_hist.launches
+    mle_before = estimators.ertl_mle.launches
     plan = screened.ScreenPlan(bank, SelectionParams(tau=0.9,
                                                      criterion="cb"),
                                512, device=cuda)
     assert screen.row_hist.launches == before + 1
+    assert estimators.ertl_mle.launches == mle_before + 1
+    print(f"plan cards of 3000 rows: cards_host_rows {plan.cards_host_rows}")
+    assert plan.cards_host_rows == 0
     want = host_cards(regs, 12)
     assert bank.has_cards()
     np.testing.assert_array_equal(bank.cards.view(np.int64),
@@ -1262,3 +1268,126 @@ def test_k1_through_a_row_map_matches_plain(cuda, use_smh):
     torch.cuda.synchronize()
     for out in (want, plain):
         assert torch.equal(got[0], out[0]) and torch.equal(got[1], out[1])
+
+
+# The ERTL-MLE kernel (csrc/ertl_mle.cu): every row of these inputs
+# bit-equal to its plain version in f64 and f32, flags included.
+
+
+def _mle_rows(p, seed):
+    """int64 histograms at p: 1001 pair unions, 300 rows on the log1p
+    branch (_mle_histograms), and an empty row, a saturated one, one bin,
+    zeros with saturated registers, two far bins: 1306 rows, not a
+    multiple of the kernel's 128-row CTA."""
+    q, m = 64 - p, 1 << p
+    edge = np.zeros((5, 64), np.int64)
+    edge[0, 0] = m
+    edge[1, q + 1] = m
+    edge[2, 7] = m
+    edge[3, 0], edge[3, q + 1] = m // 2, m - m // 2
+    edge[4, 1], edge[4, q] = m - 3, 3
+    return np.concatenate([_mle_histograms(p, 1001, seed, False),
+                           _mle_histograms(p, 300, seed + 1, True), edge])
+
+
+def _mle_vs_plain(counts, p, dtype):
+    """The kernel on `counts` (a CUDA tensor) against its plain version on
+    the same tensor: bit-equal estimates and log1p flags, one launch."""
+    before = estimators.ertl_mle.launches
+    got, flags = estimators.ertl_mle(counts, p, dtype=dtype, branch=True)
+    want = estimators._ertl_mle_plain(counts, p, dtype=dtype)
+    want_flags = estimators.log1p_branch(counts, p, dtype)
+    torch.cuda.synchronize()
+    assert estimators.ertl_mle.launches == before + (counts.numel() > 0)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert got.shape == want.shape and got.dtype == dtype
+    assert torch.equal(got.view(bits), want.view(bits))
+    assert torch.equal(flags, want_flags)
+    return got, flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [8, 14])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("in_dtype", [torch.int32, torch.int64,
+                                      torch.float32])
+def test_ertl_mle_kernel_matches_plain(cuda, p, dtype, in_dtype):
+    """Every row of the crafted histograms, in each histogram type the
+    kernel reads: the plain version's bits and flags."""
+    h = torch.from_numpy(_mle_rows(p, 60 + p)).to(cuda, in_dtype)
+    _, flags = _mle_vs_plain(h, p, dtype)
+    assert int(flags.sum()) >= 301  # the log1p set and the saturated row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ertl_mle_kernel_on_engine_histograms(cuda, dtype):
+    """The histograms the callers hold, where they lie: row_hist's int32
+    (N, 64) of a p=14 bank; a dense tile's f32 (Bi, Bj, q + 2) unions at
+    p=14 and at p_aux=8; and the first q + 2 bins of a wider last
+    dimension, read through its row stride."""
+    rng = np.random.default_rng(71)
+    regs = synth.synthetic_regs(3000, rng.integers(64, 40_000, 3000), 14,
+                                rng)
+    d = torch.from_numpy(regs).to(cuda)
+    hist, _ = screen.row_hist(d)
+    _mle_vs_plain(hist, 14, dtype)
+    _mle_vs_plain(pairwise.union_histograms(d[:256], d[256:768], 14), 14,
+                  dtype)
+    aux, _ = synth.synthetic_hll_banks(512, rng.integers(64, 40_000, 512),
+                                       (8, 6), rng)
+    a = torch.from_numpy(aux).to(cuda)
+    unions = pairwise.union_histograms(a[:256], a, 8)
+    assert unions.shape == (256, 512, 58)
+    _mle_vs_plain(unions, 8, dtype)
+    wide = torch.zeros((256, 512, 64), dtype=torch.float32, device=cuda)
+    wide[..., :58] = unions
+    got, _ = _mle_vs_plain(wide[..., :58], 8, dtype)
+    assert torch.equal(got, estimators.ertl_mle(unions, 8, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [8, 14])
+def test_ertl_mle_kernel_zero_ulp_off_log1p(cuda, p):
+    """The f64 kernel against hostref.ertl_mle_batch: 0 ulp on every row
+    off the log1p branch (the flag's complement); on it within the 4 ulp
+    of the libraries' log1p."""
+    h = _mle_rows(p, 80 + p)
+    got, flags = estimators.ertl_mle(torch.from_numpy(h).to(cuda), p,
+                                     branch=True)
+    got, flags = got.cpu().numpy(), flags.cpu().numpy()
+    ulps = _ulps(got, hostref.ertl_mle_batch(h, p))
+    assert (~flags).sum() >= 1001
+    assert ulps[~flags].max() == 0
+    assert ulps[flags].max() <= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_dtype", [torch.int32, torch.float32])
+def test_cards_from_hists_on_cuda_are_host_cards(cuda, in_dtype):
+    """cards_from_hists on the card: bit-equal to host_cards' MLE of the
+    same histograms on every row, the log1p rows recomputed on the host
+    and counted."""
+    h = _mle_rows(14, 91)
+    cards, host_rows = tbank.cards_from_hists(
+        torch.from_numpy(h).to(cuda, in_dtype), 14)
+    want = tbank.mle_rows(h, 14)
+    print(f"cards_from_hists of {len(h)} rows: {host_rows} host rows")
+    assert host_rows == int(estimators.log1p_branch(torch.from_numpy(h),
+                                                    14).sum())
+    assert host_rows >= 301
+    np.testing.assert_array_equal(cards.view(np.int64), want.view(np.int64))
+
+
+@pytest.mark.cuda
+def test_ertl_mle_kernel_refuses_and_takes_empty(cuda):
+    """A histogram type or layout the kernel does not take raises before
+    any launch; an empty batch launches nothing."""
+    h = torch.zeros((4, 6, 64), dtype=torch.int32, device=cuda)
+    before = estimators.ertl_mle.launches
+    for bad in (h.to(torch.int16), h.permute(1, 0, 2), h[..., :51]):
+        with pytest.raises(ValueError, match="ertl_mle"):
+            estimators.ertl_mle(bad, 14)
+    est, flags = estimators.ertl_mle(h[:0], 14, branch=True)
+    assert est.shape == (0, 6) and flags.shape == (0, 6)
+    assert estimators.ertl_mle.launches == before
