@@ -80,7 +80,17 @@ Phases (any failure exits non-zero, without the final result line):
                 rows; then timed beside its plain version and its bound on
                 the 16k bank's histograms, on 524,288 rows (those
                 histograms 32 times) and on one dense tile's 512 x 512
-                unions at p=14 (f32 and f64) and p_aux=8. K1's
+                unions at p=14 (f32 and f64) and p_aux=8. The
+                band-fingerprint kernel (band_fingerprints: the smh plan's
+                d_fp from its unsorted aux bank through its row map) vs its
+                plain version and band_fingerprints_np of the host-sorted,
+                zero-padded aux, bit-equal: m = 8, 32, 64, 256 at the
+                splits of tau 0.5, 0.8, 0.9 and (1, m), words with the top
+                bit set and all-ones words, padded positions on the zero
+                row, a bank 8 bytes off a 16-byte boundary; then at
+                smh_a-524k's 524,288 rows of m = 32, timed (the launch
+                alone and the wrapper) beside its plain version and its
+                bound. K1's
                 cases above include banks read through a shuffled row map
                 (the plan's layout: its own row order and a zero row), and
                 the bench launches read the plan's bank through its map
@@ -103,7 +113,10 @@ Phases (any failure exits non-zero, without the final result line):
                 near-duplicates: every planted pair the exact oracle passes
                 is emitted, every emitted pair is oracle-confirmed with the
                 identical Jaccard, and K1, the gate-count kernel, the
-                row-histogram kernel and the MLE kernel were launched; stage walls, a
+                row-histogram kernel, the MLE kernel and the
+                band-fingerprint kernel were launched (fp_secs printed);
+                the phase 3 plan's d_fp bit-equal to band_fingerprints_np
+                of its host-sorted, zero-padded aux; stage walls, a
                 profiler trace of one warm run and the screen's pairs/s
                 over the full triangle
   6. hll      - select_pairs(hll_a) and (hll_an), tau=0.9, on N=16384
@@ -184,7 +197,8 @@ Phases (any failure exits non-zero, without the final result line):
                 (upload_stats), the plan stage's peak device memory within
                 the padded bank + 0.5 GiB, the whole run's peak beside the
                 card's, host RAM, the planted pairs recovered and phase 5's
-                checks; before it, the presence kernel and the
+                checks, then a plan on that bank whose d_fp is held as in
+                phase 5; before it, the presence kernel and the
                 row-histogram kernel on that bank's 2 GiB against their
                 plain versions, timed beside them and their bounds, the
                 presence kernel beside one torch.bincount of its uint8
@@ -273,6 +287,14 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
                  "row, the CTA's rows staged in shared memory at a 65-word "
                  "stride, every operation a round-to-nearest intrinsic, a "
                  "log1p-branch flag a row"),
+    # not a Pallas kernel: the JAX band_fingerprints is an XLA fusion, which
+    # the JAX plan replaced by its host twin band_fingerprints_np
+    "band_fingerprints": (
+        f"{PKG}/csrc/band_fp.cu",
+        "cuda_selection_criteria_tpu/parallel/screened.py:98",
+        "band_fingerprints (an XLA fusion; the JAX plan ran its host twin): "
+        "one thread a (sorted position, band), the row read through the "
+        "plan's row map, 16-byte loads for an even band"),
 }
 
 
@@ -891,6 +913,153 @@ def row_hist_config(torch, screen, d, card, label, library=True):
                 bytes=n * r), got
 
 
+# The band-fingerprint kernel's splits (m, n_rows, n_bands):
+# criteria.smh_band_params' at tau 0.5, 0.8 and 0.9 for m = 8, 32, 64 and
+# 256, and its (1, m) fallback (one-word loads); its timed shape is
+# smh_a-524k's: 524,288 rows of m = 32 words at tau 0.9 (4 rows x 8 bands).
+BAND_FP_SPLITS = ((8, 1, 8), (8, 2, 4), (32, 1, 32), (32, 2, 16),
+                  (32, 4, 8), (64, 1, 64), (64, 2, 32), (64, 4, 16),
+                  (64, 8, 8), (256, 1, 256), (256, 4, 64), (256, 8, 32),
+                  (256, 16, 16))
+BAND_FP_N = 1 << 19
+
+
+def band_fp_layout(rng, n, m, n_pad):
+    """uint64 (n, m) words over the whole 64-bit range (top bits set, an
+    all-ones row, a zero row, rows sharing row 0's words) in the plan's
+    layout: (the bank in its own row order with one zero row after it, the
+    int32 map of a shuffled order whose padded positions name the zero
+    row, the host-sorted zero-padded aux the JAX plan fingerprints)."""
+    aux = rng.integers(0, 1 << 64, size=(n, m), dtype=np.uint64)
+    aux[1::5] = aux[0]
+    aux[3] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    aux[4] = 0
+    order = rng.permutation(n)
+    bank = np.zeros((n + 1, m), np.uint64)
+    bank[:n] = aux
+    rows = np.full(n_pad, n, np.int32)
+    rows[:n] = order
+    aux_p = np.zeros((n_pad, m), np.uint64)
+    aux_p[:n] = aux[order]
+    return bank, rows, aux_p
+
+
+def band_fp_vs_plain(torch, screened, d_aux, d_rows, aux_p, n_rows, n_bands,
+                     label):
+    """The band-fingerprint kernel (band_fingerprints on the card tensors)
+    against its plain version on the same tensors and against
+    band_fingerprints_np of the host-sorted, zero-padded aux: the max
+    |difference| (must be 0)."""
+    got = screened.band_fingerprints(d_aux, d_rows, n_rows, n_bands)
+    want = screened._band_fingerprints_plain(d_aux, d_rows, n_rows, n_bands)
+    torch.cuda.synchronize()
+    check(got.dtype == torch.int32 and got.shape == (len(d_rows), n_bands),
+          f"band_fingerprints {label}: fingerprints of the wrong shape")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    np_err = int(np.abs(got.cpu().numpy().astype(np.int64)
+                        - screened.band_fingerprints_np(aux_p, n_rows,
+                                                        n_bands)).max())
+    print(f"  band_fingerprints {label}: {len(d_rows)} positions x "
+          f"{n_bands} bands of {n_rows} words, max_abs_err={err} (plain), "
+          f"{np_err} (band_fingerprints_np)")
+    check(err == 0 and np_err == 0,
+          f"band_fingerprints {label}: kernel != plain / numpy")
+    return err
+
+
+def phase_band_fp_edges(torch, screened, dev):
+    """The band-fingerprint kernel at every split of BAND_FP_SPLITS on 37
+    rows padded to 48 positions (the zero row), and on a bank that starts
+    8 bytes past a 16-byte boundary (the one-word loads at an even band)."""
+    rng = np.random.default_rng(0xF1)
+    worst = 0
+    for m, n_rows, n_bands in BAND_FP_SPLITS:
+        bank, rows, aux_p = band_fp_layout(rng, 37, m, 48)
+        worst = max(worst, band_fp_vs_plain(
+            torch, screened, torch.from_numpy(bank.view(np.int64)).to(dev),
+            torch.from_numpy(rows).to(dev), aux_p, n_rows, n_bands,
+            f"m={m}"))
+    bank, rows, aux_p = band_fp_layout(rng, 999, 32, 1024)
+    d = torch.from_numpy(bank.view(np.int64)).to(dev)
+    flat = torch.empty(d.numel() + 1, dtype=torch.int64, device=dev)
+    shifted = flat[1:].view(d.shape)
+    shifted.copy_(d)
+    check(shifted.data_ptr() % 16 == 8, "band_fingerprints: the shifted "
+          "bank is 16-byte aligned")
+    return max(worst, band_fp_vs_plain(
+        torch, screened, shifted, torch.from_numpy(rows).to(dev), aux_p, 4,
+        8, "m=32 from byte 8"))
+
+
+def band_fp_config(torch, screen, screened, dev, card):
+    """The band-fingerprint kernel at smh_a-524k's shape (BAND_FP_N rows of
+    m = 32, 4 rows x 8 bands, a shuffled map) against its plain version and
+    band_fingerprints_np, timed beside them: the launch alone and the
+    wrapper (with its check of the map's range, a 2 x 4-byte read-back),
+    its plain version, and its bound (the aux rows and the map read once
+    and the fingerprints written once at HBM_BYTES_PER_S, against four
+    integer operations a word at INT32_OPS_PER_S). No single PyTorch call
+    computes the fingerprints (library_ms null)."""
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+
+    n, m, n_rows, n_bands = BAND_FP_N, 32, 4, 8
+    bank, rows, aux_p = band_fp_layout(np.random.default_rng(0x524), n, m,
+                                       n)
+    d_aux = torch.from_numpy(bank.view(np.int64)).to(dev)
+    d_rows = torch.from_numpy(rows).to(dev)
+    label = f"N={n} m={m}"
+    err = band_fp_vs_plain(torch, screened, d_aux, d_rows, aux_p, n_rows,
+                           n_bands, label)
+    out = torch.empty((n, n_bands), dtype=torch.int32, device=dev)
+
+    def launch():
+        screen._launch("band_fp", dev, d_aux.data_ptr(), m,
+                       d_rows.data_ptr(), n, n_rows, n_bands, out.data_ptr())
+
+    launch()
+    check(torch.equal(out, screened.band_fingerprints(
+        d_aux, d_rows, n_rows, n_bands)), f"band_fingerprints {label}: the "
+          "launch alone differs from the wrapper")
+    ms = cuda_ms(torch, launch, 20)
+    wrapper_ms = cuda_ms(torch, lambda: screened.band_fingerprints(
+        d_aux, d_rows, n_rows, n_bands), 10)
+    plain_ms = cuda_ms(torch, lambda: screened._band_fingerprints_plain(
+        d_aux, d_rows, n_rows, n_bands), 2)
+    ms2 = cuda_ms(torch, launch, 20)
+    nbytes = n * m * 8 + n * 4 + n * n_bands * 4
+    bound_ms, bound_by = bound(4 * n * m / hopper.INT32_OPS_PER_S,
+                               nbytes / hopper.HBM_BYTES_PER_S)
+    print(f"  [{card}] band_fingerprints {label} ({n_rows} rows x {n_bands} "
+          f"bands, {nbytes} bytes): {ms:.4f} / {ms2:.4f} ms (two turns, the "
+          f"launch alone), wrapper {wrapper_ms:.4f} ms (with the map's "
+          f"range check) vs plain {plain_ms:.3f} ms; bound {bound_ms:.4f} "
+          f"ms ({bound_by}), share of the bound {bound_ms / ms:.3f}; "
+          "library none")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, wrapper_ms=wrapper_ms,
+                ms2=ms2, bytes=nbytes)
+
+
+def check_plan_fp(torch, screened, plan, bank, card, label):
+    """A smh plan's d_fp, from its unsorted device aux bank through d_rows,
+    bit-equal to band_fingerprints_np of the host-sorted, zero-padded aux
+    (the JAX plan's route); no sorted host aux gathered."""
+    from cuda_selection_criteria_tpu_torch.ops import criteria
+
+    n_rows, n_bands = criteria.smh_band_params(bank.aux_param,
+                                               plan.params.tau)
+    aux_p = np.zeros((plan.n_pad, bank.aux.shape[1]), np.uint64)
+    aux_p[:plan.n] = bank.aux[plan.order]
+    want = screened.band_fingerprints_np(aux_p, n_rows, n_bands)
+    check(np.array_equal(plan.d_fp.cpu().numpy(), want), f"{label}: the "
+          "plan's d_fp differs from band_fingerprints_np")
+    check(plan.aux_s is None, f"{label}: the plan gathered the sorted "
+          "host aux")
+    print(f"  [{card}] {label}: d_fp ({plan.n_pad} x {n_bands}) bit-equal "
+          "to band_fingerprints_np of the host-sorted, zero-padded aux; "
+          f"fp_secs {plan.fp_secs:.4f} s (upload, pass, free)")
+
+
 def mle_rows(hostref, synth, p, seed):
     """int64 histograms at p where the MLE kernel has edges: 1001 unions of
     seeded synthetic rows, 300 rows on the log1p branch (registers only at
@@ -1424,6 +1593,8 @@ def run_main_path(torch, screen, select_pairs, bank, params, dev, card):
           f"{launches['row_hist']}, ertl_mle launches "
           f"{launches['ertl_mle']} (cards_host_rows "
           f"{stats['cards_host_rows']}, cards {stats['cards_secs']:.4f} s), "
+          f"band_fingerprints launches {launches['band_fingerprints']} "
+          f"(fp {stats['fp_secs']:.4f} s), "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return out, launches
@@ -2009,14 +2180,16 @@ def phase_checkpoint(torch, screen, screened, bank, params, dev, card):
 
 
 LAUNCH_KEYS = ("screen_fused", "strips", "weighted_cdf_sum", "gate_counts",
-               "value_presence", "row_hist", "ertl_mle")
+               "value_presence", "row_hist", "ertl_mle", "band_fingerprints")
 
 
 def reset_launches(screen):
     from cuda_selection_criteria_tpu_torch.ops import estimators
+    from cuda_selection_criteria_tpu_torch.parallel import screened
     for fn in (screen.screen_hits_fused, screen.screen_hits_fused_strips,
                screen.screen_s_z, screen.gate_counts, screen.bank_values,
-               screen.row_hist, estimators.ertl_mle):
+               screen.row_hist, estimators.ertl_mle,
+               screened.band_fingerprints):
         fn.launches = 0
 
 
@@ -2025,6 +2198,7 @@ def read_launches(screen):
     entry points launch the same kernel, "strips" counts the strip entry
     alone."""
     from cuda_selection_criteria_tpu_torch.ops import estimators
+    from cuda_selection_criteria_tpu_torch.parallel import screened
     return {"screen_fused": screen.screen_hits_fused.launches
             + screen.screen_hits_fused_strips.launches,
             "strips": screen.screen_hits_fused_strips.launches,
@@ -2032,7 +2206,8 @@ def read_launches(screen):
             "gate_counts": screen.gate_counts.launches,
             "value_presence": screen.bank_values.launches,
             "row_hist": screen.row_hist.launches,
-            "ertl_mle": estimators.ertl_mle.launches}
+            "ertl_mle": estimators.ertl_mle.launches,
+            "band_fingerprints": screened.band_fingerprints.launches}
 
 
 def multi_device_run(torch, screen, engine, bank, params, mesh, dev, card,
@@ -2543,8 +2718,15 @@ def phase_scale(torch, mods, dev, card):
           "the gate-count kernel")
     check(launches["row_hist"] > 0, "validate_131k_scale never launched "
           "the row-histogram kernel")
+    check(launches["band_fingerprints"] > 0, "validate_131k_scale never "
+          "launched the band-fingerprint kernel")
     mods["verify_pairs"](bank, [(i, i + 1) for i in picks], pairs, "smh_a")
     add(launches)
+    plan = mods["screened"].ScreenPlan(bank, params, 1024, dev)
+    check_plan_fp(torch, mods["screened"], plan, bank, card,
+                  f"plan N={SCALE_N} smh_a")
+    del plan
+    torch.cuda.empty_cache()
 
     print("  11c: validate_ring_scale.run on the same bank", flush=True)
     for label, mesh in (
@@ -2833,6 +3015,8 @@ def main():
         .to(dev), torch.from_numpy(hbank.aux[h_order]).to(dev),
         hbank.aux_param, dev, card)
     del hist
+    fp_err = phase_band_fp_edges(torch, screened, dev)
+    band_fp = band_fp_config(torch, screen, screened, dev, card)
 
     print("== phase 4: selection CLI, N=2048", flush=True)
     rng4 = np.random.default_rng(2048)
@@ -2963,6 +3147,10 @@ def main():
           "row-histogram kernel")
     check(launches["ertl_mle"] > 0, "main path never launched the MLE "
           "kernel (the plan's cards)")
+    check(launches["band_fingerprints"] > 0, "main path never launched the "
+          "band-fingerprint kernel")
+    check_plan_fp(torch, screened, plan, bank, card,
+                  "phase 3 plan (N=16384 smh_a)")
     verify_pairs(hostref, bank, [(i, i + 1) for i in picks], out, "smh_a")
     screened_out = {"smh_a": out}  # phase 9 holds the other engines to it
     device_profile(torch, lambda: select_pairs(bank, params, device=dev),
@@ -3151,7 +3339,14 @@ def main():
             sharded=dict(launches=md["sharded"]["ertl_mle"]),
             l5=dict(launches=l5["ertl_mle"]),
             scale=dict(launches=scale["ertl_mle"]),
-            bench=dict(launches=bench_launches["ertl_mle"]))}
+            bench=dict(launches=bench_launches["ertl_mle"])),
+        "band_fingerprints": dict(
+            band_fp, max_abs_err=max(fp_err, band_fp["max_abs_err"]),
+            ring=dict(launches=md["ring"]["band_fingerprints"]),
+            sharded=dict(launches=md["sharded"]["band_fingerprints"]),
+            l5=dict(launches=l5["band_fingerprints"]),
+            scale=dict(launches=scale["band_fingerprints"]),
+            bench=dict(launches=bench_launches["band_fingerprints"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

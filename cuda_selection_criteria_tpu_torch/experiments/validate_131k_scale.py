@@ -122,7 +122,8 @@ def run(bank, params, ti=None, chunk=None, wave=48, device=None):
     wall (plan_secs without the upload, upload_secs, schedule_secs,
     gate_warmup_secs, prune_secs, screen_warmup_secs, screen_secs,
     confirm_secs; the two warm-ups are left out of total_secs), the gate
-    prune's stats, the plan's upload_stats, the device bank's bytes and
+    prune's stats, the plan's upload_stats and fp_secs (the band
+    fingerprints' wall, inside plan_secs), the device bank's bytes and
     on CUDA plan_peak_allocated_bytes (the most the card's allocator held
     during ScreenPlan beyond what it held when the run began), the counts,
     the throughput over the full triangle with vs_baseline and
@@ -196,6 +197,7 @@ def run(bank, params, ti=None, chunk=None, wave=48, device=None):
         "candidates": len(cand), "pairs_emitted": len(pairs),
         **stages, **prune,
         "upload_stats": plan.upload_stats,
+        "fp_secs": plan.fp_secs,
         "device_bank_bytes": plan.d_bank.nbytes,
         "plan_peak_allocated_bytes": plan_peak,
         "total_secs": total,

@@ -71,6 +71,10 @@ KERNELS = {
         _P, _I, _LL, _LL, _I,    # counts, in_kind, n_rows, row stride, p
         _I, _D, _P, _P, _P,      # f64, eps, est, branch, stream
     ]),
+    "band_fp": ("csc_band_fp", [
+        _P, _LL, _P, _LL,        # aux, m, rows, n_pos
+        _I, _I, _P, _P,          # n_rows, n_bands, fp, stream
+    ]),
 }
 
 _loaded = {}

@@ -99,6 +99,87 @@ def band_fingerprints_np(aux, n_rows, n_bands):
     return fp.astype(np.int32)
 
 
+_FNV_BASIS = 2166136261
+_FNV_PRIME = 16777619
+_LOW32 = 0xFFFFFFFF
+
+
+def _band_fingerprints_plain(d_aux, rows, n_rows, n_bands):
+    """Plain PyTorch version of the band-fingerprint kernel: the rows of
+    the int64 bank d_aux named by `rows` gathered, then the limb walk of
+    band_fingerprints_np in int64 ops. The high limb is masked after the
+    shift (int64 shifts are arithmetic, and SMH words >= 2^63 are negative
+    as int64); each product stays below 2^57 before the mask. int32
+    (len(rows), n_bands), wrapped as numpy's astype wraps."""
+    words = d_aux[rows.long()]
+    limbs = torch.stack([words & _LOW32, (words >> 32) & _LOW32],
+                        -1).reshape(len(rows), n_bands, 2 * n_rows)
+    fp = torch.full((len(rows), n_bands), _FNV_BASIS, dtype=torch.int64,
+                    device=d_aux.device)
+    for k in range(2 * n_rows):
+        fp = ((fp ^ limbs[..., k]) * _FNV_PRIME) & _LOW32
+    return torch.where(fp > 0x7FFFFFFF, fp - (1 << 32), fp).to(torch.int32)
+
+
+def band_fingerprints(d_aux, rows, n_rows, n_bands):
+    """int32 (len(rows), n_bands) FNV-mix fingerprints of the LSH bands of
+    the aux rows named by `rows`: row g is band_fingerprints_np of row
+    rows[g] of d_aux. The counterpart of the JAX band_fingerprints, read
+    through a row map: the plan passes the aux bank as uploaded (its own
+    row order, one zero row after it) and its map d_rows, whose padded
+    positions name the zero row.
+
+    d_aux: int64 (rows of the bank, n_rows * n_bands) words (the uint64
+    bit patterns); rows: int32 (n_pos,) indices into d_aux. CPU tensors
+    run _band_fingerprints_plain. A CUDA tensor launches the hand-written
+    kernel (csrc/band_fp.cu: one thread a position and band) on the
+    current stream, or raises; there is no fallback."""
+    who = "band_fingerprints"
+    dev = d_aux.device
+    check = screen._check
+    check(who, d_aux.dtype == torch.int64 and d_aux.dim() == 2
+          and d_aux.is_contiguous(),
+          "the aux bank must be contiguous int64 (rows, m)")
+    check(who, rows.device == dev and rows.dtype == torch.int32
+          and rows.dim() == 1 and rows.is_contiguous(),
+          f"the row map must be contiguous int32 (n_pos,) on {dev}")
+    check(who, n_rows >= 1 and n_bands >= 1
+          and d_aux.shape[1] == n_rows * n_bands,
+          f"m = {d_aux.shape[1]} words is not n_rows {n_rows} x n_bands "
+          f"{n_bands}")
+    if len(rows):
+        lo, hi = torch.stack(torch.aminmax(rows)).tolist()
+        check(who, lo >= 0 and hi < d_aux.shape[0],
+              f"the row map names rows {lo}..{hi} of a bank of "
+              f"{d_aux.shape[0]}")
+    if dev.type == "cpu":
+        return _band_fingerprints_plain(d_aux, rows, n_rows, n_bands)
+    check(who, dev.type == "cuda", f"unsupported device {dev}")
+    fp = torch.empty((len(rows), n_bands), dtype=torch.int32, device=dev)
+    if fp.numel():
+        screen._launch("band_fp", dev, d_aux.data_ptr(), d_aux.shape[1],
+                       rows.data_ptr(), len(rows), n_rows, n_bands,
+                       fp.data_ptr())
+        band_fingerprints.launches += 1
+    return fp
+
+
+band_fingerprints.launches = 0
+
+
+class _SortedRows:
+    """Rows of a host array in sorted-position order, gathered at each
+    read: view[i] is arr[order[i]] for an index or an index array. The
+    confirm's smh gate reads only its candidates' aux rows this way."""
+
+    def __init__(self, arr, order):
+        self._arr = arr
+        self._order = order
+
+    def __getitem__(self, idx):
+        return self._arr[self._order[idx]]
+
+
 def reject_delta_for(p, screen_delta):
     """Certain-reject margin for a primary precision p: the certified
     bound holds at every precision, so delta is the f32 slack alone."""
@@ -545,7 +626,11 @@ class ScreenPlan:
     log1p-branch rows again on the host; bit-equal to host_cards); then
     the order sorts by them. The sorted stages read d_bank through d_rows, the int32
     map sorted position -> bank row whose positions n .. n_pad - 1 name the
-    zero row; e, the fingerprints and the aux bank are sorted as before.
+    zero row; e and the hll criteria's aux bank are sorted as before. The
+    smh criteria's aux bank goes up unsorted too, with one zero row, for
+    one pass of the band-fingerprint kernel through d_rows (band_fingerprints:
+    d_fp, sorted and padded), and is freed; the host aux is never gathered
+    for them (the confirm reads its candidates' rows through the order).
 
     upload_secs is the wall of the register banks' uploads inside __init__
     (upload_sorted_rows, each ending in a synchronize; the reference plan's
@@ -555,7 +640,10 @@ class ScreenPlan:
     histogram pass, its read-back and, when the bank had no cardinalities,
     the MLE, the copy of its estimates and flags to the host and the host
     rows; cards_host_rows the number of those host rows (None when the
-    bank had its cardinalities)."""
+    bank had its cardinalities). fp_secs is the wall of the fingerprints:
+    the aux bank's upload, the kernel's pass and the free (near 0 for the
+    criteria without bands). upload_secs holds the register banks' uploads
+    alone, not the aux bank's upload for the fingerprints."""
 
     VALID = ("smh_a", "smh_only", "cb", "baseline", "hll_a", "hll_an")
 
@@ -601,8 +689,12 @@ class ScreenPlan:
         order = bank.sorted_by_cardinality()
         self.order = order
         self.e_s = np.trunc(bank.cards[order])
-        self.aux_s = bank.aux[order] if bank.aux is not None else None
         self._regs_s = None
+        # the hll criteria's confirm reads the sorted aux HLL bank as an
+        # array (4 MiB at N=16384); the smh confirm reads its candidates'
+        # rows through the order, so the SMH bank is never gathered
+        self.aux_s = (bank.aux[order] if crit in ("hll_a", "hll_an")
+                      else None)
 
         # Pad the sorted positions to a tile multiple; padded positions have
         # e == 0 (masked out by the n_real / e_b > 0 gates) and read the
@@ -616,17 +708,24 @@ class ScreenPlan:
         e_p[:n] = self.e_s
         self.d_e = torch.from_numpy(e_p).to(self.device)
 
+        # The LSH band fingerprints: the aux bank goes up unsorted with one
+        # zero row, one kernel pass reads it through the map, and it is
+        # freed; no sorted or padded host copy is made.
+        t_fp = time.perf_counter()
         if self.use_smh:
             n_rows_b, self.n_bands = criteria.smh_band_params(
                 bank.aux_param, params.tau)
-            aux_p = np.zeros((n_pad, self.aux_s.shape[1]), self.aux_s.dtype)
-            aux_p[:n] = self.aux_s
-            self.d_fp = torch.from_numpy(band_fingerprints_np(
-                aux_p, n_rows_b, self.n_bands)).to(self.device)
+            aux = np.ascontiguousarray(bank.aux, np.uint64)
+            d_aux = upload_sorted_rows(aux.view(np.uint8), None, 0, n + 1,
+                                       self.device).view(torch.int64)
+            self.d_fp = band_fingerprints(d_aux, self.d_rows, n_rows_b,
+                                          self.n_bands)
+            del d_aux
         else:
             self.n_bands = 1
             self.d_fp = torch.zeros((n_pad, 1), dtype=torch.int32,
                                     device=self.device)
+        self.fp_secs = time.perf_counter() - t_fp
 
         # Truncated telescope: a one-sided (overestimating) harmonic sum
         # with fewer bins (ops/screen.truncate_values).
@@ -823,8 +922,10 @@ class ScreenPlan:
         device union histograms when the bank lives on CUDA. Returns
         [(i, j, jacc)] in sorted-position order."""
         hist_fn = self.device_hist_fn() if self.device.type == "cuda" else None
+        aux = (_SortedRows(self.bank.aux, self.order) if self.use_smh
+               else self.aux_s)
         oracle = PairOracle(
-            self.bank.p, (lambda: self.regs_s), self.e_s, aux=self.aux_s,
+            self.bank.p, (lambda: self.regs_s), self.e_s, aux=aux,
             aux_param=self.bank.aux_param, criterion=self.crit,
             tau=self.params.tau, z_score=self.params.z_score,
             order_n=self.params.order_n, apply_cb=self.use_cb,
@@ -840,7 +941,7 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
     Returns reference-ordered [(name_i, name_j, jacc)]. ti/chunk default
     to auto_tile/auto_chunk. stats: optional dict, filled with the wall
     seconds of each stage (plan, schedule, prune, screen, confirm), the
-    plan's upload_secs and cards_secs (both inside plan_secs), its
+    plan's upload_secs, cards_secs and fp_secs (all inside plan_secs), its
     cards_host_rows and the tile and candidate counts; the screen and
     prune walls end in a device-to-host copy, so they include the device
     work. checkpoint: the
@@ -864,7 +965,7 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
         rows, cols = plan.schedule()
     t2 = time.perf_counter()
     st.update(plan_secs=t1 - t0, upload_secs=plan.upload_secs,
-              cards_secs=plan.cards_secs,
+              cards_secs=plan.cards_secs, fp_secs=plan.fp_secs,
               cards_host_rows=plan.cards_host_rows, schedule_secs=t2 - t1,
               tiles_scheduled=len(rows))
     if not len(rows):
@@ -982,7 +1083,7 @@ def select_pairs_screened_sharded(bank, params, mesh=None, ti=512, chunk=64,
     rows, cols = plan.schedule()
     t2 = time.perf_counter()
     st.update(plan_secs=t1 - t0, upload_secs=plan.upload_secs,
-              cards_secs=plan.cards_secs,
+              cards_secs=plan.cards_secs, fp_secs=plan.fp_secs,
               cards_host_rows=plan.cards_host_rows, schedule_secs=t2 - t1,
               tiles_scheduled=len(rows))
     if not len(rows):

@@ -209,7 +209,7 @@ def _plans(crit, cards, seed=61, n=70, ti=16):
     return jb, jp, pb, pp
 
 
-@pytest.mark.parametrize("crit", ["smh_a", "hll_a", "cb"])
+@pytest.mark.parametrize("crit", ["smh_a", "smh_only", "hll_a", "cb"])
 @pytest.mark.parametrize("cards", [True, False])
 def test_plan_matches_jax_plan(monkeypatch, crit, cards):
     """The plan sets a card-less bank's cards from its own row histograms

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (K1 screen_fused with its launch's plane
 scratch and the plan's row map, K2 weighted_cdf_sum, the gate prune's
 gate_counts, value_presence, the plan's row_hist, the ERTL-MLE
-ertl_mle) and their card paths
+ertl_mle, the plan's band fingerprints band_fp) and their card paths
 against their plain versions,
 bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
@@ -25,14 +25,15 @@ import numpy as np
 import pytest
 import torch
 
+import band_fp_cases
 import gate_cases
 
 from cuda_selection_criteria_tpu_torch.models import SketchBank
 from cuda_selection_criteria_tpu_torch.models import bank as tbank
 from cuda_selection_criteria_tpu_torch.models.bank import host_cards
 from cuda_selection_criteria_tpu_torch.native import fastx
-from cuda_selection_criteria_tpu_torch.ops import (estimators, pairwise,
-                                                  screen)
+from cuda_selection_criteria_tpu_torch.ops import (criteria, estimators,
+                                                  pairwise, screen)
 from cuda_selection_criteria_tpu_torch.parallel import screened
 from cuda_selection_criteria_tpu_torch.parallel.selection import (
     SelectionParams, select_pairs)
@@ -1391,3 +1392,96 @@ def test_ertl_mle_kernel_refuses_and_takes_empty(cuda):
     est, flags = estimators.ertl_mle(h[:0], 14, branch=True)
     assert est.shape == (0, 6) and flags.shape == (0, 6)
     assert estimators.ertl_mle.launches == before
+
+
+def _band_fp_inputs(cuda, m, n_rows, n_bands, n=band_fp_cases.N):
+    aux = band_fp_cases.aux_bank(m, seed=m + n_rows, n=n)
+    bank, rows, aux_p = band_fp_cases.plan_layout(aux, seed=n_bands)
+    return (torch.from_numpy(bank.view(np.int64)).to(cuda),
+            torch.from_numpy(rows).to(cuda), aux_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_rows,n_bands", band_fp_cases.SPLITS)
+@pytest.mark.parametrize("n", [band_fp_cases.N, 5000])
+def test_band_fp_kernel_matches_plain(cuda, m, n_rows, n_bands, n):
+    """The band-fingerprint kernel through a shuffled map with padded
+    positions on the zero row: bit-equal to its plain version and to
+    band_fingerprints_np of the host-sorted, zero-padded aux, at every
+    split of the CPU tests (top-bit and all-ones words)."""
+    d_aux, d_rows, aux_p = _band_fp_inputs(cuda, m, n_rows, n_bands, n)
+    before = screened.band_fingerprints.launches
+    got = screened.band_fingerprints(d_aux, d_rows, n_rows, n_bands)
+    torch.cuda.synchronize()
+    assert screened.band_fingerprints.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (len(d_rows), n_bands)
+    assert torch.equal(got, screened._band_fingerprints_plain(
+        d_aux, d_rows, n_rows, n_bands))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        screened.band_fingerprints_np(aux_p, n_rows, n_bands))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n_rows,n_bands", [(32, 4, 8), (64, 1, 64)])
+def test_band_fp_kernel_on_an_unaligned_bank(cuda, m, n_rows, n_bands):
+    """A bank that starts 8 bytes past a 16-byte boundary takes the
+    one-word loads: still bit-equal to the plain version."""
+    d_aux, d_rows, aux_p = _band_fp_inputs(cuda, m, n_rows, n_bands, 999)
+    flat = torch.empty(d_aux.numel() + 1, dtype=torch.int64, device=cuda)
+    shifted = flat[1:].view(d_aux.shape)
+    shifted.copy_(d_aux)
+    assert shifted.data_ptr() % 16 == 8
+    got = screened.band_fingerprints(shifted, d_rows, n_rows, n_bands)
+    assert torch.equal(got, screened._band_fingerprints_plain(
+        d_aux, d_rows, n_rows, n_bands))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        screened.band_fingerprints_np(aux_p, n_rows, n_bands))
+
+
+@pytest.mark.cuda
+def test_band_fp_kernel_refuses_and_takes_empty(cuda):
+    """A map naming a row outside the bank, a map on the host and a split
+    that is not m raise before any launch; an empty map launches
+    nothing."""
+    d_aux, d_rows, _ = _band_fp_inputs(cuda, 32, 4, 8)
+    before = screened.band_fingerprints.launches
+    for args in ((d_aux, d_rows.cpu(), 4, 8), (d_aux, d_rows, 8, 8),
+                 (d_aux, d_rows + 1, 4, 8), (d_aux, d_rows - 40, 4, 8)):
+        with pytest.raises(ValueError, match="band_fingerprints"):
+            screened.band_fingerprints(*args)
+    empty = screened.band_fingerprints(d_aux, d_rows[:0], 4, 8)
+    assert empty.shape == (0, 8) and empty.device.type == "cuda"
+    assert screened.band_fingerprints.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crit,tau", [("smh_a", 0.9), ("smh_only", 0.8)])
+def test_plan_fp_on_the_card(cuda, crit, tau):
+    """The plan on the card: the smh aux bank goes up unsorted with one
+    zero row, one kernel launch reads it through d_rows, and d_fp equals
+    band_fingerprints_np of the host-sorted, zero-padded aux; no sorted
+    host aux is gathered, and select_pairs' lines equal the CPU's."""
+    rng = np.random.default_rng(17)
+    n, m = 3000, 32
+    regs = synth.synthetic_regs(n, rng.integers(64, 9000, n), 12, rng)
+    aux = synth.synthetic_aux(n, m, rng)
+    aux[::7, 3] |= np.uint64(1 << 63)
+    synth.plant_near_duplicates(regs, aux, rng, 40)
+    bank = SketchBank(names=[f"g{i}" for i in range(n)], regs=regs, p=12,
+                      aux_kind="smh", aux=aux, aux_param=m)
+    params = SelectionParams(tau=tau, criterion=crit, engine="screened")
+    before = screened.band_fingerprints.launches
+    plan = screened.ScreenPlan(bank, params, 512, device=cuda)
+    assert screened.band_fingerprints.launches == before + 1
+    n_rows, n_bands = criteria.smh_band_params(m, tau)
+    assert plan.n_bands == n_bands and plan.fp_secs > 0.0
+    aux_p = np.zeros((plan.n_pad, m), np.uint64)
+    aux_p[:n] = aux[plan.order]
+    np.testing.assert_array_equal(
+        plan.d_fp.cpu().numpy(),
+        screened.band_fingerprints_np(aux_p, n_rows, n_bands))
+    assert plan.aux_s is None
+    got = select_pairs(bank, params, device=cuda)
+    assert got == select_pairs(bank, params, device="cpu") and len(got) > 0
