@@ -8,8 +8,11 @@ reference bench's bank size.
 
 Phases (any failure exits non-zero, without the final result line):
   1. device   - card name and power limit, torch / CUDA / nvcc versions
-  2. build    - nvcc builds every csrc/*.cu for sm_90a, all at once; the
-                ptxas log must show no spill and no serialized wgmma;
+  2. build    - nvcc builds every csrc/*.cu for sm_90a, all at once, and
+                experiments/mle_split.cu (the MLE's timing probes)
+                meanwhile; the ptxas log must show no spill (the MLE
+                kernel's registers and shared memory printed) and no
+                serialized wgmma;
                 g++ builds the host library native/fastx.cpp (libfastx)
                 meanwhile: seconds, compiler and zlib versions; the run
                 fails if it does not build
@@ -77,10 +80,17 @@ Phases (any failure exits non-zero, without the final result line):
                 rows: not a multiple of its 128-row CTA), its f64 estimates
                 0 ulp from hostref.ertl_mle_batch off the log1p branch,
                 cards_from_hists bit-equal to the host MLE with its host
-                rows; then timed beside its plain version and its bound on
+                rows; then timed (the launch alone, 20 issued back to
+                back from C by experiments/mle_split.cu's library, and
+                the wrapper) beside its plain version and its bound on
                 the 16k bank's histograms, on 524,288 rows (those
-                histograms 32 times) and on one dense tile's 512 x 512
-                unions at p=14 (f32 and f64) and p_aux=8. The
+                histograms 32 times), on 524,288 rows of real-sized
+                genomes (synth.genome_hists) and on one dense tile's
+                512 x 512 unions at p=14 (f32 and f64) and p_aux=8, each
+                with the ablation's line (experiments/mle_split.py: the
+                serial-staging design it replaced, each design's staging
+                alone and loop alone, the other layouts tried, identical
+                rows, rows sorted by step count). The
                 band-fingerprint kernel (band_fingerprints: the smh plan's
                 d_fp from its unsorted aux bank through its row map) vs its
                 plain version and band_fingerprints_np of the host-sorted,
@@ -284,9 +294,10 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
     "ertl_mle": (f"{PKG}/csrc/ertl_mle.cu",
                  "cuda_selection_criteria_tpu/ops/estimators.py:78",
                  "estimators.ertl_mle (an XLA while loop): one thread a "
-                 "row, the CTA's rows staged in shared memory at a 65-word "
-                 "stride, every operation a round-to-nearest intrinsic, a "
-                 "log1p-branch flag a row"),
+                 "row, persistent two-warp CTAs, each warp staging 32 rows "
+                 "with 4-byte cp.async copies all in flight into an odd "
+                 "row stride, every operation a round-to-nearest "
+                 "intrinsic, a log1p-branch flag a row"),
     # not a Pallas kernel: the JAX band_fingerprints is an XLA fusion, which
     # the JAX plan replaced by its host twin band_fingerprints_np
     "band_fingerprints": (
@@ -1145,83 +1156,94 @@ def phase_mle_edges(torch, estimators, models, hostref, synth, dev, card):
     return worst
 
 
-def mle_config(torch, estimators, counts, p, dtype, card, label, branch):
+def mle_config(torch, estimators, counts, p, dtype, card, label, branch,
+               split):
     """The MLE kernel on the card tensor `counts` (the histograms a caller
-    holds) against its plain version (bit-equal), timed beside it (two
-    turns, CUDA events) and its bound: the operations these rows' loops
-    need (the plain version's work counter) at the card's FP64 or FP32
-    rate outside the tensor cores, against the q + 2 bins of each row read
-    once and the estimates (and with branch the flags) written once.
-    branch: time the call with the log1p flags (the cards' call) or
-    without (the dense engine's). Library: none (no PyTorch call computes
-    this MLE). Returns the record."""
-    from cuda_selection_criteria_tpu_torch.utils import hopper
+    holds) against its plain version (bit-equal, through the wrapper),
+    then the ablation's line (experiments/mle_split.shape_record with the
+    library and the division counts of `split`: every variant timed, each
+    variant that computes the estimates checked bit-equal), the wrapper and
+    the plain version timed, beside the bound: the operations these rows'
+    loops need (the plain version's work counter) at the card's FP64 or
+    FP32 rate outside the tensor cores, against the q + 2 bins of each row
+    read once and the estimates (and with branch the flags) written once.
+    ms is the launch alone (20 launches issued back to back from C, no
+    Python between them). branch: with the log1p flags (the cards' call)
+    or without (the dense engine's). Library: none (no PyTorch call
+    computes this MLE). Returns the record."""
+    from cuda_selection_criteria_tpu_torch.experiments import mle_split
 
     err, _, _ = mle_vs_plain(torch, estimators, counts, p, dtype)
     check(err == 0, f"ertl_mle {label}: kernel != plain")
-    n = counts.shape[:-1].numel()
-    work = {}
-    estimators._ertl_mle_plain(counts, p, dtype=dtype, work=work)
+    rec = mle_split.shape_record(split[0], label, counts, p, dtype, branch,
+                                 card, split[1])
+    check(all(rec["equal"].values()), f"ertl_mle {label}: a variant that "
+          f"computes the estimates differs from plain: {rec['equal']}")
 
     def kernel():
         return estimators.ertl_mle(counts, p, dtype=dtype, branch=branch)
 
-    def plain():
-        return estimators._ertl_mle_plain(counts, p, dtype=dtype)
-
-    ms = cuda_ms(torch, kernel, 20)
-    plain_ms = cuda_ms(torch, plain, 2)
-    ms2 = cuda_ms(torch, kernel, 20)
-    f64 = dtype == torch.float64
-    rate = hopper.FP64_OPS_PER_S if f64 else hopper.FP32_OPS_PER_S
-    out_bytes = n * (8 if f64 else 4) + (n if branch else 0)
-    bound_ms, bound_by = bound(
-        work["ops"] / rate,
-        (n * (66 - p) * counts.element_size() + out_bytes)
-        / hopper.HBM_BYTES_PER_S)
-    print(f"  [{card}] ertl_mle {label} ({n} rows, p={p}, "
-          f"{str(counts.dtype)[6:]} in, {str(dtype)[6:]}"
+    wrapper_ms = cuda_ms(torch, kernel, 20)
+    plain_ms = cuda_ms(torch, lambda: estimators._ertl_mle_plain(
+        counts, p, dtype=dtype), 2)
+    ms, ms2 = rec["ms"]["kernel"], rec["ms"]["kernel_again"]
+    print(f"  [{card}] ertl_mle {label} ({rec['rows']} rows, p={p}, "
+          f"{rec['in_dtype']} in, {rec['dtype']}"
           f"{', flags' if branch else ''}): {ms:.4f} / {ms2:.4f} ms (two "
-          f"turns) vs plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by}: {work['ops']} operations, "
-          f"{work['secant_steps']} secant steps, {work['update_steps']} "
-          f"inner updates), share of the bound {bound_ms / ms:.3f}; "
+          f"turns, the launch alone), wrapper {wrapper_ms:.4f} ms vs plain "
+          f"{plain_ms:.3f} ms; bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}: {rec['ops']} operations, "
+          f"{rec['secant_steps']} secant steps, {rec['update_steps']} "
+          f"inner updates), share of the bound {rec['bound_ms'] / ms:.3f}; "
           "library none")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                rows=n, ops=work["ops"], secant_steps=work["secant_steps"])
+    return dict(max_abs_err=err, ms=ms, ms2=ms2, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=None, rows=rec["rows"],
+                ops=rec["ops"], ops_div=rec["ops_div"],
+                secant_steps=rec["secant_steps"], ablation_ms=rec["ms"])
 
 
 def phase_mle(torch, estimators, pairwise, models, hostref, synth, hist,
-              regs, aux, p_aux, dev, card):
+              regs, aux, p_aux, dev, card, split):
     """The MLE kernel in phase 3: its edges (phase_mle_edges), then timed
     at the shapes its callers give it: the cards' call (f64 with flags) on
-    the N=16384 bench bank's row histograms `hist` and on 524,288 rows
-    (those histograms 32 times: the smh_a-524k cell's row count, rows of
-    the same 2048-hash shape), and the dense engine's calls (its default
-    f32 on the card, and f64) on one 512 x 512 tile's union histograms of
-    the sorted bench bank `regs` at p=14 and of its aux HLLs `aux` at
-    p_aux. Returns (largest error, the 524,288-row record with the others
-    beside it)."""
+    the N=16384 bench bank's row histograms `hist`, on 524,288 rows (those
+    histograms 32 times: the smh_a-524k cell's row count, rows of the same
+    2048-hash shape) and on 524,288 rows of real-sized genomes
+    (synth.genome_hists: 2^20 to 2^24 hashes, no zero register, longer
+    secant loops), and the dense engine's calls (its default f32 on the
+    card, and f64) on one 512 x 512 tile's union histograms of the sorted
+    bench bank `regs` at p=14 and of its aux HLLs `aux` at p_aux. split:
+    (mle_split's library, its division counts). Returns (largest error,
+    the 524,288-row record with the others beside it)."""
     err = phase_mle_edges(torch, estimators, models, hostref, synth, dev,
                           card)
     rec = mle_config(torch, estimators, hist.repeat(32, 1), 14,
                      torch.float64, card, "524,288 rows (the 16k bank's "
-                     "histograms 32 times)", True)
+                     "histograms 32 times)", True, split)
     rec["n16k"] = mle_config(torch, estimators, hist, 14, torch.float64,
-                             card, "N=16384 bench bank", True)
+                             card, "N=16384 bench bank", True, split)
+    genomes = torch.from_numpy(synth.genome_hists(
+        1 << 19, 14, np.random.default_rng(0x6E0))).to(dev)
+    rec["genomes"] = mle_config(torch, estimators, genomes, 14,
+                                torch.float64, card, "524,288 real-genome "
+                                "rows", True, split)
+    del genomes
     unions = pairwise.union_histograms(regs[:512], regs[512:1024], 14)
     rec["tile_f32"] = mle_config(torch, estimators, unions, 14,
                                  torch.float32, card, "one 512 x 512 tile's "
-                                 "unions", False)
+                                 "unions", False, split)
     rec["tile_f64"] = mle_config(torch, estimators, unions, 14,
                                  torch.float64, card, "one 512 x 512 tile's "
-                                 "unions", False)
+                                 "unions", False, split)
     aux_unions = pairwise.union_histograms(aux[:512], aux[512:1024], p_aux)
     rec["aux_tile_f32"] = mle_config(torch, estimators, aux_unions, p_aux,
                                      torch.float32, card, "one 512 x 512 "
-                                     "tile's aux unions", False)
-    return max(err, rec["max_abs_err"]), rec
+                                     "tile's aux unions", False, split)
+    worst = max(err, *(r["max_abs_err"] for r in (
+        rec, rec["n16k"], rec["genomes"], rec["tile_f32"], rec["tile_f64"],
+        rec["aux_tile_f32"])))
+    return worst, rec
 
 
 def k2_vs_plain(torch, screen, args, kw):
@@ -2876,6 +2898,7 @@ def main():
     sys.path.insert(0, HERE)
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
+    from cuda_selection_criteria_tpu_torch.experiments import mle_split
     from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import (_build, criteria,
                                                       estimators, pairwise,
@@ -2903,8 +2926,9 @@ def main():
     print(nvcc.strip().splitlines()[-1])
 
     print("== phase 2: build", flush=True)
-    with ThreadPoolExecutor(1) as pool:
+    with ThreadPoolExecutor(2) as pool:
         host_lib = pool.submit(fastx.info)  # g++ builds while nvcc does
+        split_build = pool.submit(mle_split.build)
         for name, (path, build_secs, log) in _build.build().items():
             print(log.strip())
             print(f"built {os.path.relpath(path, HERE)} in {build_secs:.2f} s")
@@ -2913,8 +2937,17 @@ def main():
             check(not spills, f"{name}: ptxas spills registers: {spills}")
             check("serialized" not in log,
                   f"{name}: ptxas serializes the wgmma (see the log above)")
+            if name == "ertl_mle":
+                for ln in mle_split.ptxas_lines(log):
+                    print(f"  ertl_mle ptxas {ln}")
             _build.library(name)
         info = host_lib.result()
+        split_path, split_secs, split_log = split_build.result()
+    print(f"built {os.path.relpath(split_path, HERE)} (the MLE's timing "
+          f"probes) in {split_secs:.2f} s")
+    split = (mle_split.load(split_path),
+             mle_split.div_instructions(split_path))
+    print(f"  SASS instructions a division (fast path): {split[1]}")
     print(info["log"].strip())
     check(info["error"] is None, f"libfastx did not build: {info['error']}")
     gxx = subprocess.run([_build.GXX, "--version"], capture_output=True,
@@ -3013,7 +3046,7 @@ def main():
         torch, estimators, pairwise, models, hostref, synth, hist,
         torch.from_numpy(bank.regs[bank.sorted_by_cardinality()[:1024]])
         .to(dev), torch.from_numpy(hbank.aux[h_order]).to(dev),
-        hbank.aux_param, dev, card)
+        hbank.aux_param, dev, card, split)
     del hist
     fp_err = phase_band_fp_edges(torch, screened, dev)
     band_fp = band_fp_config(torch, screen, screened, dev, card)

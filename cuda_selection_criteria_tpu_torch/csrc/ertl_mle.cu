@@ -28,43 +28,99 @@
 // and SLEEF's log1p differ by an ulp, so the bank's exact cardinalities
 // recompute those rows on the host (models/bank.cards_from_hists).
 //
-// Bound on the card: the f64 operations the rows' secant loops need, at
-// the 34 TFLOP/s of FP64 outside the tensor cores, against the histograms
-// read once and the estimates written once at 3.35 TB/s; which binds
-// depends on the rows' iterations (chip_smoke.py counts them with the plain
-// version's work counter). A division is counted as one operation though
-// the card has no divide unit, so the bound is loose on the operations
-// side.
+// Bound on the card: the histograms' q + 2 bins read once and the
+// estimates written once at 3.35 TB/s, against the f64 operations the
+// rows' secant loops need at the 34 TFLOP/s of FP64 outside the tensor
+// cores (chip_smoke.py counts them with the plain version's work
+// counter). Counted so, the bytes bind: 0.034 ms against 0.004 ms for
+// 524,288 rows of the bench bank (0.0075 ms with each __ddiv_rn at the 9
+// FP64 instructions of its SASS). The kernel is bound by neither. Its loop
+// alone, on rows that need no load, takes about 0.047 ms on those rows
+// however many warps run it (24 or 32 an SM): dependent division chains,
+// and lanes that wait for the warp's longest row. Its staging alone
+// streams the rows at about 2.4 TB/s (0.053 ms; row_hist's 256-byte rows
+// are read whole at the DRAM's 64-byte grain). The two overlap only in
+// part: even with a warp's copies and its loop made independent of each
+// other they take 0.075 ms together (cuda_selection_criteria_tpu_torch/
+// experiments/mle_split.py times each part alone and together). So the
+// design keeps every load of a warp in flight at once and as many warps
+// resident as the registers allow, so that some warps stream while the
+// others run their loops.
 //
-// Design: one thread a row, every row on its own loop. The rows are
-// independent and their loops short (a few secant steps of at most 64 inner
-// steps), so nothing is shared between threads but the staging:
-//  - A CTA of kThreads threads takes kThreads consecutive rows. Their
-//    q + 2 bins are copied into shared memory as float (the plain version
-//    holds the histograms in f32 too: exact for counts <= 2^24), thread i
-//    copying elements i, i + kThreads, ... of the block's rows, so
-//    neighbouring threads read neighbouring bins of a row (int32, int64 or
-//    float rows at any row stride: row_hist's (N, 64) int32 histograms,
-//    the dense engine's f32 (..., q + 2) ones or a slice of them).
-//  - A row sits at a stride of kStride = 65 words: when the threads of a
-//    warp read c[row][k] for the same k they hit 32 different banks.
+// Design: one thread a row, every row on its own loop, in groups of 32
+// rows that one warp stages and then computes:
+//  - A CTA is kWarps = 2 warps that share nothing: each stages its own
+//    group into its own part of the CTA's shared memory and waits only for
+//    its own copies, so there is no CTA barrier. The CTAs are persistent:
+//    the grid is the batch's CTAs of groups or the SMs times the CTAs that
+//    stay resident (16 an SM at p = 14: 32 warps, the registers' limit at
+//    64 a thread), whichever is smaller, and warp w takes groups w, w + W,
+//    ... (W the grid's warps). A small batch spreads over every SM (the 16k
+//    bank's 512 groups over all 132); a large one keeps 32 warps an SM
+//    busy with no tail of whole waves.
+//  - Every staging load of a group is in flight before the first one is
+//    waited on: each lane issues its 4-byte cp.async copies (bins lane and
+//    lane + 32 of each of the group's rows: a warp instruction reads one
+//    row's 128 contiguous bytes), then waits for them all. The serial
+//    design before it copied each bin with a load that the next
+//    iteration's store waited on, about 52 loads in turn a thread before
+//    the first secant step.
+//  - One group a warp, not two: double-buffering a warp's groups overlaps
+//    its copies with its own loop but halves the resident warps (16 an
+//    SM), whose loop alone then takes 0.055 ms where 32 warps take 0.047.
+//    A producer warp a CTA filling a ring of groups for 8 consumer warps
+//    was 3% faster at 524,288 rows and 20% slower at 16,384, and
+//    prefetching the next group into L2 made every layout slower
+//    (mle_split.py: variants w1b2, ws8, w2b1_pf).
+//  - A staged row sits at an odd stride of (q + 2) | 1 words: the 32 lanes
+//    that read c[row][k] for one k, and the copies of one instruction, hit
+//    32 different banks. A 1-D bulk copy (TMA) would need the source's
+//    contiguous 256-byte rows, so a stride of 64 words and a 32-way bank
+//    conflict on every read of the loop; 16-byte copies need a stride of a
+//    multiple of 4 words (a 4-way conflict at best). The 4-byte copies need
+//    no alignment beyond the element's, so the fast route takes every
+//    int32 and float32 input: row_hist's (N, 64) histograms, the dense
+//    engine's contiguous (..., q + 2) unions and slices of a wider last
+//    dimension at any row stride and base offset. The copies move the raw
+//    bits; int32 bins are converted to float in place after the wait, each
+//    lane the words it copied (exact up to 2^24, as the plain version holds
+//    them in f32).
+//  - int64 histograms (which no caller on the main path holds) take the
+//    plain route: each lane loads its two bins of 8 rows at a time into
+//    registers, converts and stores them.
 //  - Each thread then runs its own row's secant loop to its own h_hi; the
 //    plain version starts every row's inner loop at the batch's largest
 //    h_hi, which changes nothing for the rows below it. Threads of a warp
-//    diverge where their rows need other step counts.
+//    diverge where their rows need other step counts: the same rows sorted
+//    by their step count run 13% to 20% faster (mle_split.py,
+//    sorted_steps), but no row's step count is known before it is staged,
+//    and sorting within a CTA would cost a pass over its rows and a CTA
+//    barrier.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 128;  // rows a CTA, one a thread
-constexpr int kStride = 65;    // shared words a row: 64 bins and a pad word
+constexpr int kRows = 32;      // rows a group, one a lane
+constexpr int kWarps = 2;      // warps a CTA, each on its own groups
+constexpr int kMinCtas = 16;   // CTAs an SM that the registers must allow
 constexpr int kPow2Lim = 120;  // the plain version's power-of-two range
 // A row that has not converged after this many secant steps stops (the
 // plain version would loop for ever); no histogram of counts reaches it.
 constexpr int kMaxSteps = 1 << 12;
+
+// Shared words a staged row: its q + 2 bins, made odd so that 32 rows at
+// this stride fall in 32 different banks.
+__host__ __device__ constexpr int row_words(int p) { return (66 - p) | 1; }
+
+// Shared bytes a CTA: one group's rows a warp.
+__host__ __device__ constexpr int cta_smem_bytes(int p) {
+  return kWarps * kRows * row_words(p) * (int)sizeof(float);
+}
 
 template <typename T>
 struct Rn;
@@ -128,27 +184,14 @@ __device__ __forceinline__ T ldexp_clamped(T x, int e) {
   return Rn<T>::mul(x, Rn<T>::pow2(max(-kPow2Lim, min(kPow2Lim, e))));
 }
 
-template <typename Tin, typename T>
-__global__ void __launch_bounds__(kThreads)
-    ertl_mle_kernel(const Tin* __restrict__ counts, long long n_rows,
-                    long long stride, int p, T eps, T* __restrict__ est,
-                    uint8_t* __restrict__ branch) {
+// The MLE of one staged row c[0..q+1] (float bins); *log1p is set where the
+// secant start took the log1p branch.
+template <typename T>
+__device__ __forceinline__ T row_mle(const float* c, int p, T eps,
+                                     bool* log1p) {
   using R = Rn<T>;
-  __shared__ float c_s[kThreads * kStride];
   const int q = 64 - p;
   const int nb = q + 2;
-  const long long r0 = (long long)blockIdx.x * kThreads;
-  const int rows = (int)min((long long)kThreads, n_rows - r0);
-  for (int i = threadIdx.x; i < rows * nb; i += kThreads) {
-    const int r = i / nb;
-    const int k = i - r * nb;
-    c_s[r * kStride + k] = (float)counts[(r0 + r) * stride + k];
-  }
-  __syncthreads();
-  if ((int)threadIdx.x >= rows) return;
-  const float* c = c_s + threadIdx.x * kStride;
-  const long long row = r0 + threadIdx.x;
-
   const float mf = (float)(1 << p);
   const T m = (T)mf;
   const bool is_inf = c[q + 1] == mf;
@@ -211,25 +254,175 @@ __global__ void __launch_bounds__(kThreads)
     delta_x = step;
     g_prev = g;
   }
-  est[row] = is_inf ? (T)INFINITY : R::mul(x, m);
-  if (branch != nullptr) branch[row] = secant ? 0 : 1;
+  *log1p = !secant;
+  return is_inf ? (T)INFINITY : R::mul(x, m);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// The fast route's copies of `rows` rows at g (row stride `stride`
+// elements) into s (row stride ss words), then the wait for all of them:
+// lane l copies bins l and l + 32 (q + 2 >= 42 > 32 bins, so every lane
+// has a first bin). Raw bits: int32 bins are converted after the wait.
+template <typename Tin>
+__device__ __forceinline__ void stage_async(const Tin* g, long long stride,
+                                            int rows, int nb, int ss,
+                                            float* s, int lane) {
+  const bool hi = lane + 32 < nb;
+  const Tin* src = g + lane;
+  float* dst = s + lane;
+  for (int r = 0; r < rows; ++r) {
+    cp_async4(dst, src);
+    if (hi) cp_async4(dst + 32, src + 32);
+    src += stride;
+    dst += ss;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// After the wait: the int32 bits this lane copied, as float, in place.
+__device__ __forceinline__ void int_bits_to_float(int rows, int nb, int ss,
+                                                  float* s, int lane) {
+  const bool hi = lane + 32 < nb;
+  float* d = s + lane;
+  for (int r = 0; r < rows; ++r) {
+    d[0] = (float)__float_as_int(d[0]);
+    if (hi) d[32] = (float)__float_as_int(d[32]);
+    d += ss;
+  }
+}
+
+// The plain route (int64): lane l loads bins l and l + 32 of 8 rows at a
+// time into registers, then converts and stores them.
+template <typename Tin>
+__device__ __forceinline__ void stage_sync(const Tin* g, long long stride,
+                                           int rows, int nb, int ss, float* s,
+                                           int lane) {
+  const bool hi = lane + 32 < nb;
+  for (int r0 = 0; r0 < rows; r0 += 8) {
+    Tin lo_v[8], hi_v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool ok = r0 + j < rows;
+      const Tin* row = g + (long long)(r0 + j) * stride + lane;
+      lo_v[j] = ok ? row[0] : (Tin)0;
+      hi_v[j] = ok && hi ? row[32] : (Tin)0;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (r0 + j < rows) {
+        float* d = s + (r0 + j) * ss + lane;
+        d[0] = (float)lo_v[j];
+        if (hi) d[32] = (float)hi_v[j];
+      }
+    }
+  }
+}
+
+// Whether Tin takes the fast route (4-byte cp.async copies).
+template <typename Tin>
+__host__ __device__ constexpr bool async_route() {
+  return sizeof(Tin) == 4;
+}
+
+template <typename Tin, typename T>
+__global__ void __launch_bounds__(kWarps * kRows, kMinCtas)
+    ertl_mle_kernel(const Tin* __restrict__ counts, long long n_rows,
+                    long long stride, int p, T eps, T* __restrict__ est,
+                    uint8_t* __restrict__ branch) {
+  extern __shared__ float c_s[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nb = 66 - p;
+  const int ss = row_words(p);
+  const long long n_groups = (n_rows + kRows - 1) / kRows;
+  const long long n_warps = (long long)gridDim.x * kWarps;
+  float* buf = c_s + warp * kRows * ss;
+  for (long long grp = (long long)blockIdx.x * kWarps + warp; grp < n_groups;
+       grp += n_warps) {
+    const int rows = (int)min((long long)kRows, n_rows - grp * kRows);
+    const Tin* g = counts + grp * kRows * stride;
+    if constexpr (async_route<Tin>()) {
+      stage_async(g, stride, rows, nb, ss, buf, lane);
+      if constexpr (std::is_same<Tin, int32_t>::value)
+        int_bits_to_float(rows, nb, ss, buf, lane);
+    } else {
+      stage_sync(g, stride, rows, nb, ss, buf, lane);
+    }
+    __syncwarp();
+    if (lane < rows) {
+      const long long row = grp * kRows + lane;
+      bool log1p;
+      est[row] = row_mle<T>(buf + lane * ss, p, eps, &log1p);
+      if (branch != nullptr) branch[row] = log1p ? 1 : 0;
+    }
+    __syncwarp();  // every lane is done with buf before it is restaged
+  }
+}
+
+// CTAs of kernel `kern` that stay resident on an SM at `smem` bytes, asked
+// once a (device, p) after setting the carveout to the most shared memory
+// (16 CTAs of 13,568 bytes and 1 KB reserved each fill the SM's 228 KB).
+template <typename K>
+int resident_ctas(K kern, int p, int smem, int dev) {
+  static int cache[16][25];  // 0: not asked yet
+  int* slot = dev >= 0 && dev < 16 ? &cache[dev][p] : nullptr;
+  if (slot != nullptr && *slot > 0) return *slot;
+  cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kWarps * kRows,
+                                                    smem) != cudaSuccess ||
+      n < 1)
+    n = 1;
+  if (slot != nullptr) *slot = n;
+  return n;
+}
+
+// The persistent grid for n_rows rows: min(CTAs of kWarps groups,
+// SMs x resident CTAs).
+template <typename K>
+cudaError_t grid_for(K kern, long long n_rows, int p, unsigned* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long ctas =
+      ((n_rows + kRows - 1) / kRows + kWarps - 1) / kWarps;
+  const long long cap =
+      (long long)sms * resident_ctas(kern, p, cta_smem_bytes(p), dev);
+  *grid = (unsigned)(ctas < cap ? ctas : cap);
+  return cudaSuccess;
+}
+
+template <typename Tin, typename T>
+cudaError_t launch_t(const void* counts, long long n_rows, long long stride,
+                     int p, T eps, void* est, void* branch, cudaStream_t st) {
+  auto kern = ertl_mle_kernel<Tin, T>;
+  unsigned grid = 0;
+  cudaError_t err = grid_for(kern, n_rows, p, &grid);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, kWarps * kRows, cta_smem_bytes(p), st>>>(
+      static_cast<const Tin*>(counts), n_rows, stride, p, eps,
+      static_cast<T*>(est), static_cast<uint8_t*>(branch));
+  return cudaGetLastError();
 }
 
 template <typename Tin>
 cudaError_t launch_in(const void* counts, long long n_rows, long long stride,
                       int p, int f64, double eps, void* est, void* branch,
                       cudaStream_t st) {
-  const unsigned blocks = (unsigned)((n_rows + kThreads - 1) / kThreads);
-  const Tin* in = static_cast<const Tin*>(counts);
-  uint8_t* br = static_cast<uint8_t*>(branch);
-  if (f64) {
-    ertl_mle_kernel<Tin, double><<<blocks, kThreads, 0, st>>>(
-        in, n_rows, stride, p, eps, static_cast<double*>(est), br);
-  } else {
-    ertl_mle_kernel<Tin, float><<<blocks, kThreads, 0, st>>>(
-        in, n_rows, stride, p, (float)eps, static_cast<float*>(est), br);
-  }
-  return cudaGetLastError();
+  if (f64)
+    return launch_t<Tin, double>(counts, n_rows, stride, p, eps, est, branch,
+                                 st);
+  return launch_t<Tin, float>(counts, n_rows, stride, p, (float)eps, est,
+                              branch, st);
 }
 
 }  // namespace
@@ -247,8 +440,6 @@ extern "C" int csc_ertl_mle(const void* counts, int in_kind, long long n_rows,
                             void* est, void* branch, void* stream) {
   if (n_rows <= 0) return (int)cudaSuccess;
   if (p < 2 || p > 24 || stride < 66 - p) return (int)cudaErrorInvalidValue;
-  if ((n_rows + kThreads - 1) / kThreads >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (in_kind) {
     case 0:

@@ -305,11 +305,12 @@ def ertl_mle(counts, p, relerr=1e-2, dtype=torch.float64, branch=False):
 
     CPU tensors of any numeric dtype run _ertl_mle_plain (and
     log1p_branch). A CUDA tensor launches the hand-written kernel
-    (csrc/ertl_mle.cu: one thread a row, the block's rows staged in shared
-    memory, every operation an explicit round-to-nearest intrinsic) on the
-    current stream, or raises; there is no fallback. The kernel reads int32,
-    int64 or float32 histograms in place: the batch dimensions must merge
-    into one row dimension (a contiguous tensor, or a slice of the last
+    (csrc/ertl_mle.cu: one thread a row, persistent CTAs whose warps each
+    stage 32-row groups in shared memory with every copy in flight at once,
+    every operation an explicit round-to-nearest intrinsic) on the current
+    stream, or raises; there is no fallback. The kernel reads int32, int64
+    or float32 histograms in place: the batch dimensions must merge into
+    one row dimension (a contiguous tensor, or a slice of the last
     dimension of one) whose bins are contiguous."""
     who = "ertl_mle"
     q = 64 - p

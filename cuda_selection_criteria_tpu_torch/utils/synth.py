@@ -100,3 +100,58 @@ def bench_bank(n, items=BENCH_ITEMS):
     aux = synthetic_aux(n, BENCH_M, rng)
     e = np.trunc(host_cards(regs, BENCH_P))
     return regs, aux, e
+
+
+# A curator's collection of real genomes (GTDB-sized bacterial and archaeal
+# assemblies): 2^20 to 2^24 distinct k-mers a genome, log-uniform.
+GENOME_ITEMS = (1 << 20, 1 << 24)
+
+
+def register_law(lam, p):
+    """float64 (..., q + 2) probabilities of a register's value 0..q+1
+    (q = 64 - p) when Poisson(lam) hashes land in it: P(R <= k) =
+    exp(-lam 2^-k) for k <= q, and R <= q + 1 always (Ertl's Poisson
+    model, the law the MLE maximises)."""
+    q = 64 - p
+    lam = np.asarray(lam, np.float64)[..., None]
+    cdf = np.exp(-lam * np.ldexp(1.0, -np.arange(q + 1)))
+    return np.concatenate([cdf[..., :1], np.diff(cdf, axis=-1),
+                           1.0 - cdf[..., -1:]], axis=-1)
+
+
+def genome_hists(n, p, rng, items=GENOME_ITEMS):
+    """int32 (n, 64) register histograms of n real-sized genomes at p (the
+    layout of ops/screen.row_hist: bins 0..q+1, zeros after): each row a
+    multinomial of the 2^p registers over register_law(cardinality / 2^p)
+    for a cardinality drawn log-uniform in `items`. Above about 2^p * 30
+    hashes no register is zero and the rows' secant loops run longer than
+    the bench bank's (2048 hashes a genome)."""
+    m = 1 << p
+    card = np.exp(rng.uniform(np.log(items[0]), np.log(items[1]), n))
+    probs = register_law(card / m, p)
+    out = np.zeros((n, 64), np.int32)
+    out[:, :probs.shape[1]] = rng.multinomial(m, probs)
+    return out
+
+
+def genome_regs(torch, n, p, seed, device, items=GENOME_ITEMS,
+                chunk=4096):
+    """uint8 (n, 2^p) registers of n real-sized genomes, drawn on `device`
+    from a torch generator seeded with `seed`: a cardinality log-uniform in
+    `items` a row, then each register independently from register_law by
+    inversion, R = ceil(log2(lam / E)) for E ~ Exp(1), clamped to
+    [0, q + 1]. Made on the device: a 2 GiB bank is 2^31 draws."""
+    q, m = 64 - p, 1 << p
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = torch.empty((n, m), dtype=torch.uint8, device=device)
+    lo, hi = np.log(items[0]), np.log(items[1])
+    for s in range(0, n, chunk):
+        rows = min(chunk, n - s)
+        u = torch.rand((rows, 1), generator=gen, device=device,
+                       dtype=torch.float64)
+        lam = torch.exp(lo + (hi - lo) * u) / m
+        e = torch.empty((rows, m), device=device).exponential_(
+            generator=gen)
+        r = torch.ceil(torch.log2(lam.float() / e)).clamp_(0, q + 1)
+        out[s:s + rows] = r.to(torch.uint8)
+    return out

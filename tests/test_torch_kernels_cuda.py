@@ -1380,6 +1380,84 @@ def test_cards_from_hists_on_cuda_are_host_cards(cuda, in_dtype):
     np.testing.assert_array_equal(cards.view(np.int64), want.view(np.int64))
 
 
+# csrc/ertl_mle.cu's CTA: kWarps warps of kRows = 32 rows each
+MLE_CTA_ROWS = 64
+
+
+def _mle_law_rows(p, n, seed):
+    """int64 (n + 5, 64) histograms at any p without a register bank: n
+    rows of real-sized genomes (synth.genome_hists), then an empty row, a
+    saturated one, one bin, a row on the log1p branch (registers only at
+    q - 1, q and q + 1) and zeros with saturated registers."""
+    q, m = 64 - p, 1 << p
+    h = synth.genome_hists(n, p, np.random.default_rng(seed)).astype(
+        np.int64)
+    edge = np.zeros((5, 64), np.int64)
+    edge[0, 0] = m
+    edge[1, q + 1] = m
+    edge[2, min(7, q)] = m
+    edge[3, q], edge[3, q - 1] = max(1, m // 5), 1 if m > 4 else 0
+    edge[3, q + 1] = m - edge[3, q] - edge[3, q - 1]
+    edge[4, 0], edge[4, q + 1] = m // 2, m - m // 2
+    return np.concatenate([h, edge])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, MLE_CTA_ROWS - 1, MLE_CTA_ROWS,
+                               MLE_CTA_ROWS + 1, 1306])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ertl_mle_kernel_row_counts(cuda, n, dtype):
+    """Batches of 1, a CTA's rows less one, a CTA's rows, one more and
+    1306 rows (crafted rows, shuffled): the plain version's bits and
+    flags."""
+    h = _mle_rows(14, 90)
+    idx = np.random.default_rng(n).permutation(len(h))[:n]
+    _mle_vs_plain(torch.from_numpy(h[idx]).to(cuda, torch.int32), 14, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [2, 8, 14, 24])
+@pytest.mark.parametrize("in_dtype", [torch.int32, torch.int64,
+                                      torch.float32])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ertl_mle_kernel_strided_slice(cuda, p, in_dtype, dtype):
+    """The first q + 2 bins of rows 71 elements apart, from one element
+    into a buffer (a base 4 or 8 bytes off a 16-byte boundary; the fast
+    route for int32 and float32, the plain route for int64), at p = 2,
+    8, 14 and 24: the plain version's bits and flags."""
+    nb, stride = 66 - p, 71
+    h = _mle_law_rows(p, 3 * MLE_CTA_ROWS + 7, 31 + p)
+    n = len(h)
+    buf = torch.full((1 + n * stride + 5,), 7, dtype=in_dtype)
+    rows = buf[1:1 + n * stride].view(n, stride)
+    rows[:, :nb] = torch.from_numpy(h[:, :nb]).to(in_dtype)
+    d = buf.to(cuda)[1:1 + n * stride].view(n, stride)[:, :nb]
+    assert d.stride() == (stride, 1)
+    assert d.data_ptr() % 16 != 0
+    _mle_vs_plain(d, p, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ertl_mle_kernel_on_genome_rows(cuda, dtype):
+    """Rows of real-sized genomes (no zero register, longer secant loops
+    than the bench bank's), as row_hist lays them out: the plain
+    version's bits, no row on the log1p branch; in f64 0 ulp from
+    hostref.ertl_mle_batch, and cards_from_hists equal to host_cards' MLE
+    with no host row."""
+    h = synth.genome_hists(3000, 14, np.random.default_rng(0x6E0))
+    d = torch.from_numpy(h).to(cuda)
+    got, flags = _mle_vs_plain(d, 14, dtype)
+    assert not bool(flags.any())
+    if dtype == torch.float64:
+        want = hostref.ertl_mle_batch(h, 14)
+        assert _ulps(got.cpu().numpy(), want).max() == 0
+        cards, host_rows = tbank.cards_from_hists(d, 14)
+        assert host_rows == 0
+        np.testing.assert_array_equal(cards.view(np.int64),
+                                      want.view(np.int64))
+
+
 @pytest.mark.cuda
 def test_ertl_mle_kernel_refuses_and_takes_empty(cuda):
     """A histogram type or layout the kernel does not take raises before

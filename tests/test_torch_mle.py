@@ -14,8 +14,17 @@ of SketchBank.compute_cards, which the screened plan's cardinalities take.
   histograms;
 - a scalar numpy model of the kernel (csrc/ertl_mle.cu: one row at a time,
   its own loop to its own h_hi, the clamped powers of two, frexp) gives
-  the plain version's bits in f64 and f32 on every row, and the plain
+  the plain version's bits in f64 and f32 on every row, crafted rows and
+  rows of real-sized genomes (synth.genome_hists), and the plain
   version's work counter (the kernel's bound) counts the model's steps;
+- a model of the kernel's staging and blocking (32-row groups, persistent
+  two-warp CTAs whose warps take groups w, w + W, ... each into its own
+  part of the CTA's memory at an odd row stride, lane l copying bins l and
+  l + 32): every bin staged once by the warp that owns its row, in
+  bounds, in 32 banks a warp instruction; the
+  fast route (4-byte copies) for every 4-byte element at any row stride
+  and base offset; rows staged through the model's addresses give the
+  plain version's bits; the grid spreads the 16k bank over every SM;
 - the wrapper raises on what the kernel does not take (checked on meta
   tensors, which reach every check but the launch);
 - ScreenPlan's cards and order, and select_pairs' lines for all six
@@ -292,6 +301,188 @@ def test_kernel_model_matches_plain(p, dt):
         + 6 * steps["update_steps"] + 2 * steps["acc_steps"])
 
 
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_kernel_model_matches_plain_on_genome_rows(dt):
+    """Rows of real-sized genomes (synth.genome_hists: 2^20 to 2^24
+    hashes, no zero register, three secant steps and longer inner loops
+    than the bench bank's): the kernel's per-row model gives the plain
+    version's bits, and no row takes the log1p branch."""
+    np_dt = np.dtype(np.float64 if dt == "f64" else np.float32)
+    h = synth.genome_hists(96, 14, np.random.default_rng(0x6E0))
+    assert not h[:, 0].any()
+    work = {}
+    plain = estimators._ertl_mle_plain(T(h), 14, dtype=_TORCH[np_dt],
+                                       work=work).numpy()
+    steps = {}
+    model = [_kernel_model(row, 14, np_dt, steps=steps) for row in h]
+    int_t = np.int64 if dt == "f64" else np.int32
+    np.testing.assert_array_equal(
+        plain.view(int_t), np.array([v for v, _ in model], np_dt).view(int_t))
+    assert not any(b for _, b in model)
+    assert steps["update_steps"] == work["update_steps"]
+    assert work["update_steps"] > 40 * len(h)  # the bench bank's: about 23
+
+
+# csrc/ertl_mle.cu's staging and blocking: kRows rows a group (one a lane),
+# persistent CTAs of kWarps warps that share nothing, each warp staging one
+# group at a time into its own part of the CTA's shared memory at an odd
+# row stride; the SM's 228 KiB (1 KiB of it reserved a CTA) and 32 CTAs
+# bound the CTAs that stay resident.
+K_ROWS, K_WARPS = 32, 2
+SM_SMEM, CTA_RESERVED, SM_CTAS = 228 * 1024, 1024, 32
+ELEM = {"int32": 4, "int64": 8, "float32": 4}
+
+
+def _row_words(p):
+    return (66 - p) | 1
+
+
+def _cta_smem(p):
+    return K_WARPS * K_ROWS * _row_words(p) * 4
+
+
+def _resident(p):
+    return min(SM_CTAS, SM_SMEM // (_cta_smem(p) + CTA_RESERVED))
+
+
+def _grid(n_rows, p, sms=132):
+    groups = -(-n_rows // K_ROWS)
+    return min(-(-groups // K_WARPS), sms * _resident(p))
+
+
+def _async_route(in_kind):
+    """The fast route (4-byte cp.async copies of the raw bits) takes every
+    4-byte element type; int64 loads through registers."""
+    return ELEM[in_kind] == 4
+
+
+def _stage_model(n_rows, stride, p, grid):
+    """Every copy of the kernel's staging, in issue order: int64 columns
+    (cta, warp, group, lane, row, bin, source element, shared word, copy
+    slot), the source element counted from the histograms' base
+    (row * stride + bin) and the shared word from the CTA's dynamic shared
+    memory. Warp w of CTA b (global warp b * K_WARPS + w) takes groups
+    b * K_WARPS + w, + grid * K_WARPS, ... into its own part of the CTA's
+    memory; lane l copies bins l and l + 32 (slot 1, where it is below
+    q + 2) of each row of the group."""
+    nb, ss = 66 - p, _row_words(p)
+    n_groups = -(-n_rows // K_ROWS)
+    out = []
+    for cta in range(grid):
+        for warp in range(K_WARPS):
+            for g in range(cta * K_WARPS + warp, n_groups, grid * K_WARPS):
+                rows = min(K_ROWS, n_rows - g * K_ROWS)
+                for r in range(rows):
+                    for slot in (0, 1):
+                        for lane in range(32):
+                            k = lane + 32 * slot
+                            if k >= nb:
+                                continue
+                            row = g * K_ROWS + r
+                            out.append((cta, warp, g, lane, row, k,
+                                        row * stride + k,
+                                        (warp * K_ROWS + r) * ss + k, slot))
+    return np.array(out, np.int64).reshape(-1, 9)
+
+
+@pytest.mark.parametrize("n_rows", [1, 31, 32, 33, 300])
+@pytest.mark.parametrize("stride_extra", [0, 1, 12])
+@pytest.mark.parametrize("grid", [1, 3, 64])
+@pytest.mark.parametrize("p", [2, 8, 14, 24])
+def test_stage_model_stages_every_bin_once(n_rows, stride_extra, grid, p):
+    """The staging copies each bin 0..q+1 of every row exactly once, in the
+    warp that owns the row's group; its words stay inside that warp's part
+    of the CTA's memory, distinct within a group; a warp instruction's 32
+    copies land in 32 banks and read contiguous elements; the loop's reads
+    of one bin across a group's rows land in 32 banks (the odd row
+    stride)."""
+    nb, ss = 66 - p, _row_words(p)
+    stride = nb + stride_extra
+    grid = min(grid, _grid(n_rows, p))
+    m = _stage_model(n_rows, stride, p, grid)
+    cta, warp, g, lane, row, k, src, word, slot = m.T
+    pairs = row * 64 + k
+    assert len(np.unique(pairs)) == len(m) == n_rows * nb
+    owner = (row // K_ROWS) % (grid * K_WARPS)
+    np.testing.assert_array_equal(cta * K_WARPS + warp, owner)
+    assert (src >= 0).all() and src.max() == (n_rows - 1) * stride + nb - 1
+    assert (word >= 0).all() and word.max() * 4 < _cta_smem(p)
+    np.testing.assert_array_equal(word // (K_ROWS * ss), warp)
+    for key in np.unique(g):
+        w = word[g == key]
+        assert len(np.unique(w)) == len(w)
+    inst = row * 2 + slot  # one warp instruction: a (row, slot)
+    for key in np.unique(inst)[:64]:
+        sel = inst == key
+        assert len(np.unique(word[sel] % 32)) == sel.sum()
+        np.testing.assert_array_equal(np.diff(np.sort(src[sel])), 1)
+    for k0 in range(nb):
+        reads = np.arange(K_ROWS) * ss + k0
+        assert len(np.unique(reads % 32)) == K_ROWS
+
+
+@pytest.mark.parametrize("in_kind", ["int32", "int64", "float32"])
+@pytest.mark.parametrize("layout", ["contiguous", "row_hist", "slice"])
+@pytest.mark.parametrize("base_elems", [0, 1, 3])
+def test_staged_rows_give_the_plain_estimates(in_kind, layout, base_elems):
+    """Histograms laid out as the callers hold them (q + 2 contiguous bins,
+    row_hist's 64-bin rows, a slice of a wider last dimension) from a base
+    0, 1 or 3 elements into a buffer (a base off 16-byte alignment): the
+    byte address of every copy is a multiple of its element's size on the
+    fast route, and the rows that the model stages into shared memory (as
+    float: the raw float bits, int32 converted after the wait, int64
+    through registers) give the plain version's bits and flags, f64 and
+    f32, crafted and real-genome rows alike."""
+    p, q = 14, 50
+    nb = q + 2
+    h = np.concatenate([_crafted(p, 20, 5),
+                        synth.genome_hists(10, p, np.random.default_rng(9))])
+    n = len(h)
+    stride = {"contiguous": nb, "row_hist": 64, "slice": 71}[layout]
+    np_in = {"int32": np.int32, "int64": np.int64,
+             "float32": np.float32}[in_kind]
+    flat = np.full(base_elems + n * stride + 5, 7, np_in)
+    for r in range(n):
+        flat[base_elems + r * stride:base_elems + r * stride + nb] = \
+            h[r, :nb]
+    grid = 2
+    m = _stage_model(n, stride, p, grid)
+    src = base_elems + m[:, 6]
+    if _async_route(in_kind):
+        assert ((src * ELEM[in_kind]) % 4 == 0).all()
+    ss = _row_words(p)
+    staged = np.full((n, ss), np.nan, np.float32)
+    staged[m[:, 4], m[:, 5]] = flat[src].astype(np.float32)
+    for dt in (np.dtype(np.float64), np.dtype(np.float32)):
+        view = T(flat[base_elems:base_elems + n * stride].copy()).view(
+            n, stride)[:, :nb]
+        plain = estimators._ertl_mle_plain(view, p, dtype=_TORCH[dt])
+        flags = estimators.log1p_branch(view, p, _TORCH[dt]).numpy()
+        model = [_kernel_model(row, p, dt) for row in staged[:, :nb]]
+        int_t = np.int64 if dt == np.float64 else np.int32
+        np.testing.assert_array_equal(
+            plain.numpy().view(int_t),
+            np.array([v for v, _ in model], dt).view(int_t))
+        np.testing.assert_array_equal(flags, [b for _, b in model])
+
+
+def test_grid_fits_the_batch():
+    """The persistent grid: the 16k bank's 512 groups in 256 CTAs over all
+    132 SMs; 524,288 rows keep the resident CTAs busy (16 an SM at p=14, 14
+    at p=8, 13 at p=2: 32, 28 and 26 warps) with 3 or 4 groups a warp; the
+    CTAs' shared memory fits the SM at every p without an opt-in above
+    48 KiB."""
+    assert _grid(16384, 14) == 256 and 256 >= 132
+    assert _resident(14) == 16 and _resident(8) == 14 and _resident(2) == 13
+    assert _grid(524288, 14) == 132 * 16
+    groups, warps = 524288 // K_ROWS, 132 * 16 * K_WARPS
+    assert -(-groups // warps) == 4 and groups // warps == 3
+    assert _grid(1, 14) == 1 and _grid(65, 8) == 2
+    for p in range(2, 25):
+        assert _resident(p) * (_cta_smem(p) + CTA_RESERVED) <= SM_SMEM
+        assert _cta_smem(p) <= 48 * 1024
+
+
 def test_plain_layouts_and_shapes():
     """The plain version reads a slice of the last dimension, any batch
     shape and one histogram alone as the contiguous rows; an empty batch
@@ -312,7 +503,7 @@ def test_plain_layouts_and_shapes():
 
 @pytest.mark.parametrize("case", [
     "dtype16", "compute_f16", "few_bins", "bins_strided", "unmerged",
-    "p_range"])
+    "p_range", "p_25"])
 def test_wrapper_rejects_bad_inputs(case):
     """What the kernel does not take raises ValueError before any launch:
     meta tensors reach every check of the card path, then fail on the
@@ -326,7 +517,8 @@ def test_wrapper_rejects_bad_inputs(case):
             "bins_strided": (torch.empty((5, 6, 128), dtype=torch.int32,
                                          device="meta")[..., ::2], 14, {}),
             "unmerged": (x.permute(1, 0, 2), 14, {}),
-            "p_range": (x, 40, {})}[case]
+            "p_range": (x, 40, {}),
+            "p_25": (x, 25, {})}[case]
     with pytest.raises(ValueError, match="ertl_mle") as err:
         estimators.ertl_mle(args[0], args[1], **args[2])
     assert "unsupported device" not in str(err.value)
