@@ -9,9 +9,10 @@ reference bench's bank size.
 Phases (any failure exits non-zero, without the final result line):
   1. device   - card name and power limit, torch / CUDA / nvcc versions
   2. build    - nvcc builds every csrc/*.cu for sm_90a, all at once, and
-                experiments/mle_split.cu (the MLE's timing probes)
-                meanwhile; the ptxas log must show no spill (the MLE
-                kernel's registers and shared memory printed) and no
+                experiments/mle_split.cu and experiments/hist_split.cu (the
+                MLE's and the row histograms' timing probes) meanwhile; the
+                ptxas log must show no spill (the MLE and row-histogram
+                kernels' registers and shared memory printed) and no
                 serialized wgmma;
                 g++ builds the host library native/fastx.cpp (libfastx)
                 meanwhile: seconds, compiler and zlib versions; the run
@@ -63,12 +64,15 @@ Phases (any failure exits non-zero, without the final result line):
                 version on 16 MiB + 13 uniform bytes 0-255, from an aligned
                 start and from byte 1. The row-histogram kernel (the plan's
                 row_hist: every row's register histogram and the present
-                values in one pass) vs its plain version, bit-equal
-                histograms and values: rows of 100 and 48 registers (not
-                16 bytes a lane), rows that start unaligned, row counts
-                that are not a multiple of the CTA's 8 rows, all-zero rows,
-                values up to 64 - p + 1, and a byte of 64 that both
-                versions refuse; then the N=16384 bench bank as the phase
+                values in one pass) vs its plain version and numpy's row
+                bincounts, bit-equal histograms and values: rows of 100 and
+                48 registers (not 16 bytes a lane), rows that start
+                unaligned, row counts that are not a multiple of the CTA's
+                4 rows, all-zero rows, values up to 64 - p + 1, dense rows
+                of real-sized genomes at p=14, rows of one value each
+                (0..63), one row of 2^31 - 1 bytes (the largest R), a row
+                of 2^31 refused before any launch and a byte of 64 that
+                both versions refuse; then the N=16384 bench bank as the phase
                 3 plan uploaded it (its cards from the card's histograms
                 bit-equal to host_cards), timed beside its plain version,
                 its bound and one torch.bincount of row * 64 + reg. The
@@ -213,7 +217,9 @@ Phases (any failure exits non-zero, without the final result line):
                 plain versions, timed beside them and their bounds, the
                 presence kernel beside one torch.bincount of its uint8
                 bytes (the row histograms' bincount of row * 64 + reg
-                would take a 16 GiB int64 index, not timed);
+                would take a 16 GiB int64 index, not timed), and the
+                row-histogram ablation's line on it (phase 13's
+                hist_split.shape_record);
                 validate_ring_scale.run
                 on the same bank on one strip and on two strips of the
                 card (K1's strip entry), pairs equal
@@ -228,13 +234,24 @@ Phases (any failure exits non-zero, without the final result line):
                 bit-equal to its plain version, timed beside it, its bound
                 and torch._int_mm; three kernel_tuning configurations;
                 scale_sweep at N=4096
+ 13. hist     - the row-histogram kernel's ablation
+                (experiments/hist_split.py): the SASS instructions a byte
+                of each variant's row loop (cuobjdump), the CTAs an SM, and
+                on 2^17 rows of real-sized genomes' registers (2 GiB), their
+                first 16,384 rows (beside one torch.bincount of row * 64 +
+                reg), 2^17 rows of one value and the phase 3 bench bank:
+                the kernel, the mask-walk design it replaced, the other
+                layouts tried, the kernel without its end-of-row sums and
+                its loads alone, each launch alone in two turns beside the
+                wrapper and the bound, every variant that computes the
+                histograms bit-equal to the plain version
 
 The last two lines are a JSON record of the kernels (launches on the main
 paths of phases 5 to 7, times, bounds, library times, K2's p=14 record,
-the MLE's other shapes, and the launches of phase 8's dense engine (the
-MLE), of phase 9's ring and tile-sharded runs, of phase 10, of phase 11
-and of phase 12's bench in records of their own) and the result
-line
+the MLE's other shapes, the row histograms' dense rows and ablation, and
+the launches of phase 8's dense engine (the MLE), of phase 9's ring and
+tile-sharded runs, of phase 10, of phase 11 and of phase 12's bench in
+records of their own) and the result line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -284,9 +301,11 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
     "row_hist": (f"{PKG}/csrc/row_hist.cu",
                  "cuda_selection_criteria_tpu/models/bank.py:97",
                  "SketchBank.compute_cards' bincount of row * 64 + reg: one "
-                 "warp a row, 16-byte loads, private 16-bit counters of the "
-                 "non-zero bytes in shared memory, the present-value mask "
-                 "of the same pass"),
+                 "warp a row, 16-byte loads two batches in flight, each "
+                 "byte one __byte_perm and one red.shared.add on the lane's "
+                 "own 32-bit value-major counter, never cleared (a row's "
+                 "bins are differences of sums), the present-value mask of "
+                 "the same pass"),
     # not a Pallas kernel: the JAX estimators.ertl_mle is an XLA while
     # loop, the device branch of SketchBank.compute_cards
     # (cuda_selection_criteria_tpu/models/bank.py:80-104) and the dense
@@ -837,36 +856,68 @@ def hll_like(rng, n, r, top):
     return np.where(hit, vals, 0).astype(np.uint8)
 
 
-def phase_row_hist_edges(torch, screen, dev):
-    """The row-histogram kernel against its plain version where its design
-    has edges: 1001 skewed rows at p=14 with all-zero rows and the HLL
-    maximum 64 - 14 + 1 (1001 rows: not a multiple of the CTA's 8), rows
-    of 100 registers (not 16 bytes a lane; every row starts at another
-    alignment), rows of 48 uniform values 0..63, 9 rows of 2^14 from byte
-    1 of a buffer (unaligned heads and tails), and a byte of 64, which
-    both versions refuse with ValueError."""
+def numpy_row_bincounts(regs, chunk=1 << 27):
+    """numpy's bincount of each row of a host uint8 (n, r) array, a row in
+    chunks of `chunk` bytes (np.bincount casts to int64): int64 (n, 64)."""
+    return np.stack([sum(np.bincount(row[c:c + chunk], minlength=64)
+                         for c in range(0, len(row), chunk))
+                     for row in regs])
+
+
+def phase_row_hist_edges(torch, screen, synth, dev):
+    """The row-histogram kernel against its plain version and numpy's row
+    bincounts where its design has edges: 1001 skewed rows at p=14 with
+    all-zero rows and the HLL maximum 64 - 14 + 1 (1001 rows: not a
+    multiple of the CTA's 4), rows of 100 registers (not 16 bytes a lane;
+    every row starts at another alignment), rows of 48 uniform values
+    0..63, 1001 dense rows of real-sized genomes at p=14 (synth.genome_regs:
+    no zero byte), 64 rows of 2^14 bytes of one value each, 0..63 (a lane's
+    counts all on one counter), 9 rows of 2^14 from byte 1 of a buffer
+    (unaligned heads and tails), one row of 2^31 - 1 uniform bytes 0..63
+    (the largest R an int holds), then a row of 2^31 bytes and a byte of
+    64, which both raise ValueError (the byte from both versions)."""
     rng = np.random.default_rng(0x4157)
     worst = 0
     skewed = hll_like(rng, 1001, 1 << 14, 51)
     skewed[[0, 500, 1000]] = 0
     skewed[7, 99] = 51
-    cases = [("skewed p=14 with zero rows", skewed),
-             ("R=100", hll_like(rng, 13, 100, 51)),
-             ("R=48 uniform 0..63", rng.integers(0, 64, (37, 48),
-                                                 dtype=np.uint8))]
-    for label, regs in cases:
-        err, got, _ = row_hist_vs_plain(torch, screen,
-                                        torch.from_numpy(regs).to(dev), label)
-        want = np.stack([np.bincount(row, minlength=64) for row in regs])
-        check(np.array_equal(got.cpu().numpy(), want),
+    dense = synth.genome_regs(torch, 1001, 14, 0x4157, dev)
+    cases = [("skewed p=14 with zero rows", torch.from_numpy(skewed).to(dev)),
+             ("R=100", torch.from_numpy(hll_like(rng, 13, 100, 51)).to(dev)),
+             ("R=48 uniform 0..63", torch.from_numpy(rng.integers(
+                 0, 64, (37, 48), dtype=np.uint8)).to(dev)),
+             ("dense genome rows p=14", dense),
+             ("one value a row p=14", torch.arange(
+                 64, dtype=torch.uint8, device=dev)[:, None].repeat(
+                     1, 1 << 14)),
+             ("one row of 2^31 - 1", torch.randint(
+                 0, 64, (1, (1 << 31) - 1), dtype=torch.uint8, device=dev,
+                 generator=torch.Generator(device=dev).manual_seed(31)))]
+    for label, d in cases:
+        err, got, _ = row_hist_vs_plain(torch, screen, d, label)
+        check(np.array_equal(got.cpu().numpy(),
+                             numpy_row_bincounts(d.cpu().numpy())),
               f"row_hist {label}: != numpy's row bincounts")
         worst = max(worst, err)
+    del cases, d
+    torch.cuda.empty_cache()
     flat = torch.from_numpy(hll_like(rng, 1, 9 * (1 << 14) + 1, 51)
                             .reshape(-1)).to(dev)
     err, _, _ = row_hist_vs_plain(torch, screen,
                                   flat[1:].view(9, 1 << 14),
                                   "9 rows from byte 1")
     worst = max(worst, err)
+    before = screen.row_hist.launches
+    try:
+        screen.row_hist(torch.zeros((1, 1 << 31), dtype=torch.uint8,
+                                    device=dev))
+    except ValueError as exc:
+        print(f"  row_hist a row of 2^31: ValueError ({exc})")
+    else:
+        check(False, "row_hist took a row of 2^31 registers")
+    check(screen.row_hist.launches == before,
+          "row_hist launched on a row of 2^31 registers")
+    torch.cuda.empty_cache()
     bad = torch.from_numpy(hll_like(rng, 24, 1 << 14, 51)).to(dev)
     bad[17, 4321] = 64
     for fn in (screen.row_hist, lambda d: screen._row_hist_plain(d, 2048)):
@@ -2690,6 +2741,14 @@ def phase_scale(torch, mods, dev, card):
                                f"N={SCALE_N} bank")
     rows_2g, hist = row_hist_config(torch, screen, d_regs, card,
                                     f"N={SCALE_N} bank", library=False)
+    # the row-histogram ablation's line on this bank (phase 13 runs the
+    # others)
+    split = mods["hist_split"].shape_record(mods["hist_lib"],
+                                            f"N={SCALE_N} bench bank",
+                                            d_regs, card)
+    check(all(split["equal"].values()), "hist_split on the N="
+          f"{SCALE_N} bank: a variant differs from plain: {split['equal']}")
+    rows_2g["ablation"] = split
     # the cards of the card's histograms through the MLE kernel, bit-equal
     # to the host MLE of the same histograms; the harness's bank holds them
     # truncated (synth.bench_bank)
@@ -2882,6 +2941,39 @@ def phase_bench(torch, mods, dev, card):
     return launches, k2
 
 
+def phase_hist_split(torch, hist_split, lib, path, regs_16k, dev, card):
+    """Phase 13: the row-histogram kernel's ablation
+    (experiments/hist_split.py: the kernel, the mask-walk design it
+    replaced, the other layouts tried, the kernel without its end-of-row
+    sums, its loads alone; each variant's launch alone in two turns, the
+    wrapper, the bound, every variant that computes the histograms
+    bit-equal to the plain version) on 2^17 rows of real-sized genomes'
+    registers (2 GiB), their first 16,384 rows (beside one torch.bincount
+    of row * 64 + reg), 2^17 rows of one value and the N=16384 bench bank
+    (regs_16k, host); phase 11 adds the N=131072 bench bank's line. Prints
+    the SASS instructions of each variant's row loop a byte (path: the
+    library). Returns the dense rows' record with the others beside
+    it."""
+    print(f"  SASS of each row loop: "
+          f"{json.dumps(hist_split.sass_counts(path))}")
+    print(f"  CTAs an SM: {json.dumps(hist_split.occupancy(lib))}")
+    recs = {}
+    for label, regs, library in hist_split.shapes(dev, 0, bench_2g=False,
+                                                  regs_16k=regs_16k):
+        recs[label] = hist_split.shape_record(lib, label, regs, card,
+                                              library=library)
+        check(all(recs[label]["equal"].values()), f"hist_split {label}: a "
+              f"variant differs from plain: {recs[label]['equal']}")
+        del regs
+    torch.cuda.empty_cache()
+    dense, dense16k, one, bench = recs.values()
+    rec = {key: dense[key] for key in ("ms", "ms2", "wrapper_ms", "bound_ms",
+                                        "share")}
+    rec.update(library_ms_16k_rows=dense16k["library_ms"],
+               one_value=one["ms"], bench_16k=bench["ms"])
+    return rec
+
+
 def main():
     try:
         import torch
@@ -2898,7 +2990,8 @@ def main():
     sys.path.insert(0, HERE)
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
-    from cuda_selection_criteria_tpu_torch.experiments import mle_split
+    from cuda_selection_criteria_tpu_torch.experiments import (hist_split,
+                                                               mle_split)
     from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import (_build, criteria,
                                                       estimators, pairwise,
@@ -2926,9 +3019,10 @@ def main():
     print(nvcc.strip().splitlines()[-1])
 
     print("== phase 2: build", flush=True)
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         host_lib = pool.submit(fastx.info)  # g++ builds while nvcc does
         split_build = pool.submit(mle_split.build)
+        hist_build = pool.submit(hist_split.build)
         for name, (path, build_secs, log) in _build.build().items():
             print(log.strip())
             print(f"built {os.path.relpath(path, HERE)} in {build_secs:.2f} s")
@@ -2937,14 +3031,21 @@ def main():
             check(not spills, f"{name}: ptxas spills registers: {spills}")
             check("serialized" not in log,
                   f"{name}: ptxas serializes the wgmma (see the log above)")
-            if name == "ertl_mle":
+            if name in ("ertl_mle", "row_hist"):
                 for ln in mle_split.ptxas_lines(log):
-                    print(f"  ertl_mle ptxas {ln}")
+                    print(f"  {name} ptxas {ln}")
             _build.library(name)
         info = host_lib.result()
         split_path, split_secs, split_log = split_build.result()
+        hist_path, hist_secs, hist_log = hist_build.result()
     print(f"built {os.path.relpath(split_path, HERE)} (the MLE's timing "
           f"probes) in {split_secs:.2f} s")
+    print(f"built {os.path.relpath(hist_path, HERE)} (the row histograms' "
+          f"timing probes) in {hist_secs:.2f} s")
+    spills = [ln for ln in hist_log.splitlines() if "spill" in ln and
+              "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    check(not spills, f"hist_split: ptxas spills registers: {spills}")
+    hist_lib = hist_split.load(hist_path)
     split = (mle_split.load(split_path),
              mle_split.div_instructions(split_path))
     print(f"  SASS instructions a division (fast path): {split[1]}")
@@ -3028,7 +3129,7 @@ def main():
     gate = phase_gate(torch, screen, screened, scheduler, criteria, dev,
                       card)
     presence_err = phase_presence_uniform(torch, screen, dev)
-    rows_err = phase_row_hist_edges(torch, screen, dev)
+    rows_err = phase_row_hist_edges(torch, screen, synth, dev)
     # the plan's bank is the bench bank in its own row order, a zero row
     # after it; the plan set the bank's cards from these histograms
     rows_16k, hist = row_hist_config(torch, screen, plan.d_bank[:bank.n],
@@ -3302,7 +3403,8 @@ def main():
                 validate_screened=validate_screened,
                 validate_hllaux=validate_hllaux)
     mods.update(mle_rows=models.bank.mle_rows,
-                cards_from_hists=models.bank.cards_from_hists)
+                cards_from_hists=models.bank.cards_from_hists,
+                hist_split=hist_split, hist_lib=hist_lib)
     scale, presence, rows_2g = phase_scale(torch, mods, dev, card)
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
@@ -3312,6 +3414,12 @@ def main():
     mods.update(synth=synth, hopper=hopper)
     bench_launches, k2_p14 = phase_bench(torch, mods, dev, card)
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    print("== phase 13: the row-histogram ablation (hist_split)", flush=True)
+    t13 = time.perf_counter()
+    rows_dense = phase_hist_split(torch, hist_split, hist_lib, hist_path,
+                                  bank.regs, dev, card)
+    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card_line())
@@ -3361,6 +3469,7 @@ def main():
             rows_16k, max_abs_err=max(rows_err, rows_16k["max_abs_err"],
                                       rows_2g["max_abs_err"]),
             scale=dict(rows_2g, launches=scale["row_hist"]),
+            dense=rows_dense,
             ring=dict(launches=md["ring"]["row_hist"]),
             sharded=dict(launches=md["sharded"]["row_hist"]),
             l5=dict(launches=l5["row_hist"]),

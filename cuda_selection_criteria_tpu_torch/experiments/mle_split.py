@@ -4,12 +4,11 @@ it replaced (one thread a row in 128-row CTAs, each bin staged by a load
 that the next copy waited on), each design's staging alone and loop
 alone, the other layouts tried for the kernel, and the kernel on
 identical rows and on the same rows sorted by their step count (the cost
-of divergent secant loops within a warp). Then the plan's row histograms
-(ops/screen.row_hist) on a 2 GiB bank of dense rows.
+of divergent secant loops within a warp). The row histograms'
+counterpart is experiments/hist_split.py.
 
     python3 -m cuda_selection_criteria_tpu_torch.experiments.mle_split \
-        [--seed 0] [--reps 20] [--cell smh_a-524k] [--no-row-hist] \
-        [--clock-probe]
+        [--seed 0] [--reps 20] [--cell smh_a-524k] [--clock-probe]
 
 Needs one CUDA card. Builds experiments/mle_split.cu (which includes the
 kernel's source) with nvcc into the package's build directory, prints
@@ -313,49 +312,6 @@ def default_shapes(dev, seed, cell=None, out=print):
     return shapes
 
 
-def row_hist_dense(seed, card, n=1 << 17, p=14, reps=10, out=print):
-    """screen.row_hist on n rows of real-sized genomes' registers at p
-    (utils/synth.genome_regs: no zero byte), bit-equal to its plain
-    version, timed (the wrapper, with its 32-byte read-back, and the
-    launch alone) beside its bound (chip_smoke.py's: the bytes read once
-    and the histograms written once at HBM_BYTES_PER_S). Returns the
-    record."""
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    regs = synth.genome_regs(torch, n, p, seed, dev)
-    torch.cuda.synchronize()
-    made = time.perf_counter() - t0
-    got, vals = screen.row_hist(regs)
-    want, want_vals = screen._row_hist_plain(regs, 2048)
-    equal = bool(torch.equal(got, want)) and tuple(vals) == tuple(want_vals)
-    zeros = int(got[:, 0].sum())
-    hist = torch.empty((n, 64), dtype=torch.int32, device=dev)
-    mask = torch.zeros(8, dtype=torch.int32, device=dev)
-
-    def launch(k):
-        for _ in range(k):
-            screen._launch("row_hist", dev, regs.data_ptr(), n, 1 << p,
-                           hist.data_ptr(), mask.data_ptr())
-
-    launch_ms = _ms(torch, launch, reps)
-    wrapper_ms = _ms(torch, lambda k: [screen.row_hist(regs)
-                                       for _ in range(k)], reps)
-    launch_ms2 = _ms(torch, launch, reps)
-    nbytes = n * (1 << p) + n * 256 + 32
-    bound_ms = nbytes / hopper.HBM_BYTES_PER_S * 1e3
-    rec = dict(shape=f"row_hist {n} real-genome rows p={p}", rows=n,
-               card=card, equal=equal, zero_registers=zeros,
-               launch_ms=launch_ms, launch_ms2=launch_ms2,
-               wrapper_ms=wrapper_ms, bound_ms=bound_ms, bytes=nbytes,
-               share=bound_ms / min(launch_ms, launch_ms2), made_secs=made)
-    out(f"  [{card}] row_hist {n} real-genome rows at p={p} ({nbytes} bytes, "
-        f"{zeros} zero registers; made on the card in {made:.1f} s): launch "
-        f"{launch_ms:.3f} / {launch_ms2:.3f} ms, wrapper {wrapper_ms:.3f} ms "
-        f"(with the 32-byte read-back); bound {bound_ms:.3f} ms (bytes), "
-        f"share {rec['share']:.3f}; bit-equal to plain: {equal}")
-    return rec
-
-
 def clock_probe(lib, rows, p, dtype, branch, row, secs=1.0):
     """Each of kernel, loop, stage and w1b2_indep launched back to back for
     about `secs` while nvidia-smi samples the SM clock and the power draw
@@ -398,7 +354,6 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--cell", default=None,
                     help="also the cards call on this benchmark cell's bank")
-    ap.add_argument("--no-row-hist", action="store_true")
     ap.add_argument("--clock-probe", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -429,11 +384,6 @@ def main(argv=None):
         print(json.dumps(rec), flush=True)
         ok &= all(rec["equal"].values())
         del counts
-    if not args.no_row_hist:
-        torch.cuda.empty_cache()
-        rec = row_hist_dense(args.seed, card)
-        print(json.dumps(rec), flush=True)
-        ok &= rec["equal"]
     return 0 if ok else 1
 
 

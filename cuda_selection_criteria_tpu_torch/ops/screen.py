@@ -109,10 +109,12 @@ def row_hist(regs, chunk_rows=2048):
     native.row_hist does (such a value has no bin).
 
     CPU tensors run _row_hist_plain (chunk_rows rows a bincount). A CUDA
-    tensor, contiguous, launches the hand-written kernel (csrc/row_hist.cu:
-    one warp a row, private counters of the non-zero bytes, the 256-bit
-    present-value mask of the same bytes) on the current stream and reads
-    the mask back in one 32-byte copy, or raises; there is no fallback."""
+    tensor, contiguous, with rows of fewer than 2^31 registers, launches
+    the hand-written kernel (csrc/row_hist.cu: one warp a row, each byte
+    one shared reduction on the lane's own 32-bit counter of its value,
+    the 256-bit present-value mask of the same bytes) on the
+    current stream and reads the mask back in one 32-byte copy, or raises;
+    there is no fallback."""
     who = "row_hist"
     _check(who, regs.dtype == torch.uint8 and regs.dim() == 2,
            f"a 2-D uint8 bank expected, got {regs.dim()}-D {regs.dtype}")
@@ -122,7 +124,7 @@ def row_hist(regs, chunk_rows=2048):
     _check(who, regs.is_contiguous(), "a contiguous bank expected")
     _check(who, dev.type == "cuda", f"unsupported device {dev}")
     n, r = regs.shape
-    _check(who, r < 1 << 21, "rows of 2^21 registers or more")
+    _check(who, r < 1 << 31, "rows of 2^31 registers or more")
     hist = torch.empty((n, 64), dtype=torch.int32, device=dev)
     mask = torch.zeros(8, dtype=torch.int32, device=dev)
     if n and r:

@@ -11,8 +11,10 @@ row map.
   all-zero rows and values up to 64 - p + 1; a value of 64 raises;
 - a numpy model of the kernel's split (csrc/row_hist.cu: unaligned heads
   and tails one byte a lane, 16-byte vectors dealt to 32 lanes, each
-  lane's 16-bit counters of the non-zero values, bin 0 from the row's
-  length) gives the same histograms and present values;
+  byte below 64, zeros included, one count on the lane's own 32-bit
+  counter of its value, counters carried over a warp's rows and read as
+  differences modulo 2^32) gives the same histograms and present values
+  on skewed, dense genome-like and one-value rows;
 - a bank made without cards computes host_cards' bits at its first read,
   bit-equal to the JAX SketchBank's; the plan sets them from its own pass
   without host_cards, and keeps cards a bank was given;
@@ -118,58 +120,113 @@ def test_row_hist_refuses_what_has_no_bin():
     assert hist.shape == (0, 64) and vals == ()
 
 
-def _kernel_model(regs, base):
+def _dense_like(rng, n, r, p=14):
+    """Rows of real-sized genomes' registers at p (a cardinality
+    log-uniform in [2^20, 2^24] a row, each register R = ceil(log2(lam /
+    E)) for E ~ Exp(1), clamped to [0, 64 - p + 1]): no zero byte at p=14,
+    the values spread over a few neighbours."""
+    lam = np.exp(rng.uniform(np.log(2.0 ** 20), np.log(2.0 ** 24),
+                             (n, 1))) / (1 << p)
+    e = rng.exponential(size=(n, r))
+    return np.clip(np.ceil(np.log2(lam / e)), 0, 64 - p + 1).astype(np.uint8)
+
+
+def _one_value(n, r, values=(0, 1, 9, 51, 63)):
+    """Rows of r bytes that all hold one value, a value a row."""
+    return np.repeat(np.asarray(values, np.uint8)[:n, None], r, axis=1)
+
+
+KERNEL_WARPS = 4  # csrc/row_hist.cu: rows (warps) a CTA
+KERNEL_CTAS = 132 * 6  # its grid's cap on a card of 132 SMs
+
+
+def _kernel_model(regs, base, warps=None, start=0):
     """numpy model of csrc/row_hist.cu on rows that start `base` bytes into
-    a 16-byte aligned buffer: (histograms, 256-entry presence). Per row:
-    the head up to the next 16-byte boundary and the tail after the last
-    whole vector go one byte a lane, vector v to lane v % 32; a lane counts
-    each non-zero value below 64 in the 16-bit half (v & 1) of its word
-    v >> 1, and bytes of 64 or more apart (setting their presence bit);
-    bin 0 is the row's length less every byte counted; the values below
-    64 present are the bins above 0."""
+    a 16-byte aligned buffer: (histograms, 256-entry presence). Warp g of
+    `warps` (default: the kernel's grid, four a CTA, at most 792 CTAs)
+    takes rows g, g + warps, ... Per row: the head up to the next 16-byte
+    boundary and the tail after the last whole vector go one byte a lane,
+    vector v to lane v % 32. A byte b below 64, zeros included, adds one
+    to the lane's own 32-bit counter of b, word b * 32 + lane of its
+    warp's counters (the lane's bank whatever b is); a byte of 64 or more
+    is counted nowhere and sets its presence bit. The counters start at
+    `start` (0 in the kernel; near 2^32 to show the wrap is harmless) and
+    are never cleared: lane l's bins 2l and 2l + 1 are the difference of
+    its sums over the 32 lanes from the end of the warp's previous row,
+    modulo 2^32; the values below 64 present are the bins above 0."""
     n, r = regs.shape
+    assert r < 1 << 31  # the wrapper's limit: R is an int
+    if warps is None:
+        warps = KERNEL_WARPS * min(-(-n // KERNEL_WARPS), KERNEL_CTAS)
     hist = np.zeros((n, 64), np.int64)
     present = np.zeros(256, bool)
-    for i in range(n):
-        addr = base + i * r
-        head = min((16 - addr % 16) % 16, r)
-        nvec = (r - head) // 16
-        tail0 = head + nvec * 16
-        halves = np.zeros((32, 64), np.int64)  # [lane, value]
-        big = 0
-        lanes = [(v % 32, head + 16 * v + k) for v in range(nvec)
-                 for k in range(16)]
-        lanes += list(enumerate(list(range(head)) + list(range(tail0, r))))
-        assert len(lanes) == r and head + (r - tail0) < 32
-        for lane, pos in lanes:
-            b = int(regs[i, pos])
-            if b >= 64:
-                big += 1
-                present[b] = True
-            elif b:
-                halves[lane, b] += 1
-        assert halves.max() < 1 << 16  # no half carries into its neighbour
-        hist[i] = halves.sum(0)
-        hist[i, 0] = r - hist[i].sum() - big
-        present[:64] |= hist[i] > 0
+    for g in range(warps):
+        cnt = np.full((64, 32), start, np.uint64)  # [value, lane]
+        sums = cnt.sum(1) % (1 << 32)  # the lanes' sums, a value
+        for i in range(g, n, warps):
+            addr = base + i * r
+            head = min((16 - addr % 16) % 16, r)
+            nvec = (r - head) // 16
+            tail0 = head + nvec * 16
+            assert head + (r - tail0) < 32
+            pos = np.arange(head, tail0)
+            lane = np.concatenate([(pos - head) // 16 % 32,
+                                   np.arange(head + r - tail0)])
+            pos = np.concatenate([pos, np.arange(head), np.arange(tail0, r)])
+            assert len(pos) == r
+            b = regs[i, pos].astype(np.int64)
+            present[b[b >= 64]] = True
+            ok = b < 64
+            word = b[ok] * 32 + lane[ok]
+            assert (word % 32 == lane[ok]).all()  # the lane's own bank
+            np.add.at(cnt, (b[ok], lane[ok]), 1)
+            cnt %= 1 << 32  # 32-bit counters
+            now = cnt.sum(1) % (1 << 32)
+            row = (now - sums) % (1 << 32)  # exact: a row has < 2^31 bytes
+            sums = now
+            assert row.max() < 1 << 31  # fits the int32 bin
+            assert row.sum() + (~ok).sum() == r  # every byte counted once
+            hist[i] = row
+            present[:64] |= row > 0
     return hist, present
 
 
-@pytest.mark.parametrize("r,base", [(1024, 0), (1024, 1), (100, 0),
-                                    (48, 5), (16384, 15), (40, 3)])
-def test_kernel_model_matches_plain(r, base):
+@pytest.mark.parametrize("kind,r,base", [
+    pytest.param("skewed", 1024, 0, id="1024-0"),
+    pytest.param("skewed", 1024, 1, id="1024-1"),
+    pytest.param("skewed", 100, 0, id="100-0"),
+    pytest.param("skewed", 48, 5, id="48-5"),
+    pytest.param("skewed", 16384, 15, id="16384-15"),
+    pytest.param("skewed", 40, 3, id="40-3"),
+    pytest.param("dense", 16384, 0, id="dense-16384-0"),
+    pytest.param("dense", 16384, 7, id="dense-16384-7"),
+    pytest.param("dense", 100, 5, id="dense-100-5"),
+    pytest.param("dense", 40, 3, id="dense-40-3"),
+    pytest.param("one value", 16384, 0, id="one-value-16384-0"),
+    pytest.param("one value", 16384, 9, id="one-value-16384-9")])
+def test_kernel_model_matches_plain(kind, r, base):
     """The kernel's split, modelled in numpy, gives the plain version's
-    histograms and present values: rows of 2^p, 100, 48 and 40 bytes
-    (not 16 bytes a lane), from every kind of alignment."""
+    histograms and present values: HLL-skewed rows (88% zero), dense
+    genome-like rows (no zero byte at p=14) and rows of one value, of
+    2^p, 100, 48 and 40 bytes (not 16 bytes a lane), from every kind of
+    alignment; on the kernel's grid, on two warps (each warp's counters
+    carried over its rows) and with the counters started 7 below 2^32."""
     rng = np.random.default_rng(r + base)
     n = 3 if r == 16384 else 9
-    regs = _hll_like(rng, n, r, 51)
-    regs[1] = 0
-    regs[2, -1] = 63
-    hist, present = _kernel_model(regs, base)
+    if kind == "skewed":
+        regs = _hll_like(rng, n, r, 51)
+        regs[1] = 0
+        regs[2, -1] = 63
+    elif kind == "dense":
+        regs = _dense_like(rng, n, r)
+        assert r < 1024 or (regs > 0).all()
+    else:
+        regs = _one_value(5, r)
     want, vals = screen.row_hist(torch.from_numpy(regs))
-    np.testing.assert_array_equal(hist, want.numpy())
-    assert tuple(np.nonzero(present)[0]) == vals
+    for warps, start in ((None, 0), (2, 0), (2, (1 << 32) - 7)):
+        hist, present = _kernel_model(regs, base, warps, start)
+        np.testing.assert_array_equal(hist, want.numpy())
+        assert tuple(np.nonzero(present)[0]) == vals
     bad = regs.copy()
     bad[0, 0] = 200  # the error word's bits: the presence of 64 and up
     _, present = _kernel_model(bad, base)

@@ -1120,11 +1120,20 @@ def test_k1_engine_launches_read_their_blocks(cuda):
 # The row-histogram kernel: skewed HLL rows at p = 14 with all-zero rows
 # and the HLL maximum; rows of 100 and 48 registers (not 16 bytes a lane,
 # each row at another alignment); row counts that are not a multiple of the
-# CTA's 8 rows; a start one byte into a buffer; uniform values 0..63.
+# CTA's 4 rows; a start one byte into a buffer; uniform values 0..63; dense
+# rows of real-sized genomes at p = 14 (no zero byte); rows of one value,
+# every value 0..63 (a lane's counts all on one counter).
 def _hll_like(rng, n, r, top=51):
     hit = rng.random((n, r)) < 0.12
     return np.where(hit, np.minimum(rng.geometric(0.5, (n, r)), top),
                     0).astype(np.uint8)
+
+
+def _dense_like(rng, n, r, p=14):
+    lam = np.exp(rng.uniform(np.log(2.0 ** 20), np.log(2.0 ** 24),
+                             (n, 1))) / (1 << p)
+    e = rng.exponential(size=(n, r))
+    return np.clip(np.ceil(np.log2(lam / e)), 0, 64 - p + 1).astype(np.uint8)
 
 
 def _row_hist_bank(name):
@@ -1140,11 +1149,17 @@ def _row_hist_bank(name):
         return rng.integers(0, 64, (37, 48), dtype=np.uint8), 0
     if name == "one row":
         return _hll_like(rng, 1, 1 << 10), 0
+    if name == "p=14 dense genome rows":
+        return _dense_like(rng, 203, 1 << 14), 0
+    if name == "p=14 one value a row":
+        return np.repeat(np.arange(64, dtype=np.uint8)[:, None], 1 << 14,
+                         axis=1), 0
     return _hll_like(rng, 9, 1 << 14), 1  # "from byte 1"
 
 
 ROW_HIST_CASES = ("p=14 skewed, zero rows", "R=100", "R=48 uniform",
-                  "one row", "from byte 1")
+                  "one row", "from byte 1", "p=14 dense genome rows",
+                  "p=14 one value a row")
 
 
 @pytest.mark.cuda
@@ -1186,6 +1201,33 @@ def test_row_hist_kernel_refuses_64_and_takes_empty(cuda):
     hist, vals = screen.row_hist(torch.zeros((0, 64), dtype=torch.uint8,
                                              device=cuda))
     assert hist.shape == (0, 64) and vals == ()
+    assert screen.row_hist.launches == before
+
+
+@pytest.mark.cuda
+def test_row_hist_kernel_rows_at_the_limit(cuda):
+    """One row of 2^31 - 1 registers (the largest R an int holds; every
+    lane's counters take 2^26 counts) gives the plain version's histogram
+    and numpy's bincount; a row of 2^31 registers raises before any
+    launch."""
+    r = (1 << 31) - 1
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    d = torch.randint(0, 64, (1, r), generator=gen, dtype=torch.uint8,
+                      device=cuda)
+    hist, vals = screen.row_hist(d)
+    torch.cuda.synchronize()
+    want, want_vals = screen._row_hist_plain(d, 2048)
+    assert torch.equal(hist, want) and vals == want_vals
+    host = d.cpu().numpy().reshape(-1)
+    counts = sum(np.bincount(host[c:c + (1 << 27)], minlength=64)
+                 for c in range(0, r, 1 << 27))
+    np.testing.assert_array_equal(hist.cpu().numpy()[0], counts)
+    del d, host, want
+    torch.cuda.empty_cache()
+    before = screen.row_hist.launches
+    with pytest.raises(ValueError, match="2\\^31"):
+        screen.row_hist(torch.zeros((1, 1 << 31), dtype=torch.uint8,
+                                    device=cuda))
     assert screen.row_hist.launches == before
 
 
