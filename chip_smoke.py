@@ -104,7 +104,13 @@ Phases (any failure exits non-zero, without the final result line):
                 row, a bank 8 bytes off a 16-byte boundary; then at
                 smh_a-524k's 524,288 rows of m = 32, timed (the launch
                 alone and the wrapper) beside its plain version and its
-                bound. K1's
+                bound. The unpack kernel of the packed bank upload
+                (regpack.unpack_rows) vs its plain version, bit-equal and
+                equal to the host rows: k = 1..7, odd row counts, rows of
+                17 and 2049 bytes a plane, i0 > 0, alphabets without 0;
+                then on a 128 MiB slab (8192 rows of the bench bank, and
+                a k = 6 slab) timed beside its plain version and its
+                bound; library none. K1's
                 cases above include banks read through a shuffled row map
                 (the plan's layout: its own row order and a zero row), and
                 the bench launches read the plan's bank through its map
@@ -132,7 +138,12 @@ Phases (any failure exits non-zero, without the final result line):
                 the phase 3 plan's d_fp bit-equal to band_fingerprints_np
                 of its host-sorted, zero-padded aux; stage walls, a
                 profiler trace of one warm run and the screen's pairs/s
-                over the full triangle
+                over the full triangle; then the packed upload's path,
+                select_pairs_screened(upload_pack=True) on the same bank
+                without cards, lines equal to the raw route's, the unpack
+                kernel, the row histograms, the MLE, the fingerprints, the
+                gate prune and K1 launched, and both routes' upload split
+                in turns (raw, packed, packed, raw)
   6. hll      - select_pairs(hll_a) and (hll_an), tau=0.9, on N=16384
                 genomes at p=14 with aux HLLs at p_aux=8 from the same
                 hashes, planted near-duplicates: the checks of phase 5, K1,
@@ -212,9 +223,14 @@ Phases (any failure exits non-zero, without the final result line):
                 the padded bank + 0.5 GiB, the whole run's peak beside the
                 card's, host RAM, the planted pairs recovered and phase 5's
                 checks, then a plan on that bank whose d_fp is held as in
-                phase 5; before it, the presence kernel and the
-                row-histogram kernel on that bank's 2 GiB against their
-                plain versions, timed beside them and their bounds, the
+                phase 5, and the packed plan (upload_pack=True) on the
+                same bank: its d_bank equal to the raw plan's, its
+                plan-stage peak, taken on its own, within the bank + 0.5
+                GiB, the unpack kernel launched, both routes' upload
+                split in turns (raw, packed | packed, raw); before it,
+                the presence kernel and the row-histogram kernel on that
+                bank's 2 GiB against their plain versions, timed beside
+                them and their bounds, the
                 presence kernel beside one torch.bincount of its uint8
                 bytes (the row histograms' bincount of row * 64 + reg
                 would take a 16 GiB int64 index, not timed), and the
@@ -247,8 +263,9 @@ Phases (any failure exits non-zero, without the final result line):
                 histograms bit-equal to the plain version
 
 The last two lines are a JSON record of the kernels (launches on the main
-paths of phases 5 to 7, times, bounds, library times, K2's p=14 record,
-the MLE's other shapes, the row histograms' dense rows and ablation, and
+paths of phases 5 to 7, the packed path of phase 5 among them, times,
+bounds, library times, K2's p=14 record, the MLE's other shapes, the
+row histograms' dense rows and ablation, and
 the launches of phase 8's dense engine (the MLE), of phase 9's ring and
 tile-sharded runs, of phase 10, of phase 11 and of phase 12's bench in
 records of their own) and the result line
@@ -325,6 +342,15 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
         "band_fingerprints (an XLA fusion; the JAX plan ran its host twin): "
         "one thread a (sorted position, band), the row read through the "
         "plan's row map, 16-byte loads for an even band"),
+    # not a Pallas kernel: the JAX unpack_place is a jitted XLA decode into
+    # a donated buffer, the device half of the packed bank upload
+    "regpack_unpack": (
+        f"{PKG}/csrc/regpack_unpack.cu",
+        "cuda_selection_criteria_tpu/ops/regpack.py:122",
+        "unpack_place (a jitted XLA decode into a donated buffer): one "
+        "thread a byte of each of the k planes (8 registers), bits spread "
+        "by a nibble multiply, the table in shared memory, one 8-byte "
+        "store"),
 }
 
 
@@ -1120,6 +1146,177 @@ def check_plan_fp(torch, screened, plan, bank, card, label):
     print(f"  [{card}] {label}: d_fp ({plan.n_pad} x {n_bands}) bit-equal "
           "to band_fingerprints_np of the host-sorted, zero-padded aux; "
           f"fp_secs {plan.fp_secs:.4f} s (upload, pass, free)")
+
+
+# The unpack kernel's cases (k, rows, registers a row, i0, alphabet without
+# 0), as tests/test_torch_kernels_cuda.py has them: odd row counts, rows of
+# 17 and 2049 bytes a plane (R/8 not a multiple of 4), i0 > 0; its timed
+# slab is the packed upload's: 8192 rows of 2^14 registers, 128 MiB.
+UNPACK_CASES = [(1, 7, 136, 3, False), (2, 9, 8, 1, True),
+                (3, 33, 16384, 5, True), (4, 101, 512, 0, False),
+                (5, 5, 136, 11, True), (6, 65, 16392, 2, False),
+                (7, 3, 1024, 9, True)]
+UNPACK_SLAB_ROWS = 8192
+
+
+def unpack_vs_plain(torch, regpack, rows, i0, dev, label):
+    """The unpack kernel (regpack.unpack_rows) against its plain version on
+    the planes of the host rows, packed with their own alphabet and
+    decoded into rows i0 .. of a bank of sevens: (max |difference|, the
+    card's planes, table and k). Both must give the host rows."""
+    lut, table, k = regpack.plan_pack(regpack.host_values(rows))
+    packed = torch.from_numpy(regpack.pack_rows(rows, lut, k)).to(dev)
+    d_table = torch.from_numpy(table).to(dev)
+    fill = torch.full((i0 + len(rows) + 2, rows.shape[1]), 7,
+                      dtype=torch.uint8, device=dev)
+    got = regpack.unpack_rows(fill.clone(), packed, d_table, i0, k)
+    want = regpack._unpack_rows_plain(fill, packed, d_table, i0, k)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    check(np.array_equal(got[i0:i0 + len(rows)].cpu().numpy(), rows),
+          f"regpack_unpack {label}: the decoded rows differ from the host's")
+    print(f"  regpack_unpack {label} (k={k}, {len(rows)} rows of "
+          f"{rows.shape[1]} registers at row {i0}): max_abs_err={err}")
+    check(err == 0, f"regpack_unpack {label}: kernel != plain")
+    del fill, got, want
+    return err, packed, d_table, k
+
+
+def phase_unpack_edges(torch, regpack, dev):
+    """The unpack kernel's cases (UNPACK_CASES), each alphabet of 2^k - 1
+    values (2 at k = 1) drawn from a seed."""
+    worst = 0
+    for k, s, r, i0, no_zero in UNPACK_CASES:
+        rng = np.random.default_rng(k * 1000 + r)
+        vals = rng.choice(np.arange(int(no_zero), 256), (1 << k) - (k > 1),
+                          replace=False).astype(np.uint8)
+        rows = rng.choice(vals, size=(s, r))
+        label = f"k={k}{' no zero' if no_zero else ''}"
+        err, *_, kk = unpack_vs_plain(torch, regpack, rows, i0, dev, label)
+        check(kk == k, f"regpack_unpack {label}: the plan took k={kk}")
+        worst = max(worst, err)
+    return worst
+
+
+def unpack_config(torch, regpack, rows, dev, card, label):
+    """The unpack kernel on one 128 MiB slab of the packed upload (the host
+    rows, packed with their own alphabet): bit-equal to its plain version,
+    timed beside it (the wrapper, 20 launches a turn, two turns) and its
+    bound (the planes read once and the registers written once at
+    HBM_BYTES_PER_S, against k + 1 integer operations a register at
+    INT32_OPS_PER_S). No single PyTorch call decodes bit-planes
+    (library_ms null)."""
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+
+    err, packed, d_table, k = unpack_vs_plain(torch, regpack, rows, 0, dev,
+                                              label)
+    s, r = rows.shape
+    out = torch.empty((s, r), dtype=torch.uint8, device=dev)
+    want = torch.empty_like(out)
+
+    def launch():
+        regpack.unpack_rows(out, packed, d_table, 0, k)
+
+    ms = cuda_ms(torch, launch, 20)
+    plain_ms = cuda_ms(torch, lambda: regpack._unpack_rows_plain(
+        want, packed, d_table, 0, k), 2)
+    ms2 = cuda_ms(torch, launch, 20)
+    check(torch.equal(out, want), f"regpack_unpack {label}: the timed "
+          "launches differ from plain")
+    nbytes = packed.numel() + d_table.numel() + out.numel()
+    bound_ms, bound_by = bound((k + 1) * out.numel() / hopper.INT32_OPS_PER_S,
+                               nbytes / hopper.HBM_BYTES_PER_S)
+    print(f"  [{card}] regpack_unpack {label} (k={k}, {s} x {r}, {nbytes} "
+          f"bytes): {ms:.4f} / {ms2:.4f} ms (two turns) vs plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), share "
+          f"of the bound {bound_ms / ms:.3f}; library none")
+    del out, want, packed
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, ms2=ms2, k=k,
+                bytes=nbytes)
+
+
+def phase_unpack(torch, regpack, bank_regs, dev, card):
+    """The unpack kernel in phase 3: its cases (phase_unpack_edges), then
+    timed (unpack_config) on the first 128 MiB slab of the N=16384 bench
+    bank, the packed upload's slab and alphabet on the main path, and on a
+    slab of 2^14-register rows over 33 values (k = 6). Returns (the worst
+    max |difference|, the bench slab's record with the k = 6 slab's
+    beside it)."""
+    err = phase_unpack_edges(torch, regpack, dev)
+    rec = unpack_config(torch, regpack, bank_regs[:UNPACK_SLAB_ROWS], dev,
+                        card, "bench bank slab")
+    rng = np.random.default_rng(0x6B)
+    vals = rng.choice(64, 33, replace=False).astype(np.uint8)
+    rec["k6"] = unpack_config(torch, regpack, rng.choice(
+        vals, size=(UNPACK_SLAB_ROWS, 1 << 14)), dev, card, "k=6 slab")
+    check(rec["k6"]["k"] == 6, "regpack_unpack: the k = 6 slab took another k")
+    return max(err, rec["max_abs_err"], rec["k6"]["max_abs_err"]), rec
+
+
+def upload_split(plan):
+    """A plan's upload as one dict: upload_secs, the presence scan and the
+    upload_stats."""
+    return dict(upload_secs=plan.upload_secs,
+                presence_secs=plan.presence_secs, **plan.upload_stats)
+
+
+def upload_turns(torch, screened, bank, params, dev, card, label, turns):
+    """ScreenPlans of the bank on the routes `turns` (upload_pack values,
+    e.g. raw, packed, packed, raw), each made after a synchronize and
+    freed: their upload splits, each printed."""
+    out = []
+    for pack in turns:
+        torch.cuda.synchronize()
+        plan = screened.ScreenPlan(bank, params, 1024, dev, upload_pack=pack)
+        out.append(dict(upload_split(plan), route="packed" if pack
+                        else "raw"))
+        del plan
+        torch.cuda.empty_cache()
+        print(f"  [{card}] {label} {out[-1]['route']} upload: "
+              + json.dumps({k: v for k, v in out[-1].items()
+                            if k != "route"}))
+    return out
+
+
+def phase_packed(torch, mods, bank, params, dev, card):
+    """The packed upload's path on the N=16384 bench bank:
+    select_pairs_screened(upload_pack=True) on a bank without cards, with
+    the launch counts set to 0 just before it (the packed upload, the
+    row-histogram kernel, the MLE, the fingerprints, the gate prune, K1
+    and the confirm), its lines equal to the raw route's; then the upload
+    split of both routes in turns (raw, packed, packed, raw). Returns
+    ({kernel: launches} of the packed run, the splits)."""
+    screen, screened = mods["screen"], mods["screened"]
+    SketchBank = mods["SketchBank"]
+
+    def fresh():
+        return SketchBank(names=bank.names, regs=bank.regs, p=bank.p,
+                          aux_kind=bank.aux_kind, aux=bank.aux,
+                          aux_param=bank.aux_param)
+
+    raw = screened.select_pairs_screened(fresh(), params, device=dev)
+    reset_launches(screen)
+    torch.cuda.synchronize()
+    stats = {}
+    t0 = time.perf_counter()
+    out = screened.select_pairs_screened(fresh(), params, device=dev,
+                                         stats=stats, upload_pack=True)
+    wall = time.perf_counter() - t0
+    launches = read_launches(screen)
+    print(f"  [{card}] select_pairs_screened(upload_pack=True) -c "
+          f"{params.criterion} N={bank.n}: wall {wall:.3f} s (plan "
+          f"{stats['plan_secs']:.3f} s, upload {stats['upload_secs']:.4f} "
+          f"s), {len(out)} pairs, equal to the raw route's {len(raw)}: "
+          f"{out == raw}; launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    check(out == raw, "the packed route's lines differ from the raw route's")
+    for name in ("regpack_unpack", "row_hist", "ertl_mle",
+                 "band_fingerprints", "gate_counts", "screen_fused"):
+        check(launches[name] > 0, f"the packed path never launched {name}")
+    splits = upload_turns(torch, screened, bank, params, dev, card,
+                          f"N={bank.n}", (None, True, True, None))
+    return launches, splits
 
 
 def mle_rows(hostref, synth, p, seed):
@@ -2253,16 +2450,17 @@ def phase_checkpoint(torch, screen, screened, bank, params, dev, card):
 
 
 LAUNCH_KEYS = ("screen_fused", "strips", "weighted_cdf_sum", "gate_counts",
-               "value_presence", "row_hist", "ertl_mle", "band_fingerprints")
+               "value_presence", "row_hist", "ertl_mle", "band_fingerprints",
+               "regpack_unpack")
 
 
 def reset_launches(screen):
-    from cuda_selection_criteria_tpu_torch.ops import estimators
+    from cuda_selection_criteria_tpu_torch.ops import estimators, regpack
     from cuda_selection_criteria_tpu_torch.parallel import screened
     for fn in (screen.screen_hits_fused, screen.screen_hits_fused_strips,
                screen.screen_s_z, screen.gate_counts, screen.bank_values,
                screen.row_hist, estimators.ertl_mle,
-               screened.band_fingerprints):
+               screened.band_fingerprints, regpack.unpack_rows):
         fn.launches = 0
 
 
@@ -2270,7 +2468,7 @@ def read_launches(screen):
     """{kernel: launches} since reset_launches (keys LAUNCH_KEYS); K1's two
     entry points launch the same kernel, "strips" counts the strip entry
     alone."""
-    from cuda_selection_criteria_tpu_torch.ops import estimators
+    from cuda_selection_criteria_tpu_torch.ops import estimators, regpack
     from cuda_selection_criteria_tpu_torch.parallel import screened
     return {"screen_fused": screen.screen_hits_fused.launches
             + screen.screen_hits_fused_strips.launches,
@@ -2280,7 +2478,8 @@ def read_launches(screen):
             "value_presence": screen.bank_values.launches,
             "row_hist": screen.row_hist.launches,
             "ertl_mle": estimators.ertl_mle.launches,
-            "band_fingerprints": screened.band_fingerprints.launches}
+            "band_fingerprints": screened.band_fingerprints.launches,
+            "regpack_unpack": regpack.unpack_rows.launches}
 
 
 def multi_device_run(torch, screen, engine, bank, params, mesh, dev, card,
@@ -2701,7 +2900,8 @@ def phase_scale(torch, mods, dev, card):
     cards, through the MLE kernel (cards_from_hists), bit-equal to the host
     MLE of the same histograms and to the bank's). Returns ({kernel: launches} summed over
     the phase's runs, each read right after its own reset; the presence
-    record; the row-histogram record)."""
+    record; the row-histogram record; the packed plan's peak and the
+    upload splits of both routes)."""
     screen, v131, vring = (mods["screen"], mods["validate_131k_scale"],
                            mods["validate_ring_scale"])
     total = dict.fromkeys(LAUNCH_KEYS, 0)
@@ -2806,8 +3006,42 @@ def phase_scale(torch, mods, dev, card):
     plan = mods["screened"].ScreenPlan(bank, params, 1024, dev)
     check_plan_fp(torch, mods["screened"], plan, bank, card,
                   f"plan N={SCALE_N} smh_a")
+    # the packed upload of the same bank: its d_bank equal to the raw
+    # plan's, its plan-stage peak taken on its own (above the raw bank
+    # kept for the comparison) within the bank + 0.5 GiB
+    raw_bank, splits = plan.d_bank, [dict(upload_split(plan), route="raw")]
     del plan
     torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    reset_launches(screen)
+    plan = mods["screened"].ScreenPlan(bank, params, 1024, dev,
+                                       upload_pack=True)
+    torch.cuda.synchronize()
+    packed_peak = torch.cuda.max_memory_allocated() - held
+    launches = read_launches(screen)
+    splits.append(dict(upload_split(plan), route="packed"))
+    equal = torch.equal(plan.d_bank, raw_bank)
+    print(f"  [{card}] packed plan N={SCALE_N}: d_bank equal to the raw "
+          f"plan's: {equal}; plan-stage peak {packed_peak / 2**30:.3f} GiB "
+          f"beside the bank's {plan.d_bank.nbytes / 2**30:.3f} GiB (limit: "
+          f"the bank + 0.5 GiB); regpack_unpack launches "
+          f"{launches['regpack_unpack']}; raw upload "
+          f"{json.dumps(splits[0])}; packed upload {json.dumps(splits[1])}")
+    check(equal, f"the packed plan's d_bank N={SCALE_N} differs from the raw "
+          "plan's")
+    check(packed_peak <= plan.d_bank.nbytes + (1 << 29), "the packed plan "
+          "stage held more than the bank + 0.5 GiB on the card")
+    check(launches["regpack_unpack"] > 0, "the packed plan never launched "
+          "the unpack kernel")
+    add(launches)
+    del plan, raw_bank
+    torch.cuda.empty_cache()
+    # the two routes again, the other way round (raw, packed | packed, raw)
+    splits += upload_turns(torch, mods["screened"], bank, params, dev, card,
+                           f"N={SCALE_N}", (True, None))
+    packed = dict(plan_peak_allocated_bytes=packed_peak, uploads=splits)
 
     print("  11c: validate_ring_scale.run on the same bank", flush=True)
     for label, mesh in (
@@ -2834,7 +3068,7 @@ def phase_scale(torch, mods, dev, card):
               "never launched the gate-count kernel")
         add(launches)
     check(total["strips"] > 0, "phase 11 never launched K1's strip entry")
-    return total, presence, rows_2g
+    return total, presence, rows_2g, packed
 
 
 # Phase 12's sizes: the bench's headline bank (bench.py's N_GENOMES),
@@ -2995,7 +3229,7 @@ def main():
     from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import (_build, criteria,
                                                       estimators, pairwise,
-                                                      screen)
+                                                      regpack, screen)
     from cuda_selection_criteria_tpu_torch.parallel import (
         distributed, mesh, ring, scheduler, screened)
     from cuda_selection_criteria_tpu_torch.parallel.selection import (
@@ -3151,6 +3385,7 @@ def main():
     del hist
     fp_err = phase_band_fp_edges(torch, screened, dev)
     band_fp = band_fp_config(torch, screen, screened, dev, card)
+    unpack_err, unpack = phase_unpack(torch, regpack, bank.regs, dev, card)
 
     print("== phase 4: selection CLI, N=2048", flush=True)
     rng4 = np.random.default_rng(2048)
@@ -3307,6 +3542,13 @@ def main():
     print(f"  [{card}] full-triangle screen: {len(tri_r)} tiles, "
           f"{tri_pairs} pairs in {tri_ms:.3f} ms = "
           f"{tri_pairs / tri_ms * 1e3:.6g} pairs/s")
+    # the packed upload's path: the same bank and params, its lines equal
+    # to the raw route's
+    packed_launches, packed_16k = phase_packed(
+        torch, dict(screen=screen, screened=screened,
+                    SketchBank=models.SketchBank), bank, params, dev, card)
+    for name in launches:
+        launches[name] += packed_launches[name]
 
     print("== phase 6: hll main path, select_pairs hll_a / hll_an N=16384 "
           "p=14 p_aux=8", flush=True)
@@ -3405,7 +3647,8 @@ def main():
     mods.update(mle_rows=models.bank.mle_rows,
                 cards_from_hists=models.bank.cards_from_hists,
                 hist_split=hist_split, hist_lib=hist_lib)
-    scale, presence, rows_2g = phase_scale(torch, mods, dev, card)
+    scale, presence, rows_2g, packed_131k = phase_scale(torch, mods, dev,
+                                                         card)
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
     print("== phase 12: the bench protocol (bench, kernel_tuning, "
@@ -3488,7 +3731,14 @@ def main():
             sharded=dict(launches=md["sharded"]["band_fingerprints"]),
             l5=dict(launches=l5["band_fingerprints"]),
             scale=dict(launches=scale["band_fingerprints"]),
-            bench=dict(launches=bench_launches["band_fingerprints"]))}
+            bench=dict(launches=bench_launches["band_fingerprints"])),
+        "regpack_unpack": dict(
+            unpack, max_abs_err=unpack_err, uploads=packed_16k,
+            ring=dict(launches=md["ring"]["regpack_unpack"]),
+            sharded=dict(launches=md["sharded"]["regpack_unpack"]),
+            l5=dict(launches=l5["regpack_unpack"]),
+            scale=dict(packed_131k, launches=scale["regpack_unpack"]),
+            bench=dict(launches=bench_launches["regpack_unpack"]))}
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])

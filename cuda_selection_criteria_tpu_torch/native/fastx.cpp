@@ -1,10 +1,11 @@
 // fastx: native FASTA ingestion + host-side sketch construction.
 //
 // Copy of cuda_selection_criteria_tpu/native/fastx.cpp for the torch port,
-// without fastx_value_presence, pack_one_row, fastx_pack_bitplanes and
-// fastx_gather_pack_bitplanes (the TPU upload packers and the host presence
-// scan, which the port does on the device), plus fastx_row_hist (the row
-// histograms of the bank's cardinalities) and fastx_zlib_version.
+// plus fastx_row_hist (the row histograms of the bank's cardinalities) and
+// fastx_zlib_version. Its host presence scan (fastx_value_presence) and
+// bit-plane packers (pack_one_row, fastx_pack_bitplanes,
+// fastx_gather_pack_bitplanes) serve the packed bank upload
+// (ops/regpack.py, parallel/screened.upload_sorted_rows(pack=)).
 //
 // Replacement for the reference's SeqAn-based scanner
 // (reference: src/build_sketch.cpp:41-95 + seqan seq_io) and its OpenMP
@@ -19,6 +20,7 @@
 // it at first use (ops/_build.build_host: g++ -O3 -shared -lz -lpthread).
 
 #include <algorithm>
+#include <array>
 #include <atomic>
 #include <cstdint>
 #include <cstdlib>
@@ -491,6 +493,88 @@ int fastx_row_hist(const uint8_t* regs, int64_t n_rows, int64_t m,
     for (int v = 64; v < 256; ++v)
       tail += (uint64_t)h[0][v] + h[1][v] + h[2][v] + h[3][v];
     return tail ? -2 : 0;
+  });
+}
+
+// Presence scan: out[v] = 1 iff byte value v occurs in the array. One
+// linear pass split across the pool: the alphabet of a packed upload
+// (ops/regpack.host_values), read from the host bank before it goes to the
+// device.
+int fastx_value_presence(const uint8_t* data, int64_t n, int n_threads,
+                         uint8_t* out256) {
+  if (!data || !out256 || n < 0) return -1;
+  std::memset(out256, 0, 256);
+  const int nt = n_threads < 1 ? 1 : n_threads;
+  std::vector<std::array<uint8_t, 256>> seen(nt);
+  for (auto& s : seen) s.fill(0);
+  const int64_t chunk = (n + nt - 1) / nt;
+  int rc = batch_run(nt, nt, [&](int t) {
+    const int64_t lo = (int64_t)t * chunk;
+    const int64_t hi = std::min(n, lo + chunk);
+    auto& s = seen[t];
+    for (int64_t i = lo; i < hi; ++i) s[data[i]] = 1;
+    return 0;
+  });
+  for (auto& s : seen)
+    for (int v = 0; v < 256; ++v) out256[v] |= s[v];
+  return rc;
+}
+
+// Bit-plane register packing for the host->device bank upload
+// (ops/regpack.py): rows -> value-index bit-planes, little bit order
+// within each byte (== np.packbits(bitorder="little")). One pass per
+// slab: each 8-register group is LUT'd into a u64 word and plane j's
+// byte falls out of the classic SWAR bit-gather multiply. out layout:
+// (s, k, r/8) C-contiguous. r must be a multiple of 8. n_threads rows
+// are split across the pool (the numpy form re-reads the slab once a
+// plane; this reads it once).
+static inline void pack_one_row(const uint8_t* __restrict src,
+                                uint8_t* __restrict dst,
+                                const uint8_t* __restrict lut, int k,
+                                int64_t r8) {
+  const uint64_t m1 = 0x0101010101010101ULL;
+  const uint64_t m2 = 0x0102040810204080ULL;
+  for (int64_t g = 0; g < r8; ++g) {
+    uint64_t w = 0;
+    for (int j = 0; j < 8; ++j)
+      w |= (uint64_t)lut[src[g * 8 + j]] << (8 * j);
+    for (int j = 0; j < k; ++j)
+      dst[(size_t)j * r8 + g] = (uint8_t)((((w >> j) & m1) * m2) >> 56);
+  }
+}
+
+int fastx_pack_bitplanes(const uint8_t* rows, int64_t s, int64_t r,
+                         const uint8_t* lut, int k, int n_threads,
+                         uint8_t* out) {
+  if (!rows || !lut || !out || s < 0 || r < 0 || (r & 7) || k < 1 || k > 7)
+    return -1;
+  const int64_t r8 = r / 8;
+  return batch_run((int)s, n_threads, [&](int b) {
+    pack_one_row(rows + (size_t)b * (size_t)r,
+                 out + (size_t)b * (size_t)k * (size_t)r8, lut, k, r8);
+    return 0;
+  });
+}
+
+// Fused gather + pack: slab rows come straight out of the (unsorted)
+// bank by index - a separate np.take gather would stream the slab through
+// memory twice more (write the arena, then the packer re-reads it); this
+// reads each bank row once. idx: int64 sorted-order row indices, one per
+// output slab row.
+int fastx_gather_pack_bitplanes(const uint8_t* bank, int64_t n_rows,
+                                int64_t r, const int64_t* idx, int64_t s,
+                                const uint8_t* lut, int k, int n_threads,
+                                uint8_t* out) {
+  if (!bank || !idx || !lut || !out || s < 0 || r < 0 || (r & 7) ||
+      k < 1 || k > 7)
+    return -1;
+  const int64_t r8 = r / 8;
+  return batch_run((int)s, n_threads, [&](int b) {
+    const int64_t row = idx[b];
+    if (row < 0 || row >= n_rows) return -3;
+    pack_one_row(bank + (size_t)row * (size_t)r,
+                 out + (size_t)b * (size_t)k * (size_t)r8, lut, k, r8);
+    return 0;
   });
 }
 

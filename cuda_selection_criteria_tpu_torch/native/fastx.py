@@ -98,6 +98,35 @@ def _bind(lib):
         ctypes.POINTER(ctypes.c_int64),
     ]
     lib.fastx_row_hist.restype = ctypes.c_int
+    lib.fastx_pack_bitplanes.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8),
+    ]
+    lib.fastx_pack_bitplanes.restype = ctypes.c_int
+    lib.fastx_value_presence.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8),
+    ]
+    lib.fastx_value_presence.restype = ctypes.c_int
+    lib.fastx_gather_pack_bitplanes.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int,
+        ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint8),
+    ]
+    lib.fastx_gather_pack_bitplanes.restype = ctypes.c_int
     lib.fastx_zlib_version.argtypes = []
     lib.fastx_zlib_version.restype = ctypes.c_char_p
 
@@ -248,4 +277,67 @@ def read_smh_batch(paths, m, threads=16):
     )
     if rc != 0:
         raise IOError(f"fastx_read_smh_batch failed: rc={rc}")
+    return out
+
+
+def _u8(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def pack_bitplanes(rows, lut256, k, out, threads=None):
+    """Bit-plane pack of uint8 register rows (ops/regpack layout) in one
+    native pass: out (S, k, R//8) uint8, little bit order, rows shared out
+    over `threads` threads (default min(8, cores)). rows and out must be
+    C-contiguous. Raises ValueError when the pack refuses its arguments
+    (R not a multiple of 8, k outside 1..7)."""
+    lib = _lib()
+    if not (rows.flags.c_contiguous and out.flags.c_contiguous):
+        raise ValueError("pack_bitplanes needs C-contiguous rows and out")
+    if threads is None:
+        threads = min(8, os.cpu_count() or 1)
+    rc = lib.fastx_pack_bitplanes(
+        _u8(rows), rows.shape[0], rows.shape[1],
+        _u8(np.ascontiguousarray(lut256, np.uint8)), int(k), threads,
+        _u8(out))
+    if rc != 0:
+        raise ValueError(f"fastx_pack_bitplanes failed: rc={rc}")
+    return out
+
+
+def value_presence(data, threads=None):
+    """(256,) bool: which byte values occur in the C-contiguous uint8
+    array, in one native linear pass on `threads` threads (default
+    min(8, cores)): the host alphabet of a packed upload."""
+    lib = _lib()
+    flat = data.reshape(-1)
+    if not (flat.flags.c_contiguous and flat.dtype == np.uint8):
+        raise ValueError("value_presence needs a C-contiguous uint8 array")
+    if threads is None:
+        threads = min(8, os.cpu_count() or 1)
+    out = np.zeros(256, np.uint8)
+    rc = lib.fastx_value_presence(_u8(flat), flat.size, threads, _u8(out))
+    if rc != 0:
+        raise ValueError(f"fastx_value_presence failed: rc={rc}")
+    return out.astype(bool)
+
+
+def gather_pack_bitplanes(bank, idx, lut256, k, out, threads=None):
+    """Fused gather + pack: out[b] = bit-planes of lut256[bank[idx[b]]] in
+    one native pass (no gathered slab), rows shared out over `threads`
+    threads (default min(8, cores)). bank and out must be C-contiguous.
+    Raises ValueError for a row index out of range."""
+    lib = _lib()
+    if not (bank.flags.c_contiguous and out.flags.c_contiguous):
+        raise ValueError("gather_pack_bitplanes needs a C-contiguous bank "
+                         "and out")
+    idx = np.ascontiguousarray(idx, np.int64)
+    if threads is None:
+        threads = min(8, os.cpu_count() or 1)
+    rc = lib.fastx_gather_pack_bitplanes(
+        _u8(bank), bank.shape[0], bank.shape[1],
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(idx),
+        _u8(np.ascontiguousarray(lut256, np.uint8)), int(k), threads,
+        _u8(out))
+    if rc != 0:
+        raise ValueError(f"fastx_gather_pack_bitplanes failed: rc={rc}")
     return out

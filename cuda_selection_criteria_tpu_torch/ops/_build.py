@@ -75,6 +75,10 @@ KERNELS = {
         _P, _LL, _P, _LL,        # aux, m, rows, n_pos
         _I, _I, _P, _P,          # n_rows, n_bands, fp, stream
     ]),
+    "regpack_unpack": ("csc_regpack_unpack", [
+        _P, _LL, _LL, _I,        # packed planes, rows, bytes a plane, k
+        _P, _P, _P,              # table, out (at row i0), stream
+    ]),
 }
 
 _loaded = {}

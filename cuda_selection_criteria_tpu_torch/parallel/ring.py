@@ -42,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops import criteria, screen
+from ..ops import criteria, regpack, screen
 from ..utils.hostref import PairOracle
 from .mesh import resolve_mesh
 from .screened import (SCREEN_DELTA_AUX, Strip, _screen_strip_pair,
@@ -150,7 +150,7 @@ def _strip_hist_fn(resident, strip, rows, e_p, p, tau, delta, device):
 
 
 def select_pairs_ring(bank, params, mesh=None, ti=None, chunk_tiles=None,
-                      stats=None, device=None, wave=64):
+                      stats=None, device=None, wave=64, upload_pack=None):
     """All-pairs selection with the bank split into strips over the mesh's
     devices (the ring sweep); same exact-output contract as the other
     engines, every criterion. Returns reference-ordered
@@ -172,7 +172,12 @@ def select_pairs_ring(bank, params, mesh=None, ti=None, chunk_tiles=None,
     is CUDA, max_wave_alloc_bytes: the most a device's allocator held at a
     read beyond what it held when the step loop began (the masks, counts
     and tile ids of its positions and, on a mesh of distinct devices, the
-    circulating strip); None on CPU devices."""
+    circulating strip); None on CPU devices. upload_pack: as ScreenPlan
+    takes it - True uploads the register strips as bit-planes of the value
+    index (upload_sorted_rows(pack=)) on the alphabet of one host presence
+    scan of bank.regs (timed inside upload_secs), which the strips'
+    present values must equal; None and False upload raw bytes, and the
+    aux strips always go raw."""
     mesh, dev = resolve_mesh(mesh, device)
     devs = mesh.devices("rows")
     n_dev = len(devs)
@@ -230,13 +235,17 @@ def select_pairs_ring(bank, params, mesh=None, ti=None, chunk_tiles=None,
     # each strip through the slab-pipelined upload: the host never gathers
     # a whole strip, and a device holds its strips and no copy of them
     t0 = time.perf_counter()
+    pack_plan = host_values = None
+    if upload_pack:
+        host_values = regpack.host_values(bank.regs)
+        pack_plan = regpack.plan_pack(host_values)
     upload_ph = {}
     resident = []
     for d, dv in enumerate(devs):
         lo = d * strip
         resident.append(Strip(
             upload_sorted_rows(bank.regs, order, lo, strip, dv,
-                               stats=upload_ph),
+                               stats=upload_ph, pack=pack_plan),
             (upload_sorted_rows(bank.aux, order, lo, strip, dv)
              if use_aux_gate else None),
             torch.from_numpy(e_p[lo:lo + strip]).to(dv),
@@ -246,9 +255,14 @@ def select_pairs_ring(bank, params, mesh=None, ti=None, chunk_tiles=None,
     # hold those of the bank
     real = [min(strip, max(0, n - d * strip)) for d in range(n_dev)]
     max_card = float(e_s.max(initial=1.0))
-    values = screen.truncate_values(tuple(sorted(set().union(*(
+    values_all = tuple(sorted(set().union(*(
         screen.bank_values(res.regs[:k]) for res, k in zip(resident, real)
-        if k)))), max_card, bank.p)
+        if k))))
+    if pack_plan is not None and values_all != host_values:
+        raise RuntimeError(
+            f"packed upload: the strips' values {values_all} differ from "
+            f"the host alphabet {host_values}")
+    values = screen.truncate_values(values_all, max_card, bank.p)
     aux_spec = None
     if use_aux_gate:
         aux_spec = (bank.aux_param, screen.truncate_values(

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..models.bank import cards_from_hists
-from ..ops import criteria, screen
+from ..ops import criteria, regpack, screen
 from ..ops.estimators import hll_histogram
 from ..utils.device import resolve
 from ..utils.hostref import PairOracle
@@ -524,13 +524,13 @@ UPLOAD_THREADS = min(8, os.cpu_count() or 1)
 
 def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
                        slab_bytes=128 << 20, stats=None,
-                       threads=UPLOAD_THREADS):
+                       threads=UPLOAD_THREADS, pack=None):
     """Slab-pipelined upload of sorted bank rows [lo, lo + rows_out) to one
     device: a uint8 (rows_out, R) tensor on resolve(device) holding rows
     order[lo:lo + count] of bank_regs, rows past len(order) zero. Port of
-    the reference's upload_sorted_rows with pack=None. order=None uploads
-    the bank in its own row order (rows lo .. lo + count, rows past the
-    bank's end zero): each slab is then a contiguous copy, not a gather.
+    the reference's upload_sorted_rows. order=None uploads the bank in its
+    own row order (rows lo .. lo + count, rows past the bank's end zero):
+    each slab is then a contiguous copy, not a gather.
 
     The host gathers a slab of slab_bytes // R sorted rows into one of two
     reused arenas (pinned on CUDA) and copies it into the output with a
@@ -543,9 +543,22 @@ def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
     interpreter lock). On the CPU the arenas are plain and the copy
     synchronous. Ends in a synchronize.
 
+    pack: optional ops/regpack.plan_pack triple (lut256, table, k) of an
+    alphabet that holds every value of the rows uploaded: each slab goes
+    as k bit-planes of the value index, k/8 of the bytes (R a multiple of
+    8). The `threads` host threads pack each slab (regpack.pack_rows of a
+    contiguous slab for order=None, regpack.gather_pack_rows from the bank
+    through the order otherwise) into one of two packed arenas (pinned on
+    CUDA); the arena is copied non_blocking into one of two device packed
+    slabs and decoded into the output by regpack.unpack_rows (the unpack
+    kernel on CUDA) on the same stream, and the event after the decode
+    guards both the arena and the device slab. The device holds the output
+    and the two packed slabs.
+
     stats: optional dict; gets the reference's keys (slabs, gather_secs,
-    put_ret_secs, token_wait_secs, and pack_secs 0.0 and pack_bits 0: the
-    tunnel's bit-plane packing is not ported), added to what it holds."""
+    pack_secs, put_ret_secs, token_wait_secs, and pack_bits: k, or 0 for
+    raw bytes), added to what it holds. A packed upload's host work is
+    pack_secs and its gather_secs stays 0.0, as in the reference."""
     dev = resolve(device)
     cuda = dev.type == "cuda"
     r = bank_regs.shape[1]
@@ -560,24 +573,47 @@ def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
         return out
     ph = stats if stats is not None else {}
     ph.setdefault("slabs", 0)
-    ph["pack_bits"] = 0
+    ph["pack_bits"] = 0 if pack is None else pack[2]
     for key in ("gather_secs", "put_ret_secs", "token_wait_secs",
                 "pack_secs"):
         ph.setdefault(key, 0.0)
     # a failed pin raises: a pageable arena would make the copies
     # synchronous and the overlap silent
-    arenas = [torch.empty((min(slab, count), r), dtype=torch.uint8,
-                          pin_memory=cuda) for _ in range(2)]
+    if pack is None:
+        shape = (min(slab, count), r)
+        timer = "gather_secs"
+    else:
+        lut256, table, kbits = pack
+        if r % 8:
+            raise ValueError(f"upload_sorted_rows: a packed upload needs "
+                             f"rows of a multiple of 8 registers, not {r}")
+        shape = (min(slab, count), kbits, r // 8)
+        timer = "pack_secs"
+        d_table = torch.from_numpy(table).to(dev)
+        d_slabs = ([torch.empty(shape, dtype=torch.uint8, device=dev)
+                    for _ in range(2)] if cuda else None)
+        scratch = [{} for _ in range(threads)]
+    arenas = [torch.empty(shape, dtype=torch.uint8, pin_memory=cuda)
+              for _ in range(2)]
     hosts = [a.numpy() for a in arenas]
     events = [None, None]
 
-    def gather(dst, rows, a, b):
-        if isinstance(rows, slice):  # order=None: a contiguous slab
-            np.copyto(dst[a:b], bank_regs[rows][a:b])
+    def fill(part, dst, rows, a, b):
+        if pack is None:
+            if isinstance(rows, slice):  # order=None: a contiguous slab
+                np.copyto(dst[a:b], bank_regs[rows][a:b])
+            else:
+                # mode="clip": the indices are valid, and "raise" would
+                # gather into a buffer of numpy's own first
+                np.take(bank_regs, rows[a:b], axis=0, out=dst[a:b],
+                        mode="clip")
+        elif isinstance(rows, slice):
+            regpack.pack_rows(bank_regs[rows][a:b], lut256, kbits,
+                              out=dst[a:b], scratch=scratch[part], threads=1)
         else:
-            # mode="clip": the indices are valid, and "raise" would gather
-            # into a buffer of numpy's own first
-            np.take(bank_regs, rows[a:b], axis=0, out=dst[a:b], mode="clip")
+            regpack.gather_pack_rows(bank_regs, rows[a:b], lut256, kbits,
+                                     out=dst[a:b], scratch=scratch[part],
+                                     threads=1)
 
     with contextlib.ExitStack() as ctx:
         if cuda:
@@ -587,21 +623,28 @@ def upload_sorted_rows(bank_regs, order, lo, rows_out, device=None,
         for idx, k0 in enumerate(range(0, count, slab)):
             tp = time.perf_counter()
             if events[idx % 2] is not None:
-                events[idx % 2].synchronize()  # its last copy has finished
+                events[idx % 2].synchronize()  # its last decode has finished
             ph["token_wait_secs"] += time.perf_counter() - tp
             span = slice(lo + k0, lo + min(k0 + slab, count))
             rows = span if order is None else order[span]
             k = span.stop - span.start
             tp = time.perf_counter()
             if pool is None:
-                gather(hosts[idx % 2], rows, 0, k)
+                fill(0, hosts[idx % 2], rows, 0, k)
             else:
                 cut = np.linspace(0, k, threads + 1).astype(int)
-                list(pool.map(gather, [hosts[idx % 2]] * threads,
+                list(pool.map(fill, range(threads), [hosts[idx % 2]] * threads,
                               [rows] * threads, cut[:-1], cut[1:]))
-            ph["gather_secs"] += time.perf_counter() - tp
+            ph[timer] += time.perf_counter() - tp
             tp = time.perf_counter()
-            out[k0:k0 + k].copy_(arenas[idx % 2][:k], non_blocking=cuda)
+            if pack is None:
+                out[k0:k0 + k].copy_(arenas[idx % 2][:k], non_blocking=cuda)
+            else:
+                planes = arenas[idx % 2][:k]
+                if cuda:
+                    planes = d_slabs[idx % 2][:k].copy_(planes,
+                                                        non_blocking=True)
+                regpack.unpack_rows(out, planes, d_table, k0, kbits)
             if cuda:
                 events[idx % 2] = torch.cuda.Event()
                 events[idx % 2].record()
@@ -632,11 +675,24 @@ class ScreenPlan:
     d_fp, sorted and padded), and is freed; the host aux is never gathered
     for them (the confirm reads its candidates' rows through the order).
 
+    upload_pack (the reference plan's upload_pack attribute, which the
+    port takes as a keyword since it uploads here): True ships the primary
+    bank as bit-planes of its value index whenever regpack.plan_pack finds
+    an alphabet narrower than 8 bits (upload_sorted_rows(pack=)); False
+    and None (auto) ship raw bytes - the auto rule stays raw on the card.
+    The alphabet comes from one host presence scan of bank.regs
+    (regpack.host_values, timed as presence_secs, 0.0 on the raw route)
+    before the upload; the screen's present values still come from
+    row_hist, which must give the same values. pack_plan is the triple
+    the upload took, or None. The aux banks always go raw.
+
     upload_secs is the wall of the register banks' uploads inside __init__
     (upload_sorted_rows, each ending in a synchronize; the reference plan's
-    upload_secs), and upload_stats the primary bank's upload split:
-    upload_sorted_rows's keys and wire_wait_secs, the wall the host stages
-    leave, as the reference computes it. cards_secs is the wall of the
+    upload_secs) with the presence scan of a packed upload, and
+    upload_stats the primary bank's upload split: upload_sorted_rows's keys
+    and wire_wait_secs, the wall the host stages leave (the upload's wall
+    less the presence scan, gather_secs, pack_secs and put_ret_secs), as
+    the reference computes it. cards_secs is the wall of the
     histogram pass, its read-back and, when the bank had no cardinalities,
     the MLE, the copy of its estimates and flags to the host and the host
     rows; cards_host_rows the number of those host rows (None when the
@@ -647,7 +703,7 @@ class ScreenPlan:
 
     VALID = ("smh_a", "smh_only", "cb", "baseline", "hll_a", "hll_an")
 
-    def __init__(self, bank, params, ti, device=None):
+    def __init__(self, bank, params, ti, device=None, upload_pack=None):
         crit = params.criterion
         if crit not in self.VALID:
             raise ValueError(
@@ -664,13 +720,20 @@ class ScreenPlan:
         n = self.n
 
         t_up = time.perf_counter()
+        self.pack_plan = host_values = None
+        if upload_pack:
+            host_values = regpack.host_values(bank.regs)
+            self.pack_plan = regpack.plan_pack(host_values)
+        self.presence_secs = time.perf_counter() - t_up
         self.upload_stats = {}
         self.d_bank = upload_sorted_rows(bank.regs, None, 0, n + 1,
-                                         self.device, stats=self.upload_stats)
+                                         self.device, stats=self.upload_stats,
+                                         pack=self.pack_plan)
         self.upload_secs = time.perf_counter() - t_up
         if self.upload_stats:
             self.upload_stats["wire_wait_secs"] = round(
-                self.upload_secs - self.upload_stats["gather_secs"]
+                self.upload_secs - self.presence_secs
+                - self.upload_stats["gather_secs"]
                 - self.upload_stats["pack_secs"]
                 - self.upload_stats["put_ret_secs"], 2)
 
@@ -679,6 +742,13 @@ class ScreenPlan:
         # die here, before the screen.
         t_cards = time.perf_counter()
         hists, present = screen.row_hist(self.d_bank[:n])
+        if self.pack_plan is not None and present != host_values:
+            # the decoded bank holds exactly the values of the host scan of
+            # the whole bank, or its decode went wrong (a register off the
+            # table, a zero of the table's padding)
+            raise RuntimeError(
+                f"packed upload: the device bank's values {present} differ "
+                f"from the host alphabet {host_values}")
         self.cards_host_rows = None
         if not bank.has_cards():
             bank.cards, self.cards_host_rows = cards_from_hists(hists,
@@ -935,7 +1005,7 @@ class ScreenPlan:
 
 
 def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
-                          stats=None, checkpoint=None):
+                          stats=None, checkpoint=None, upload_pack=None):
     """All-pairs selection via the fused screen + exact confirmation.
 
     Returns reference-ordered [(name_i, name_j, jacc)]. ti/chunk default
@@ -945,7 +1015,9 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
     cards_host_rows and the tile and candidate counts; the screen and
     prune walls end in a device-to-host copy, so they include the device
     work. checkpoint: the
-    screen stage's progress file (ScreenPlan.screen_tiles). Each stage runs
+    screen stage's progress file (ScreenPlan.screen_tiles). upload_pack:
+    the plan's (ScreenPlan: True ships the bank packed, None and False
+    raw). Each stage runs
     inside a torch.profiler.record_function span of its name (plan,
     schedule, prune, screen, confirm), which a trace shows; with the
     profiler off a span costs a few microseconds of host time."""
@@ -959,7 +1031,7 @@ def select_pairs_screened(bank, params, ti=None, chunk=None, device=None,
     span = torch.profiler.record_function
     t0 = time.perf_counter()
     with span("plan"):
-        plan = ScreenPlan(bank, params, ti, device)
+        plan = ScreenPlan(bank, params, ti, device, upload_pack=upload_pack)
     t1 = time.perf_counter()
     with span("schedule"):
         rows, cols = plan.schedule()

@@ -25,7 +25,14 @@ synchronize:
   - a hll cell's sorted aux gather (its confirm's copy);
   - ScreenPlan as a whole on a bank without cards, as a timed rep of the
     cell builds it, with its upload_secs, cards_secs and fp_secs and the
-    rest of its wall.
+    rest of its wall;
+  - the pack stage (pack_planes_kernel) at the cell's own screen launches
+    (the plan's schedule, its gate prune, then screen_tiles as
+    select_pairs_screened runs it): each K1 launch's distinct row blocks
+    (screen.block_slots, counted as launch_tiles builds them) and, for a
+    hll cell, K2's whole aux bank a launch; the bound is those rows read
+    once and their planes written once at HBM_BYTES_PER_S, beside the
+    pack's device time in a torch.profiler trace of one screen_tiles.
 
 The card's name and power limit ride in each line. Needs a CUDA card;
 exits 1 unless the two routes give the same fingerprints.
@@ -189,7 +196,64 @@ def split(torch, cell, seed, reps):
         del plan
         torch.cuda.empty_cache()
     rec["plan"] = min(walls, key=lambda w: w["plan_secs"])
+    rec["pack"] = pack_stage(torch, screened.ScreenPlan(fresh, params, ti,
+                                                        dev))
     return rec
+
+
+def pack_stage(torch, plan):
+    """The pack stage at the cell's screen launches (module docstring):
+    launches, blocks a K1 launch, bytes, bound_ms, and the device ms of
+    pack_planes_kernel in a trace of one screen_tiles after a warm one."""
+    from cuda_selection_criteria_tpu_torch.ops import screen
+    from cuda_selection_criteria_tpu_torch.parallel import screened
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+    from cuda_selection_criteria_tpu_torch.utils.profiling import (
+        device_trace)
+
+    rows, cols = plan.schedule()
+    rows, cols = plan.prune_tiles(rows, cols, chunk=256)
+    chunk = screened.auto_chunk(plan.ti)
+    blocks = []
+    real = screen.launch_tiles
+
+    def spy(row_tiles, col_tiles, shared, device):
+        blocks.append(len(screen.block_slots(row_tiles, col_tiles,
+                                             shared)[0]))
+        return real(row_tiles, col_tiles, shared, device)
+
+    screen.launch_tiles = spy
+    try:
+        plan.screen_tiles(rows, cols, chunk=chunk)
+        blocks.clear()
+        with device_trace() as prof:
+            plan.screen_tiles(rows, cols, chunk=chunk)
+            torch.cuda.synchronize()
+    finally:
+        screen.launch_tiles = real
+    pack_us, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        if "pack_planes_kernel" in ev.key and ev.self_device_time_total:
+            pack_us += ev.self_device_time_total
+            kernels += ev.count
+    ti, r = plan.ti, plan.d_bank.shape[1]
+    nbins = len(screen.telescope(plan.bank.p, plan.values)[1])
+    k1_bytes = sum(b * ti * (r + nbins * screen.plane_words(plan.bank.p)
+                             * 4) for b in blocks)
+    k2_bytes = 0
+    if plan.coef_aux is not None:
+        p_aux = plan.bank.aux_param
+        nb_aux = len(screen.telescope(p_aux, plan.values_aux)[1])
+        n_pad, r_aux = plan.d_aux_regs.shape
+        k2_bytes = len(blocks) * n_pad * (
+            r_aux + screen.plane_row_words(p_aux, nb_aux) * 4)
+    nbytes = k1_bytes + k2_bytes
+    return dict(tiles_live=len(rows), k1_launches=len(blocks),
+                k1_blocks=blocks, k2_launches=len(blocks) if k2_bytes
+                else 0, k1_bytes=k1_bytes, k2_bytes=k2_bytes,
+                bound_ms=nbytes / hopper.HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", pack_kernels=kernels,
+                device_ms=pack_us / 1e3)
 
 
 def main(argv=None):

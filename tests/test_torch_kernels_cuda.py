@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 screen_fused with its launch's plane
 scratch and the plan's row map, K2 weighted_cdf_sum, the gate prune's
 gate_counts, value_presence, the plan's row_hist, the ERTL-MLE
-ertl_mle, the plan's band fingerprints band_fp) and their card paths
+ertl_mle, the plan's band fingerprints band_fp, the packed upload's
+regpack_unpack) and their card paths
 against their plain versions,
 bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
@@ -33,7 +34,7 @@ from cuda_selection_criteria_tpu_torch.models import bank as tbank
 from cuda_selection_criteria_tpu_torch.models.bank import host_cards
 from cuda_selection_criteria_tpu_torch.native import fastx
 from cuda_selection_criteria_tpu_torch.ops import (criteria, estimators,
-                                                  pairwise, screen)
+                                                  pairwise, regpack, screen)
 from cuda_selection_criteria_tpu_torch.parallel import screened
 from cuda_selection_criteria_tpu_torch.parallel.selection import (
     SelectionParams, select_pairs)
@@ -1605,3 +1606,67 @@ def test_plan_fp_on_the_card(cuda, crit, tau):
     assert plan.aux_s is None
     got = select_pairs(bank, params, device=cuda)
     assert got == select_pairs(bank, params, device="cpu") and len(got) > 0
+
+
+# (k, rows, registers a row, i0, alphabet without 0): odd row counts, rows
+# of 17 and 2049 bytes a plane (R/8 not a multiple of 4), i0 > 0
+UNPACK_CASES = [(1, 7, 136, 3, False), (2, 9, 8, 1, True),
+                (3, 33, 16384, 5, True), (4, 101, 512, 0, False),
+                (5, 5, 136, 11, True), (6, 65, 16392, 2, False),
+                (7, 3, 1024, 9, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s,r,i0,no_zero", UNPACK_CASES)
+def test_regpack_unpack_matches_plain(cuda, k, s, r, i0, no_zero):
+    """The unpack kernel decodes packed planes into rows i0 .. i0 + S of a
+    bank on the card, bit-equal to _unpack_rows_plain, leaving the other
+    rows alone."""
+    rng = np.random.default_rng(k * 1000 + r)
+    vals = sorted(rng.choice(np.arange(int(no_zero), 256),
+                             (1 << k) - (k > 1), replace=False).tolist())
+    lut, table, kk = regpack.plan_pack(vals)
+    assert kk == k
+    rows = rng.choice(np.array(vals, np.uint8), size=(s, r))
+    packed = torch.from_numpy(regpack.pack_rows(rows, lut, k)).to(cuda)
+    d_table = torch.from_numpy(table).to(cuda)
+    fill = torch.full((i0 + s + 2, r), 7, dtype=torch.uint8, device=cuda)
+    want = regpack._unpack_rows_plain(fill.clone(), packed, d_table, i0, k)
+    got = fill.clone()
+    before = regpack.unpack_rows.launches
+    assert regpack.unpack_rows(got, packed, d_table, i0, k) is got
+    torch.cuda.synchronize()
+    assert regpack.unpack_rows.launches == before + 1
+    assert torch.equal(got, want)
+    np.testing.assert_array_equal(got[i0:i0 + s].cpu().numpy(), rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordered", [True, False])
+def test_packed_upload_equals_raw_on_cuda(cuda, ordered):
+    """A packed upload through pinned arenas, two device packed slabs and
+    the unpack kernel gives the raw upload's bank, over many slabs with a
+    part-filled last one; the plan's packed bank equals its raw one."""
+    rng = np.random.default_rng(5)
+    n, r = 1001, 4096
+    regs = synth.synthetic_regs(n, rng.integers(64, 90000, n), 12, rng)
+    order = rng.permutation(n) if ordered else None
+    plan = regpack.plan_pack(regpack.host_values(regs))
+    stats = {}
+    before = regpack.unpack_rows.launches
+    got = screened.upload_sorted_rows(regs, order, 7, 1024, cuda,
+                                      slab_bytes=100 * r, stats=stats,
+                                      pack=plan)
+    raw = screened.upload_sorted_rows(regs, order, 7, 1024, cuda,
+                                      slab_bytes=100 * r)
+    assert torch.equal(got, raw)
+    assert stats["slabs"] == 10 and stats["pack_bits"] == plan[2]
+    assert regpack.unpack_rows.launches == before + 10
+    bank = SketchBank(names=[f"g{i}" for i in range(n)], regs=regs, p=12)
+    params = SelectionParams(tau=0.9, criterion="cb")
+    packed_plan = screened.ScreenPlan(bank, params, 512, cuda,
+                                      upload_pack=True)
+    raw_plan = screened.ScreenPlan(bank, params, 512, cuda)
+    assert packed_plan.upload_stats["pack_bits"] == plan[2]
+    assert torch.equal(packed_plan.d_bank, raw_plan.d_bank)
+    assert packed_plan.values == raw_plan.values
