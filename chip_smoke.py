@@ -106,10 +106,13 @@ Phases (any failure exits non-zero, without the final result line):
                 alone and the wrapper) beside its plain version and its
                 bound. The unpack kernel of the packed bank upload
                 (regpack.unpack_rows) vs its plain version, bit-equal and
-                equal to the host rows: k = 1..7, odd row counts, rows of
-                17 and 2049 bytes a plane, i0 > 0, alphabets without 0;
-                then on a 128 MiB slab (8192 rows of the bench bank, and
-                a k = 6 slab) timed beside its plain version and its
+                equal to the host rows: k = 1..7 on the word path and on
+                the byte path (rows of 1, 17 and 2049 bytes a plane, and
+                banks 8 bytes off a 16-byte boundary), a grid stride that
+                is not a multiple of a row's words, odd row counts, i0 >
+                0, alphabets without 0; then on a 128 MiB slab (8192 rows
+                of the bench bank, and a k = 6 slab) timed on both paths
+                beside its plain version and its
                 bound; library none. K1's
                 cases above include banks read through a shuffled row map
                 (the plan's layout: its own row order and a zero row), and
@@ -347,10 +350,12 @@ KERNELS = {  # name -> (source, the TPU kernel it replaces, route detail)
     "regpack_unpack": (
         f"{PKG}/csrc/regpack_unpack.cu",
         "cuda_selection_criteria_tpu/ops/regpack.py:122",
-        "unpack_place (a jitted XLA decode into a donated buffer): one "
-        "thread a byte of each of the k planes (8 registers), bits spread "
-        "by a nibble multiply, the table in shared memory, one 8-byte "
-        "store"),
+        "unpack_place (a jitted XLA decode into a donated buffer): word "
+        "path, one thread a 4-byte word of each of the k planes (32 "
+        "registers, k a template parameter), index bits regrouped by "
+        "constant shifts and LOP3 masks, the table in shared memory, "
+        "__byte_perm merges, two 16-byte stores; byte path (ragged R/8 or "
+        "an out 8 bytes off 16) one thread a byte of each plane"),
 }
 
 
@@ -1149,50 +1154,76 @@ def check_plan_fp(torch, screened, plan, bank, card, label):
 
 
 # The unpack kernel's cases (k, rows, registers a row, i0, alphabet without
-# 0), as tests/test_torch_kernels_cuda.py has them: odd row counts, rows of
-# 17 and 2049 bytes a plane (R/8 not a multiple of 4), i0 > 0; its timed
+# 0), as tests/test_torch_kernels_cuda.py has them: odd row counts, i0 >
+# 0; rows of 1, 17 and 2049 bytes a plane (R/8 not a multiple of 4) take
+# the byte path, the others the word path, k = 1 to 7 on each; 2100 rows
+# of 513 words a plane, so the grid stride (256 threads times the CTAs)
+# is no multiple of a row's words and the groups outrun it. Its timed
 # slab is the packed upload's: 8192 rows of 2^14 registers, 128 MiB.
 UNPACK_CASES = [(1, 7, 136, 3, False), (2, 9, 8, 1, True),
                 (3, 33, 16384, 5, True), (4, 101, 512, 0, False),
                 (5, 5, 136, 11, True), (6, 65, 16392, 2, False),
-                (7, 3, 1024, 9, True)]
+                (7, 3, 1024, 9, True), (1, 9, 1024, 4, False),
+                (2, 17, 4096, 2, True), (5, 40, 16384, 3, False),
+                (6, 21, 2048, 7, True), (4, 2100, 16416, 1, False)]
 UNPACK_SLAB_ROWS = 8192
 
 
-def unpack_vs_plain(torch, regpack, rows, i0, dev, label):
+def unpack_bank(torch, n, r, dev, offset=0, fill=7):
+    """An (n, r) uint8 bank of `fill` on the card whose base lies `offset`
+    bytes past a 16-byte boundary (a view of a larger buffer)."""
+    flat = torch.full((n * r + 16,), fill, dtype=torch.uint8, device=dev)
+    return flat[offset:offset + n * r].view(n, r)
+
+
+def unpack_vs_plain(torch, regpack, rows, i0, dev, label, offset=0):
     """The unpack kernel (regpack.unpack_rows) against its plain version on
     the planes of the host rows, packed with their own alphabet and
-    decoded into rows i0 .. of a bank of sevens: (max |difference|, the
-    card's planes, table and k). Both must give the host rows."""
+    decoded into rows i0 .. of a bank of sevens `offset` bytes past a
+    16-byte boundary: (max |difference|, the card's planes, table and k).
+    Both must give the host rows, on the path the shape and alignment
+    give (the word path for rows of a multiple of 32 registers on a
+    16-byte boundary)."""
     lut, table, k = regpack.plan_pack(regpack.host_values(rows))
     packed = torch.from_numpy(regpack.pack_rows(rows, lut, k)).to(dev)
     d_table = torch.from_numpy(table).to(dev)
-    fill = torch.full((i0 + len(rows) + 2, rows.shape[1]), 7,
-                      dtype=torch.uint8, device=dev)
-    got = regpack.unpack_rows(fill.clone(), packed, d_table, i0, k)
-    want = regpack._unpack_rows_plain(fill, packed, d_table, i0, k)
+    r = rows.shape[1]
+    got = unpack_bank(torch, i0 + len(rows) + 2, r, dev, offset)
+    path = regpack.unpack_path(got, packed, i0)
+    want_path = ("word" if r % 32 == 0 and (offset + i0 * r) % 16 == 0
+                 else "byte")
+    check(path == want_path, f"regpack_unpack {label}: the {path} path, "
+          f"not the {want_path} path")
+    want = regpack._unpack_rows_plain(got.clone(), packed, d_table, i0, k)
+    regpack.unpack_rows(got, packed, d_table, i0, k)
     torch.cuda.synchronize()
     err = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
     check(np.array_equal(got[i0:i0 + len(rows)].cpu().numpy(), rows),
           f"regpack_unpack {label}: the decoded rows differ from the host's")
     print(f"  regpack_unpack {label} (k={k}, {len(rows)} rows of "
-          f"{rows.shape[1]} registers at row {i0}): max_abs_err={err}")
+          f"{r} registers at row {i0}, {path} path): max_abs_err={err}")
     check(err == 0, f"regpack_unpack {label}: kernel != plain")
-    del fill, got, want
+    del got, want
     return err, packed, d_table, k
 
 
 def phase_unpack_edges(torch, regpack, dev):
     """The unpack kernel's cases (UNPACK_CASES), each alphabet of 2^k - 1
-    values (2 at k = 1) drawn from a seed."""
+    values (2 at k = 1) drawn from a seed; then word-path shapes at k = 1,
+    5, 6 and 7 in banks 8 bytes past a 16-byte boundary (the byte
+    path)."""
     worst = 0
-    for k, s, r, i0, no_zero in UNPACK_CASES:
+    cases = [(c, 0) for c in UNPACK_CASES] + [
+        ((k, 33, 16384, 2, False), 8) for k in (1, 5, 6, 7)]
+    for (k, s, r, i0, no_zero), offset in cases:
         rng = np.random.default_rng(k * 1000 + r)
         vals = rng.choice(np.arange(int(no_zero), 256), (1 << k) - (k > 1),
                           replace=False).astype(np.uint8)
         rows = rng.choice(vals, size=(s, r))
-        label = f"k={k}{' no zero' if no_zero else ''}"
-        err, *_, kk = unpack_vs_plain(torch, regpack, rows, i0, dev, label)
+        label = (f"k={k}{' no zero' if no_zero else ''}"
+                 f"{' 8-byte aligned bank' if offset else ''}")
+        err, *_, kk = unpack_vs_plain(torch, regpack, rows, i0, dev, label,
+                                      offset)
         check(kk == k, f"regpack_unpack {label}: the plan took k={kk}")
         worst = max(worst, err)
     return worst
@@ -1202,38 +1233,46 @@ def unpack_config(torch, regpack, rows, dev, card, label):
     """The unpack kernel on one 128 MiB slab of the packed upload (the host
     rows, packed with their own alphabet): bit-equal to its plain version,
     timed beside it (the wrapper, 20 launches a turn, two turns) and its
-    bound (the planes read once and the registers written once at
-    HBM_BYTES_PER_S, against k + 1 integer operations a register at
-    INT32_OPS_PER_S). No single PyTorch call decodes bit-planes
-    (library_ms null)."""
+    bound (the larger of the planes read once and the registers written
+    once at HBM_BYTES_PER_S and k + 1 integer operations a register at
+    INT32_OPS_PER_S), on the word path (the bank on a 16-byte boundary)
+    and, between the turns, on the byte path (the bank 8 bytes off it).
+    No single PyTorch call decodes bit-planes (library_ms null)."""
     from cuda_selection_criteria_tpu_torch.utils import hopper
 
     err, packed, d_table, k = unpack_vs_plain(torch, regpack, rows, 0, dev,
                                               label)
     s, r = rows.shape
     out = torch.empty((s, r), dtype=torch.uint8, device=dev)
+    off = unpack_bank(torch, s, r, dev, 8)
     want = torch.empty_like(out)
+    check(regpack.unpack_path(out, packed, 0) == "word"
+          and regpack.unpack_path(off, packed, 0) == "byte",
+          f"regpack_unpack {label}: the paths of the timed banks")
 
-    def launch():
-        regpack.unpack_rows(out, packed, d_table, 0, k)
+    def launch(bank):
+        return lambda: regpack.unpack_rows(bank, packed, d_table, 0, k)
 
-    ms = cuda_ms(torch, launch, 20)
+    ms = cuda_ms(torch, launch(out), 20)
     plain_ms = cuda_ms(torch, lambda: regpack._unpack_rows_plain(
         want, packed, d_table, 0, k), 2)
-    ms2 = cuda_ms(torch, launch, 20)
-    check(torch.equal(out, want), f"regpack_unpack {label}: the timed "
-          "launches differ from plain")
+    byte_ms = cuda_ms(torch, launch(off), 20)
+    ms2 = cuda_ms(torch, launch(out), 20)
+    check(torch.equal(out, want) and torch.equal(off, want),
+          f"regpack_unpack {label}: the timed launches differ from plain")
     nbytes = packed.numel() + d_table.numel() + out.numel()
     bound_ms, bound_by = bound((k + 1) * out.numel() / hopper.INT32_OPS_PER_S,
                                nbytes / hopper.HBM_BYTES_PER_S)
     print(f"  [{card}] regpack_unpack {label} (k={k}, {s} x {r}, {nbytes} "
-          f"bytes): {ms:.4f} / {ms2:.4f} ms (two turns) vs plain "
-          f"{plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}), share "
-          f"of the bound {bound_ms / ms:.3f}; library none")
-    del out, want, packed
+          f"bytes): word path {ms:.4f} / {ms2:.4f} ms (two turns), byte "
+          f"path {byte_ms:.4f} ms, vs plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}), share of the bound "
+          f"{bound_ms / max(ms, ms2):.3f} (byte path "
+          f"{bound_ms / byte_ms:.3f}); library none")
+    del out, off, want, packed
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, ms2=ms2, k=k,
-                bytes=nbytes)
+                bound_by=bound_by, library_ms=None, ms2=ms2, byte_ms=byte_ms,
+                k=k, bytes=nbytes)
 
 
 def phase_unpack(torch, regpack, bank_regs, dev, card):

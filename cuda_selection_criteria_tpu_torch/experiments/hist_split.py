@@ -56,7 +56,6 @@ the 32-byte mask) written once at HBM_BYTES_PER_S.
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import re
@@ -92,25 +91,7 @@ def build():
     """(library path, build seconds, nvcc log) of hist_split.cu, built into
     the package's build directory under a name hashed from it and the
     kernel's source; seconds 0.0 and an empty log where it existed."""
-    h = hashlib.sha1()
-    for path in (SOURCE, _build.source("row_hist")):
-        with open(path, "rb") as fh:
-            h.update(fh.read())
-    out = os.path.join(_build.BUILD_DIR,
-                       f"libhist_split_{h.hexdigest()[:12]}.so")
-    if os.path.exists(out):
-        return out, 0.0, ""
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", tmp,
-                           SOURCE], capture_output=True, text=True,
-                          timeout=900)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for hist_split.cu:\n{log}")
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0, log
+    return _build.build_probe(SOURCE, "row_hist", "hist_split")
 
 
 def load(path):
@@ -154,6 +135,16 @@ def _loops(code):
     return loops
 
 
+def loop_range(code, mem="LDG"):
+    """(start, end) addresses of the innermost backward-branch range of
+    code that holds an instruction matching the regex `mem` (a global
+    load by default), or None where there is none."""
+    pat = re.compile(mem)
+    found = [(lo, hi) for lo, hi in _loops(code)
+             if any(pat.search(t) for a, t in code if lo <= a <= hi)]
+    return min(found, key=lambda r: r[1] - r[0]) if found else None
+
+
 def loop_counts(code):
     """The row loop of one kernel's SASS: the innermost backward-branch
     range that holds a global load (LDG). Returns {"loop": its
@@ -167,11 +158,10 @@ def loop_counts(code):
     def body(lo, hi):
         return [t for a, t in code if lo <= a <= hi]
 
-    with_ldg = [(lo, hi) for lo, hi in loops
-                if any("LDG" in t for t in body(lo, hi))]
-    if not with_ldg:
+    found = loop_range(code)
+    if found is None:
         return None
-    lo, hi = min(with_ldg, key=lambda r: r[1] - r[0])
+    lo, hi = found
     inner = sorted(len(body(a, b)) for a, b in loops
                    if lo <= a and b <= hi and (a, b) != (lo, hi))
     n = len(body(lo, hi))
@@ -181,10 +171,10 @@ def loop_counts(code):
                 per_byte=per_byte)
 
 
-def sass_counts(path, keep=None):
-    """{variant: loop_counts of its kernel} from cuobjdump's listing of the
-    library (None where cuobjdump is not installed or a kernel is not
-    found); with keep, the whole listing is written there."""
+def sass_listing(path, keep=None):
+    """cuobjdump -sass's listing of the library at path, or None where
+    cuobjdump is not installed; with keep, the listing is written there
+    too."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return None
@@ -194,6 +184,16 @@ def sass_counts(path, keep=None):
         os.makedirs(os.path.dirname(os.path.abspath(keep)), exist_ok=True)
         with open(keep, "w") as fh:
             fh.write(sass)
+    return sass
+
+
+def sass_counts(path, keep=None):
+    """{variant: loop_counts of its kernel} from cuobjdump's listing of the
+    library (None where cuobjdump is not installed or a kernel is not
+    found); with keep, the whole listing is written there."""
+    sass = sass_listing(path, keep)
+    if sass is None:
+        return None
     funcs = _functions(sass)
     out = {}
     for v, name in SASS_NAMES.items():

@@ -59,7 +59,6 @@ operations with each division counted at its SASS instructions.
 
 import argparse
 import ctypes
-import hashlib
 import json
 import os
 import re
@@ -90,25 +89,7 @@ def build():
     """(library path, build seconds, nvcc log) of mle_split.cu, built into
     the package's build directory under a name hashed from it and the
     kernel's source; seconds 0.0 and an empty log where it existed."""
-    h = hashlib.sha1()
-    for path in (SOURCE, _build.source("ertl_mle")):
-        with open(path, "rb") as fh:
-            h.update(fh.read())
-    out = os.path.join(_build.BUILD_DIR,
-                       f"libmle_split_{h.hexdigest()[:12]}.so")
-    if os.path.exists(out):
-        return out, 0.0, ""
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp{os.getpid()}"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", tmp,
-                           SOURCE], capture_output=True, text=True,
-                          timeout=900)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for mle_split.cu:\n{log}")
-    os.replace(tmp, out)
-    return out, time.perf_counter() - t0, log
+    return _build.build_probe(SOURCE, "ertl_mle", "mle_split")
 
 
 def load(path):

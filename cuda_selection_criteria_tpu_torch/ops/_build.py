@@ -142,6 +142,31 @@ def build(names=None):
     return out
 
 
+def build_probe(src, kernel, stem):
+    """(library path, build seconds, nvcc log) of an experiment's timing
+    probes: the .cu `src`, which #includes csrc/<kernel>.cu, built with
+    the kernels' flags into BUILD_DIR/lib<stem>_<hash>.so (the hash of
+    both sources); seconds 0.0 and an empty log where it existed. Raises
+    RuntimeError when nvcc fails."""
+    h = hashlib.sha1()
+    for path in (src, source(kernel)):
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:12]}.so")
+    if os.path.exists(out):
+        return out, 0.0, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.tmp{os.getpid()}"
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True, timeout=900)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {os.path.basename(src)}:\n{log}")
+    os.replace(tmp, out)
+    return out, time.perf_counter() - t0, log
+
+
 def library(name):
     """The loaded library of kernel `name`: built if needed and loaded at
     the first call in this process, which then keeps it (the sources are

@@ -20,10 +20,13 @@ numpy forms give the same bytes. The roundtrip is bit-exact for any
 alphabet the plan was made from.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..native import fastx
+from . import _build
 from .screen import _bank_values_plain, _check, _launch
 
 
@@ -143,10 +146,15 @@ def unpack_rows(out, packed, table, i0, k):
     value (plan_pack's), on out's device.
 
     CPU tensors run _unpack_rows_plain. A CUDA out, contiguous, launches
-    the hand-written kernel (csrc/regpack_unpack.cu: one thread a byte of
-    every plane, 8 registers decoded through the table in shared memory
-    and written as one 8-byte word) on the current stream, or raises;
-    there is no fallback."""
+    the hand-written kernel (csrc/regpack_unpack.cu) on the current
+    stream, or raises; there is no fallback. The kernel's host code picks
+    its path by shape and alignment alone (unpack_path): the word path
+    (R/8 a multiple of 4, out at row i0 16-byte aligned, the planes 4-byte
+    aligned) decodes 32 registers a thread from a 4-byte word of each
+    plane, its index bits regrouped by constant shifts and LOP3 masks,
+    looked up in the table in shared memory and written as two 16-byte
+    stores; the byte path (any other shape) decodes 8 registers a thread
+    from a byte of each plane."""
     who = "unpack_rows"
     _check(who, out.dtype == torch.uint8 and out.dim() == 2,
            f"a 2-D uint8 out expected, got {out.dim()}-D {out.dtype}")
@@ -180,3 +188,14 @@ def unpack_rows(out, packed, table, i0, k):
 
 
 unpack_rows.launches = 0
+
+
+def unpack_path(out, packed, i0):
+    """"word" or "byte": the path that the unpack kernel's host code
+    (csrc/regpack_unpack.cu, word_path) takes for unpack_rows(out, packed,
+    table, i0, k) on CUDA tensors, asked of the kernel library itself."""
+    fn = _build.library("regpack_unpack").csc_regpack_unpack_word_path
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dst = out.data_ptr() + i0 * out.shape[1]
+    return "word" if fn(packed.shape[2], packed.data_ptr(), dst) else "byte"

@@ -1608,12 +1608,30 @@ def test_plan_fp_on_the_card(cuda, crit, tau):
     assert got == select_pairs(bank, params, device="cpu") and len(got) > 0
 
 
-# (k, rows, registers a row, i0, alphabet without 0): odd row counts, rows
-# of 17 and 2049 bytes a plane (R/8 not a multiple of 4), i0 > 0
+# (k, rows, registers a row, i0, alphabet without 0): odd row counts, i0 >
+# 0; rows of 1, 17 and 2049 bytes a plane (R/8 not a multiple of 4) take
+# the byte path, every other the word path, at k = 1 to 7; 2100 rows of
+# 513 words a plane: a grid stride (256 threads times the CTAs) is never a
+# multiple of an odd W, and the 1,077,300 groups outrun it
 UNPACK_CASES = [(1, 7, 136, 3, False), (2, 9, 8, 1, True),
                 (3, 33, 16384, 5, True), (4, 101, 512, 0, False),
                 (5, 5, 136, 11, True), (6, 65, 16392, 2, False),
-                (7, 3, 1024, 9, True)]
+                (7, 3, 1024, 9, True), (1, 9, 1024, 4, False),
+                (2, 17, 4096, 2, True), (5, 40, 16384, 3, False),
+                (6, 21, 2048, 7, True), (4, 2100, 16416, 1, False)]
+
+
+def _unpack_case(k, s, r, no_zero, device):
+    """Host rows of a seeded alphabet of 2^k - 1 values (2 at k = 1), and
+    their planes and table on the card."""
+    rng = np.random.default_rng(k * 1000 + r)
+    vals = sorted(rng.choice(np.arange(int(no_zero), 256),
+                             (1 << k) - (k > 1), replace=False).tolist())
+    lut, table, kk = regpack.plan_pack(vals)
+    assert kk == k
+    rows = rng.choice(np.array(vals, np.uint8), size=(s, r))
+    packed = torch.from_numpy(regpack.pack_rows(rows, lut, k)).to(device)
+    return rows, packed, torch.from_numpy(table).to(device)
 
 
 @pytest.mark.cuda
@@ -1621,24 +1639,45 @@ UNPACK_CASES = [(1, 7, 136, 3, False), (2, 9, 8, 1, True),
 def test_regpack_unpack_matches_plain(cuda, k, s, r, i0, no_zero):
     """The unpack kernel decodes packed planes into rows i0 .. i0 + S of a
     bank on the card, bit-equal to _unpack_rows_plain, leaving the other
-    rows alone."""
-    rng = np.random.default_rng(k * 1000 + r)
-    vals = sorted(rng.choice(np.arange(int(no_zero), 256),
-                             (1 << k) - (k > 1), replace=False).tolist())
-    lut, table, kk = regpack.plan_pack(vals)
-    assert kk == k
-    rows = rng.choice(np.array(vals, np.uint8), size=(s, r))
-    packed = torch.from_numpy(regpack.pack_rows(rows, lut, k)).to(cuda)
-    d_table = torch.from_numpy(table).to(cuda)
+    rows alone, on the path its shape gives (the bank is 16-byte
+    aligned at every row of a multiple of 16 bytes)."""
+    rows, packed, d_table = _unpack_case(k, s, r, no_zero, cuda)
     fill = torch.full((i0 + s + 2, r), 7, dtype=torch.uint8, device=cuda)
     want = regpack._unpack_rows_plain(fill.clone(), packed, d_table, i0, k)
     got = fill.clone()
+    assert regpack.unpack_path(got, packed, i0) == (
+        "word" if r % 32 == 0 else "byte")
     before = regpack.unpack_rows.launches
     assert regpack.unpack_rows(got, packed, d_table, i0, k) is got
     torch.cuda.synchronize()
     assert regpack.unpack_rows.launches == before + 1
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got[i0:i0 + s].cpu().numpy(), rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 6, 7])
+def test_regpack_unpack_8_byte_aligned_view_takes_byte_path(cuda, k):
+    """A word-path shape decoded into a bank view whose base is aligned to
+    8 bytes but not 16 takes the byte path, bit-equal to the plain
+    version, with the bytes around the view untouched."""
+    s, r, i0 = 33, 16384, 2
+    rows, packed, d_table = _unpack_case(k, s, r, False, cuda)
+    flat = torch.full(((i0 + s + 1) * r + 16,), 7, dtype=torch.uint8,
+                      device=cuda)
+    out = flat[8:8 + (i0 + s + 1) * r].view(i0 + s + 1, r)
+    assert out.data_ptr() % 16 == 8 and out.is_contiguous()
+    assert regpack.unpack_path(out, packed, i0) == "byte"
+    aligned = torch.full((i0 + s + 1, r), 7, dtype=torch.uint8, device=cuda)
+    assert regpack.unpack_path(aligned, packed, i0) == "word"
+    want = regpack._unpack_rows_plain(aligned.clone(), packed, d_table, i0,
+                                      k)
+    regpack.unpack_rows(out, packed, d_table, i0, k)
+    regpack.unpack_rows(aligned, packed, d_table, i0, k)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want) and torch.equal(aligned, want)
+    assert (flat[:8] == 7).all() and (flat[8 + out.numel():] == 7).all()
+    np.testing.assert_array_equal(out[i0:i0 + s].cpu().numpy(), rows)
 
 
 @pytest.mark.cuda

@@ -199,64 +199,236 @@ def test_unpack_plain_matches_jax_unpack_place(k, r):
         assert torch.equal(out2, out)
 
 
-def _kernel_model(packed, table, k, blocks, threads=256):
-    """numpy model of csrc/regpack_unpack.cu: one thread a (row, byte)
-    group, the grid-stride loop with the row and byte advanced by the
-    stride's quotient and remainder, each plane byte spread to 8 bytes by
-    the nibble multiply, the table lookup, one little-endian 8-byte word a
-    group."""
+# csrc/regpack_unpack.cu's launch: threads a CTA of each path, and the
+# byte path's CTAs an SM (the word path gives every group a thread)
+WORD_THREADS = BYTE_THREADS = 256
+BYTE_BLOCKS_PER_SM = 16
+U32 = 0xFFFFFFFF
+
+
+def _byte_perm(x, y, sel):
+    """numpy model of __byte_perm(x, y, sel) on uint32 arrays, for
+    selectors without the sign mode: byte n of the result is byte
+    (nibble n of sel) of the 8 bytes y:x."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + \
+          [(y >> (8 * i)) & 0xFF for i in range(4)]
+    out = np.zeros_like(x)
+    for n in range(4):
+        out |= src[(sel >> (4 * n)) & 7] << (8 * n)
+    return out
+
+
+def _model_path(r8, src, dst):
+    """The kernel's host choice (word_path): the word path for R/8 a
+    multiple of 4 (W = R/32 below 2^31), planes 4-byte aligned and out at
+    row i0 16-byte aligned; the byte path otherwise."""
+    word = (r8 % 4 == 0 and r8 // 4 <= 2**31 - 1 and src % 4 == 0
+            and dst % 16 == 0)
+    return "word" if word else "byte"
+
+
+def _walk(groups, width, stride, plane_row):
+    """The grid-stride walk of either path: for each thread's first group
+    g0, the group's row and column (word or byte) from one division, then
+    the source advanced by the stride's own quotient and remainder, plus
+    plane_row - width when the column wraps (no division in the loop).
+    Returns (source offset of plane 0, destination block) of every group
+    in the order the threads visit them; checks that each source is the
+    group's own and that every group is visited once."""
+    src_of = np.empty(groups, np.int64)
+    seen = np.zeros(groups, np.int64)
+    ds, dc = divmod(stride, width)
+    for g0 in range(min(stride, groups)):
+        s0, c = divmod(g0, width)
+        src = s0 * plane_row + c
+        for g in range(g0, groups, stride):
+            gs, gc = divmod(g, width)
+            assert src == gs * plane_row + gc
+            src_of[g] = src
+            seen[g] += 1
+            src += ds * plane_row + dc
+            c += dc
+            if c >= width:
+                c -= width
+                src += plane_row - width
+    assert (seen == 1).all()
+    return src_of
+
+
+def _index_byte(x, c):
+    """Byte c of the index words, as the kernel takes it: a mask, a shift
+    or a __byte_perm with zeros."""
+    if c == 0:
+        return x & 0xFF
+    if c == 3:
+        return x >> 24
+    return _byte_perm(x, np.zeros_like(x), 0x4440 | c)
+
+
+def _word_model(packed, table, k, blocks):
+    """The word path: group g (row g // W, word g % W, W = R/32) loads one
+    little-endian 4-byte word of each plane; for each bit b and plane j a
+    shift by b - j and a mask of bit j of each byte (one SHF and one LOP3)
+    gather x[b], whose byte c is the index of register 8c + b; each index
+    byte is looked up in the table, and three __byte_perm a word put the
+    values of registers 8c + 4h .. + 3 into word 2c + h; the 8 words are
+    32-byte block g of out."""
+    s, _, r8 = packed.shape
+    width = r8 // 4
+    groups = s * width
+    words = packed.reshape(-1).view("<u4").astype(np.uint64)
+    src = _walk(groups, width, blocks * WORD_THREADS, k * width)
+    p = [words[src + j * width] for j in range(k)]
+    x = []
+    for b in range(8):
+        acc = np.zeros(groups, np.uint64)
+        for j in range(k):
+            t = p[j] >> (b - j) if b >= j else (p[j] << (j - b)) & U32
+            acc |= t & (0x01010101 << j)
+        x.append(acc)
+    tab = table.astype(np.uint64)
+    out = np.zeros((groups, 8), np.uint64)
+    for h in range(2):
+        v = [[tab[_index_byte(x[4 * h + t], c)] for c in range(4)]
+             for t in range(4)]
+        for c in range(4):
+            lo = _byte_perm(v[0][c], v[1][c], 0x0040)
+            hi = _byte_perm(v[2][c], v[3][c], 0x0040)
+            out[:, 2 * c + h] = _byte_perm(lo, hi, 0x5410)
+    return out.astype("<u4").view(np.uint8).reshape(s, 8 * r8)
+
+
+def _byte_model(packed, table, k, blocks):
+    """The byte path (the replaced design's loop): group g (row
+    g // (R/8), byte g % (R/8)) spreads its byte of each plane to 8 bytes
+    by the nibble multiply, looks the 8 indices up in the table and writes
+    one little-endian 8-byte word, word g of out."""
     s, _, r8 = packed.shape
     groups = s * r8
-    flat = packed.reshape(-1)
-    out = np.zeros(groups, np.uint64)
-    stride = blocks * threads
-    seen = np.zeros(groups, np.int64)
+    flat = packed.reshape(-1).astype(np.uint64)
+    src = _walk(groups, r8, blocks * BYTE_THREADS, k * r8)
 
     def spread4(n):
         return (n * 0x00204081) & 0x01010101
 
-    for g0 in range(min(stride, groups)):
-        gs, gc = divmod(g0, r8)
-        ds, dc = divmod(stride, r8)
-        for g in range(g0, groups, stride):
-            assert (gs, gc) == divmod(g, r8)
-            idx = 0
-            for j in range(k):
-                b = int(flat[(gs * k + j) * r8 + gc])
-                idx |= (spread4(b & 0xF) | spread4(b >> 4) << 32) << j
-            w = 0
-            for bi in range(8):
-                w |= int(table[(idx >> (8 * bi)) & 0x7F]) << (8 * bi)
-            out[g] = w
-            seen[g] += 1
-            gs, gc = gs + ds, gc + dc
-            if gc >= r8:
-                gc -= r8
-                gs += 1
-    assert (seen == 1).all()
-    return out.view("<u1").reshape(s, 8 * r8)
+    idx = np.zeros(groups, np.uint64)
+    for j in range(k):
+        b = flat[src + j * r8]
+        idx |= (spread4(b & 0xF) | spread4(b >> 4) << 32) << j
+    tab = table.astype(np.uint64)
+    out = np.zeros(groups, np.uint64)
+    for bi in range(8):
+        out |= tab[(idx >> (8 * bi)) & 0x7F] << (8 * bi)
+    return out.astype("<u8").view(np.uint8).reshape(s, 8 * r8)
 
 
-@pytest.mark.parametrize("k,r,s,blocks", [
-    (1, 8, 5, 1), (2, 136, 40, 1), (5, 24, 100, 1), (7, 24, 13, 1),
-    (6, 8, 600, 1), (3, 40, 77, 2)])
-def test_unpack_kernel_model_matches_plain(k, r, s, blocks):
-    """The kernel's arithmetic and its walk over the groups (strides that
-    are and are not multiples of R/8, a grid larger than the groups)
-    against _unpack_rows_plain."""
-    rng = np.random.default_rng(k * r + s)
+def _launch_blocks(path, s, r8, sms):
+    """The kernel's own grid on a card of `sms` SMs: one group a thread on
+    the word path, at most BYTE_BLOCKS_PER_SM CTAs an SM on the byte
+    path."""
+    if path == "word":
+        return -(-s * (r8 // 4) // WORD_THREADS)
+    return min(-(-s * r8 // BYTE_THREADS), sms * BYTE_BLOCKS_PER_SM)
+
+
+def _kernel_model(packed, table, k, blocks=None, src=0, dst=0, sms=132):
+    """numpy model of csrc/regpack_unpack.cu: the host's choice of path
+    from the shape and the planes' and destination's addresses (src,
+    dst), then that path's walk (over `blocks` CTAs, or the kernel's own
+    grid on `sms` SMs) and arithmetic. Returns (path, rows)."""
+    s, _, r8 = packed.shape
+    path = _model_path(r8, src, dst)
+    if blocks is None:
+        blocks = _launch_blocks(path, s, r8, sms)
+    model = _word_model if path == "word" else _byte_model
+    return path, model(packed, table, k, blocks)
+
+
+def _model_case(k, r, s, seed):
+    rng = np.random.default_rng(seed)
     vals = sorted(rng.choice(np.arange(1, 200), (1 << k) - (k > 1),
                              replace=False).tolist())
     lut, table, kk = regpack.plan_pack(vals)
     assert kk == k
     rows = _rows(rng, vals, (s, r))
-    packed = regpack.pack_rows(rows, lut, k)
+    return rows, regpack.pack_rows(rows, lut, k), table
+
+
+# (k, registers a row, rows, CTAs): R/8 of 1, 17, 3, 5 bytes and 2049
+# take the byte path; the word path at every k, W = R/32 of 1 to 7 words,
+# group counts not a multiple of a CTA's threads and strides of one CTA
+# that are not a multiple of W (so the walk wraps)
+@pytest.mark.parametrize("k,r,s,blocks", [
+    (1, 8, 5, 1), (2, 136, 40, 1), (5, 24, 100, 1), (7, 24, 13, 1),
+    (6, 8, 600, 1), (3, 40, 77, 2), (6, 16392, 3, 1), (4, 104, 30, 1),
+    (1, 32, 300, 1), (2, 64, 150, 2), (3, 96, 200, 1), (4, 160, 77, 1),
+    (5, 128, 90, 1), (5, 16384, 3, 1), (6, 224, 100, 1), (6, 96, 9, 1),
+    (7, 32, 513, 1)])
+def test_unpack_kernel_model_matches_plain(k, r, s, blocks):
+    """The kernel's path, arithmetic and walk over the groups (strides that
+    are and are not multiples of the groups a row, a grid larger than the
+    groups) against _unpack_rows_plain and the JAX unpack_place."""
+    rows, packed, table = _model_case(k, r, s, k * r + s)
     want = regpack._unpack_rows_plain(
         torch.zeros((s, r), dtype=torch.uint8), torch.from_numpy(packed),
         torch.from_numpy(table), 0, k).numpy()
     np.testing.assert_array_equal(want, rows)
-    np.testing.assert_array_equal(_kernel_model(packed, table, k, blocks),
-                                  want)
+    path, got = _kernel_model(packed, table, k, blocks)
+    assert path == ("word" if r % 32 == 0 else "byte")
+    np.testing.assert_array_equal(got, want)
+    jax_rows, _ = jregpack.unpack_place(
+        jnp.zeros((s, r), jnp.uint8), jnp.asarray(packed),
+        jnp.asarray(table), jnp.int32(0), k)
+    np.testing.assert_array_equal(got, np.asarray(jax_rows))
+
+
+@pytest.mark.parametrize("r8,src,dst,path", [
+    (4, 0, 0, "word"), (2048, 4, 16, "word"), (2048, 0, 8, "byte"),
+    (2048, 0, 24, "byte"), (2048, 2, 0, "byte"), (2049, 0, 0, "byte"),
+    (17, 0, 0, "byte"), (1, 0, 0, "byte"), (4 * 2**31, 0, 0, "byte")])
+def test_unpack_model_path_by_shape_and_alignment(r8, src, dst, path):
+    """The host's choice: the word path only for R/8 a multiple of 4 with
+    the planes 4-byte and the destination 16-byte aligned."""
+    assert _model_path(r8, src, dst) == path
+
+
+@pytest.mark.parametrize("k", [1, 5, 6, 7])
+def test_unpack_kernel_model_misaligned_takes_byte_path(k):
+    """A word-path shape at a destination aligned to 8 bytes but not 16
+    (or planes not 4-byte aligned) takes the byte path, with the same
+    rows."""
+    rows, packed, table = _model_case(k, 256, 37, k)
+    for src, dst in ((0, 8), (0, 40), (1, 0), (0, 0)):
+        path, got = _kernel_model(packed, table, k, 1, src, dst)
+        assert path == ("word" if (src, dst) == (0, 0) else "byte")
+        np.testing.assert_array_equal(got, rows)
+
+
+@pytest.mark.parametrize("k,r,s,sms", [
+    (5, 512, 40, 132), (6, 16384, 3, 132), (3, 136, 300, 2),
+    (7, 24, 700, 1)])
+def test_unpack_kernel_model_own_grid(k, r, s, sms):
+    """The kernel's own grid: every group its own thread on the word path
+    (one pass of the walk), the byte path's loop over at most 16 CTAs an
+    SM (several passes on a card of 1 or 2 SMs)."""
+    rows, packed, table = _model_case(k, r, s, k + r + s)
+    path, got = _kernel_model(packed, table, k, sms=sms)
+    assert path == ("word" if r % 32 == 0 else "byte")
+    if path == "word":
+        assert _launch_blocks(path, s, r // 8, sms) * WORD_THREADS >= (
+            s * r // 32)
+    np.testing.assert_array_equal(got, rows)
+
+
+def test_byte_perm_model():
+    """The __byte_perm model on the selectors the kernel uses."""
+    x = np.array([0x44332211], np.uint64)
+    y = np.array([0x88776655], np.uint64)
+    assert _byte_perm(x, y, 0x0040)[0] == 0x11115511
+    assert _byte_perm(x, y, 0x5410)[0] == 0x66552211
+    assert _byte_perm(x, y, 0x7632)[0] == 0x88774433
+    for c in (1, 2):
+        assert _index_byte(x, c)[0] == (0x44332211 >> (8 * c)) & 0xFF
 
 
 def test_unpack_rows_rejects_bad_arguments():
