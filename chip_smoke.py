@@ -126,7 +126,9 @@ Phases (any failure exits non-zero, without the final result line):
                 the numpy ones on the p=14 bank, bit-equal, both walls; the
                 selection CLI's lines for smh_a, cb, baseline, hll_a and
                 hll_an must equal the exact host reference's (its wall,
-                on the native histograms)
+                on the native histograms); selection -c smh_a once more in
+                a fresh interpreter, its lines equal and its main having
+                called utils/hostmem.enable_arena_reuse
   5. main     - host_cards on the N=16384 bank (its wall) bit-equal to
                 the MLE of the numpy row histograms (their wall) and to
                 the cards the phase 3 plan set from the card's histograms
@@ -265,6 +267,10 @@ Phases (any failure exits non-zero, without the final result line):
                 wrapper and the bound, every variant that computes the
                 histograms bit-equal to the plain version
 
+main calls utils/hostmem.enable_arena_reuse() before it imports torch
+(as the CLIs do); before the card's name and power limit it prints that
+call's result with the host's glibc version, THP mode and cores.
+
 The last two lines are a JSON record of the kernels (launches on the main
 paths of phases 5 to 7, the packed path of phase 5 among them, times,
 bounds, library times, K2's p=14 record, the MLE's other shapes, the
@@ -284,7 +290,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -1909,83 +1914,6 @@ def run_main_path(torch, screen, select_pairs, bank, params, dev, card):
     return out, launches
 
 
-BASES = np.frombuffer(b"ACGT", np.uint8)
-
-
-def _fasta_gz(records, rng):
-    """gzip (level 1) FASTA bytes of [(name, codes 0..3)]: 80-column lines,
-    a lowercase run per ~50 kbp and an N run per ~100 kbp."""
-    out = []
-    for name, codes in records:
-        seq = BASES[codes]
-        n = seq.size
-        for _ in range(n // 50_000 + 1):
-            s0 = int(rng.integers(0, n))
-            seq[s0:s0 + int(rng.integers(100, 5000))] |= 0x20
-        for _ in range(max(1, n // 100_000)):
-            s0 = int(rng.integers(0, n))
-            seq[s0:s0 + int(rng.integers(1, 100))] = ord("N")
-        full = n // 80
-        body = np.empty((full, 81), np.uint8)
-        body[:, :80] = seq[:full * 80].reshape(full, 80)
-        body[:, 80] = ord("\n")
-        out += [b">" + name + b"\n", body.tobytes()]
-        if n % 80:
-            out += [seq[full * 80:].tobytes(), b"\n"]
-    co = zlib.compressobj(1, zlib.DEFLATED, 31)
-    return co.compress(b"".join(out)) + co.flush()
-
-
-def write_corpus(d, seed, n_base=96, len_range=(5e5, 6e6)):
-    """A bacterial-scale corpus under d, made from `seed`: n_base genomes
-    of log-uniform chromosome length in len_range plus 0-3 plasmids of
-    20-200 kbp; 16 copies of random base genomes at SNP rate 0.001
-    (J ~ 0.94 at k=31) and 8 at 0.02 (J ~ 0.37); 4 FASTQ files of one
-    40-60 base read (fewer k-mers than 32 SMH buckets). Returns (files,
-    near pairs, far pairs, bases), pairs as (base, copy) file indices."""
-    rng = np.random.default_rng(seed)
-    lens = np.exp(rng.uniform(*np.log(len_range), n_base)).astype(np.int64)
-    genomes = []
-    for n in lens:
-        recs = [rng.integers(0, 4, int(n), dtype=np.uint8)]
-        recs += [rng.integers(0, 4, int(rng.integers(20_000, 200_001)),
-                              dtype=np.uint8)
-                 for _ in range(int(rng.integers(0, 4)))]
-        genomes.append(recs)
-    near, far = [], []
-    for j, b in enumerate(rng.choice(n_base, 24, replace=False)):
-        rate = 0.001 if j < 16 else 0.02
-        recs = []
-        for r in genomes[b]:
-            r = r.copy()
-            hit = np.nonzero(rng.random(r.size) < rate)[0]
-            r[hit] = (r[hit] + rng.integers(1, 4, hit.size,
-                                            dtype=np.uint8)) % 4
-            recs.append(r)
-        (near if j < 16 else far).append((int(b), len(genomes)))
-        genomes.append(recs)
-    files = [os.path.join(d, f"g{i:03d}.fna.gz") for i in range(len(genomes))]
-
-    def write(i):
-        recs = [(b"chr%d" % i, genomes[i][0])] + [
-            (b"plasmid%d_%d" % (i, k), r)
-            for k, r in enumerate(genomes[i][1:], 1)]
-        with open(files[i], "wb") as fh:
-            fh.write(_fasta_gz(recs, np.random.default_rng([seed, i])))
-
-    with ThreadPoolExecutor(8) as pool:
-        list(pool.map(write, range(len(genomes))))
-    for q in range(4):
-        read = BASES[rng.integers(0, 4, int(rng.integers(40, 61)))]
-        path = os.path.join(d, f"reads{q}.fq")
-        with open(path, "wb") as fh:
-            fh.write(b"@read%d\n%s\n+\n%s\n" % (q, read.tobytes(),
-                                                 b"@" * read.size))
-        files.append(path)
-    bases = sum(r.size for recs in genomes for r in recs)
-    return files, near, far, bases
-
-
 def max_abs_diff(a, b):
     """Largest |a - b| over two equal-shape integer arrays, exact for
     uint64 (0 when bit-equal)."""
@@ -2163,12 +2091,12 @@ def phase_fasta(torch, dev, card, corpus_kw, tmp_dir):
     from cuda_selection_criteria_tpu_torch.ops import screen
     from cuda_selection_criteria_tpu_torch.parallel.selection import (
         format_results)
-    from cuda_selection_criteria_tpu_torch.utils import fasta, hostref
+    from cuda_selection_criteria_tpu_torch.utils import fasta, hostref, synth
 
     launches = dict.fromkeys(LAUNCH_KEYS, 0)
     with contextlib.nullcontext(tmp_dir) as tmp:
         t0 = time.perf_counter()
-        files, near, far, bases = write_corpus(tmp, **corpus_kw)
+        files, near, far, bases = synth.write_fasta_corpus(tmp, **corpus_kw)
         print(f"  corpus: {len(files)} files ({len(files) - 28} genomes, 16 "
               f"copies at SNP rate 0.001, 8 at 0.02, 4 tiny FASTQ), {bases} "
               f"bases, {sum(map(os.path.getsize, files)) / 2**20:.1f} MiB "
@@ -2323,6 +2251,39 @@ def cli_lines(cli, argv):
         rc = cli.main(argv)
     check(rc == 0, f"selection {' '.join(argv[4:])} exit {rc}")
     return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+CLI_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from cuda_selection_criteria_tpu_torch.cli import selection
+from cuda_selection_criteria_tpu_torch.utils import hostmem
+before = hostmem._enabled
+rc = selection.main(sys.argv[2:])
+print(json.dumps({"rc": rc, "before": before, "after": hostmem._enabled}))
+"""
+
+
+def cli_calls_hostmem(lst, want, dev, card):
+    """Phase 4's selection -c smh_a in a fresh interpreter: its lines equal
+    the host reference's, and the CLI's main switched the allocator to
+    arena reuse (utils/hostmem._enabled set; None before main)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_CHILD, HERE, "-l", lst, "-a", "256", "-h",
+         "0.9", "-c", "smh_a", "--device", str(dev)], capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0, f"selection in a fresh process exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    *lines, last = proc.stdout.splitlines()
+    state = json.loads(last)
+    print(f"  [{card}] selection -c smh_a in a fresh process: {len(lines)} "
+          f"lines in {time.perf_counter() - t0:.1f} s; hostmem._enabled "
+          f"{state['before']} before main, {state['after']} after")
+    check(state["rc"] == 0 and lines == want, "selection in a fresh process "
+          "differs from the host reference")
+    check(state["before"] is None and state["after"] is not None,
+          "the selection CLI did not call hostmem.enable_arena_reuse")
 
 
 def phase_dense_cli(models, cli, hostref, format_results, names, lst, ref4,
@@ -3248,23 +3209,26 @@ def phase_hist_split(torch, hist_split, lib, path, regs_16k, dev, card):
 
 
 def main():
+    if not os.path.isdir(os.path.join(HERE, PKG)):
+        print(f"chip_smoke: {PKG}/ not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from cuda_selection_criteria_tpu_torch.utils import hostmem
+
+    arena = hostmem.enable_arena_reuse()  # before torch allocates
     try:
         import torch
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, PKG)):
-        print(f"chip_smoke: {PKG}/ not found beside this script",
-              file=sys.stderr)
-        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, HERE)
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
-    from cuda_selection_criteria_tpu_torch.experiments import (hist_split,
-                                                               mle_split)
+    from cuda_selection_criteria_tpu_torch.experiments import (
+        hist_split, hostmem_split, mle_split)
     from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import (_build, criteria,
                                                       estimators, pairwise,
@@ -3427,16 +3391,8 @@ def main():
     unpack_err, unpack = phase_unpack(torch, regpack, bank.regs, dev, card)
 
     print("== phase 4: selection CLI, N=2048", flush=True)
-    rng4 = np.random.default_rng(2048)
     n4 = 2048
-    items = np.exp(rng4.uniform(np.log(256), np.log(32768), n4)).astype(
-        np.int64)
-    # the primary registers of synthetic_regs(n4, items, 14, rng4), with
-    # aux HLLs at p_aux=8 from the same hashes
-    regs4, hll4 = synth.synthetic_hll_banks(n4, items, (14, 8), rng4)
-    aux4 = synth.synthetic_aux(n4, 32, rng4)
-    for i in synth.plant_near_duplicates(regs4, aux4, rng4, 64):
-        hll4[i + 1] = hll4[i]
+    regs4, hll4, aux4 = synth.planted_file_banks(n4)
     # the files and the host reference lines stay for phase 8
     tmp4 = tempfile.TemporaryDirectory()
     tmp = tmp4.name
@@ -3523,6 +3479,7 @@ def main():
         check(got == want, f"cli -c {crit} differs from host reference")
         check(len(got) >= 32, f"cli -c {crit} found too few pairs")
         ref4[crit] = want
+    cli_calls_hostmem(lst, ref4["smh_a"], dev, card)
 
     print("== phase 5: main path, select_pairs smh_a N=16384 p=14",
           flush=True)
@@ -3704,6 +3661,10 @@ def main():
     print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    facts = hostmem_split.host_facts()
+    print(f"hostmem: enable_arena_reuse() -> {arena}; {facts['glibc']}; THP "
+          f"{facts['thp']}; {facts['cores']} host cores "
+          f"({facts['cpu_model']})")
     print(card_line())
     # K1's headline numbers are the dense launch's; the gated launch's and
     # the strip variant's (with its launches in the phase 9 ring runs) ride

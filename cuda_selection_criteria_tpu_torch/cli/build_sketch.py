@@ -21,10 +21,13 @@ single-pass builder; device and auto run the torch pipeline on --device
 import argparse
 import sys
 
+from ..utils import hostmem
+
 
 def main(argv=None, stats=None):
     """Run the CLI on argv; `stats` (optional dict) receives the build's
     stage seconds and counts (models/bank.build_bank_from_files)."""
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="build_sketch", description=__doc__)
     ap.add_argument("-l", dest="list_file", required=True, help="file list")
     ap.add_argument("-t", dest="threads", type=int, default=8)

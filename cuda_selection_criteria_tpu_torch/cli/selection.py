@@ -20,10 +20,13 @@ Defaults mirror src/selection.cpp:76-82: tau=0.9, aux=256 bytes.
 import argparse
 import sys
 
+from ..utils import hostmem
+
 
 def main(argv=None, stats=None):
     """Run the CLI on argv; `stats` (optional dict) receives the engine's
     stage walls and counts (every engine but dense-sharded)."""
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="selection", description=__doc__,
                                  add_help=False)
     ap.add_argument("-x", action="store_true", dest="usage")

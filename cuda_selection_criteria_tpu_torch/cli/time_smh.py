@@ -27,6 +27,8 @@ import sys
 import time
 from dataclasses import replace
 
+from ..utils import hostmem
+
 
 def _sync(device):
     import torch
@@ -36,6 +38,7 @@ def _sync(device):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="time_smh", description=__doc__,
                                  add_help=False)
     ap.add_argument("-x", action="store_true", dest="usage")

@@ -33,6 +33,12 @@ and the reference bench's protocol:
   scale_sweep          - the bench's rates at several N
   kernel_tuning        - K2's rate a tile size and launch width
 
+and the host's allocator:
+
+  hostmem_split        - first-touch page faults of the host stages with
+                         utils/hostmem's arena reuse off and on, each
+                         stage in a fresh process
+
 Ports of experiments/{compare_engines,run_time_experiment,
 confirm_throughput,validate_131k_scale,validate_ring_scale,
 validate_screened_tpu,validate_hllaux_tpu,confirm_thread_sweep,

@@ -47,7 +47,7 @@ from ..ops import criteria, screen
 from ..parallel import screened
 from ..parallel.ring import select_pairs_ring
 from ..parallel.selection import SelectionParams
-from ..utils import hopper, synth
+from ..utils import hopper, hostmem, synth
 from ..utils.device import resolve
 
 P = synth.BENCH_P
@@ -259,6 +259,7 @@ def record(n_genomes=N_GENOMES, reps=3, ti=TI, device=None, ring_n=None,
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="bench", description=__doc__,
                                  formatter_class=argparse.
                                  RawDescriptionHelpFormatter)

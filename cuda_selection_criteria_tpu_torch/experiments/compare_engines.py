@@ -28,6 +28,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils import hostmem
+
 EPS = 1e-6
 NO_CB = ("baseline", "smh_only")
 
@@ -117,6 +119,7 @@ def estimator_deltas(bank, host, device):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="compare_engines", description=__doc__,
                                  formatter_class=argparse.
                                  RawDescriptionHelpFormatter)

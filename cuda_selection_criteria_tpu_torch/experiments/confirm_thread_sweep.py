@@ -23,6 +23,7 @@ import time
 import numpy as np
 
 from ..native import fastx
+from ..utils import hostmem
 from ..utils.hostref import ertl_mle_batch
 
 
@@ -65,6 +66,7 @@ def sweep(n, n_pairs, p, reps, threads):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="confirm_thread_sweep",
                                  description=__doc__,
                                  formatter_class=argparse.

@@ -36,6 +36,8 @@ import time
 import numpy as np
 import torch
 
+from ..utils import hostmem
+
 
 def random_bank(n, seed=2, p=14):
     """The default protocol's bank: uniform registers 0..27 and sorted
@@ -186,6 +188,7 @@ def reject_rates(bank, lo, hi, device, tau=0.9, reps=3, chunk=8192,
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="confirm_throughput",
                                  description=__doc__,
                                  formatter_class=argparse.

@@ -67,7 +67,7 @@ import numpy as np
 import torch
 
 from ..ops import _build, screen
-from ..utils import hopper, synth
+from ..utils import hopper, hostmem, synth
 from .mle_split import _ms, card_line, ptxas_lines
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -341,6 +341,7 @@ def shapes(dev, seed, bench_2g=True, cell=None, regs_16k=None, out=print):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=10)

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..ops import screen
-from ..utils import hopper, synth
+from ..utils import hopper, hostmem, synth
 from ..utils.device import resolve
 
 P = synth.BENCH_P
@@ -122,6 +122,7 @@ def rows(configs, n=16384, tiles=256, reps=3, device=None, bank=None):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="kernel_tuning", description=__doc__,
                                  formatter_class=argparse.
                                  RawDescriptionHelpFormatter)

@@ -70,7 +70,7 @@ import numpy as np
 import torch
 
 from ..ops import _build, estimators, pairwise, screen
-from ..utils import hopper, synth
+from ..utils import hopper, hostmem, synth
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(HERE, "mle_split.cu")
@@ -330,6 +330,7 @@ def card_line():
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)

@@ -33,6 +33,8 @@ from contextlib import redirect_stdout
 
 import torch
 
+from ..utils import hostmem
+
 HEADER = ["impl", "block", "mh_size", "rep", "criterio", "tiempo"]
 
 
@@ -107,6 +109,7 @@ def write_csv(path, rows):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="run_time_experiment",
                                  description=__doc__,
                                  formatter_class=argparse.

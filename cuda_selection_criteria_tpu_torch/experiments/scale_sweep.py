@@ -14,7 +14,7 @@ import argparse
 import json
 import sys
 
-from ..utils import hopper
+from ..utils import hopper, hostmem
 from ..utils.device import resolve
 from . import bench
 
@@ -32,6 +32,7 @@ def rows(sizes, reps=3, ti=bench.TI, device=None):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="scale_sweep", description=__doc__,
                                  formatter_class=argparse.
                                  RawDescriptionHelpFormatter)

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from ..ops import _build, regpack
-from ..utils import hopper
+from ..utils import hopper, hostmem
 from . import hist_split
 from .mle_split import _ms, card_line, ptxas_lines
 
@@ -262,6 +262,7 @@ def slab_record(lib, label, rows, dev, card, reps=20, out=print):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)

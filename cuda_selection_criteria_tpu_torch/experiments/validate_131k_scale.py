@@ -46,7 +46,7 @@ from ..models.bank import host_cards
 from ..ops import screen
 from ..parallel.screened import ScreenPlan, auto_chunk, auto_tile
 from ..parallel.selection import SelectionParams
-from ..utils import hopper, synth
+from ..utils import hopper, hostmem, synth
 from ..utils.device import resolve
 
 PLANT_SEED = 0x131  # the reference harness's planting draws
@@ -214,6 +214,7 @@ def run(bank, params, ti=None, chunk=None, wave=48, device=None):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="validate_131k_scale",
                                  description=__doc__,
                                  formatter_class=argparse.

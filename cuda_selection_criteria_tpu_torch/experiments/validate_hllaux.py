@@ -22,6 +22,7 @@ import numpy as np
 from ..models import SketchBank
 from ..ops import hll_build
 from ..parallel.selection import SelectionParams
+from ..utils import hostmem
 from .validate_screened import build_sketches, differential, planted_genomes
 
 SEED = 11
@@ -47,6 +48,7 @@ def build_hll_bank(n, device=None):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="validate_hllaux", description=__doc__,
                                  formatter_class=argparse.
                                  RawDescriptionHelpFormatter)

@@ -27,7 +27,7 @@ import torch
 from ..ops import _build, screen
 from ..parallel.ring import select_pairs_ring
 from ..parallel.selection import SelectionParams
-from ..utils import hopper, synth
+from ..utils import hopper, hostmem, synth
 from ..utils.device import resolve
 from .validate_131k_scale import device_record, make_bank, planted_check
 
@@ -69,6 +69,7 @@ def run(bank, params, mesh=None, ti=None, chunk_tiles=None, device=None):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="validate_ring_scale",
                                  description=__doc__,
                                  formatter_class=argparse.

@@ -26,6 +26,7 @@ from ..models import SketchBank
 from ..ops import hll_build, smh_build
 from ..parallel.screened import select_pairs_screened
 from ..parallel.selection import SelectionParams
+from ..utils import hostmem
 from ..utils.device import u64_numpy
 from ..utils.hostref import select_pairs_host
 
@@ -94,6 +95,7 @@ def differential(bank, params, device=None):
 
 
 def main(argv=None):
+    hostmem.enable_arena_reuse()
     ap = argparse.ArgumentParser(prog="validate_screened",
                                  description=__doc__,
                                  formatter_class=argparse.

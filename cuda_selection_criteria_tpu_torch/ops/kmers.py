@@ -16,7 +16,7 @@ validity test. Input encoding (utils/fasta): 0..3 = A,C,G,T, >= 4 = reset.
 
 import torch
 
-from ..utils.device import as_tensor
+from ..utils.device import as_tensor, u64_numpy
 from .hashes import canonical_kmer
 
 
@@ -53,3 +53,10 @@ def canonical_kmers(codes, k=31, device=None):
     """Canonical (strand-independent) k-mers of a code stream + validity."""
     kms, valid = kmer_windows(codes, k, device)
     return canonical_kmer(kms, k, kms.device), valid
+
+
+def canonical_kmers_np(codes, k=31, device=None):
+    """Host-side convenience: the valid canonical k-mers of a code stream,
+    compacted, as a numpy uint64 array (the reference's numpy oracle)."""
+    kms, valid = canonical_kmers(codes, k, device)
+    return u64_numpy(kms[valid])

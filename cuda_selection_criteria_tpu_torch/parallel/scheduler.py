@@ -13,6 +13,11 @@ pair fails CB:
 import numpy as np
 
 
+def block_ranges(n, block):
+    """[(start, stop)) ranges tiling [0, n) in chunks of `block`."""
+    return [(s, min(s + block, n)) for s in range(0, n, block)]
+
+
 def triangle_block_ids(e_sorted, tau, block, use_cb_skip=True):
     """Vectorized tile enumeration: (rows, cols) int64 block indices.
 
@@ -66,6 +71,31 @@ def triangle_blocks(e_sorted, tau, block, use_cb_skip=True):
     c1 = np.minimum(c0 + block, n)
     return [((int(a), int(b)), (int(c), int(d)))
             for a, b, c, d in zip(r0, r1, c0, c1)]
+
+
+def triangle_blocks_scalar(e_sorted, tau, block, use_cb_skip=True):
+    """The reference's scalar scan, kept as the semantic oracle that
+    triangle_block_ids is fuzz-tested against (the engines use the
+    vectorized form)."""
+    n = e_sorted.shape[0]
+    ranges = block_ranges(n, block)
+    tiles = []
+    for bi, (r0, r1) in enumerate(ranges):
+        e1_max = float(e_sorted[r1 - 1])
+        for bj in range(bi, len(ranges)):
+            c0, c1 = ranges[bj]
+            if use_cb_skip:
+                col = e_sorted[c0:c1]
+                pos = col[col > 0]
+                if pos.size == 0:
+                    continue  # e2 == 0 pairs are skipped, never selected
+                gamma_ub = e1_max / float(pos[0])  # first positive is min
+                if not gamma_ub >= tau:
+                    # gamma only shrinks for later column tiles: the rest
+                    # of the row of tiles is dead too
+                    break
+            tiles.append(((r0, r1), (c0, c1)))
+    return tiles
 
 
 def pair_count(tiles, n):

@@ -163,19 +163,46 @@ def ertl_mle_batch(c, p, relerr=1e-2):
     return est
 
 
-def pair_union_histograms_np(regs, ii, kk, block=64):
+_hist_scratch = {}
+_HIST_BLOCK = 64
+
+
+def pair_union_histograms_np(regs, ii, kk, block=_HIST_BLOCK):
     """Histograms of max(regs[i], regs[k]) for index-paired rows,
-    (B, 64) int64 exact counts. `block` pairs at a time keep the merge
-    and bincount intermediates cache-sized."""
+    (B, 64) int64 exact counts: a cache-blocked max-merge + bincount.
+
+    `block` pairs at a time keep the merge and bincount intermediates
+    cache-sized. The intermediates live in module-level scratch reused
+    across calls, one live shape at a time (single-threaded callers only,
+    like the rest of the oracle): per-call allocation faults every page
+    in again where the allocator unmaps freed blocks (utils/hostmem). The
+    merged array is int64 == intp, so np.bincount reads it without a
+    casting copy, and its offsets cannot overflow."""
     nb = len(ii)
     out = np.empty((nb, 64), np.int64)
-    off = (np.arange(block, dtype=np.int64) * 64)[:, None]
-    for c0 in range(0, nb, block):
-        nc = min(block, nb - c0)
-        w = np.maximum(regs[ii[c0:c0 + nc]], regs[kk[c0:c0 + nc]]
-                       ).astype(np.int64) + off[:nc]
+    if nb == 0:
+        return out
+    m = regs.shape[1]
+    blk = min(block, nb)
+    key = (blk, m, regs.dtype)
+    s = _hist_scratch.get(key)
+    if s is None:
+        _hist_scratch.clear()  # one live shape bounds scratch memory
+        s = (np.empty((blk, m), regs.dtype), np.empty((blk, m), regs.dtype),
+             np.empty((blk, m), np.int64),
+             (np.arange(blk, dtype=np.int64) * 64)[:, None])
+        _hist_scratch[key] = s
+    a, b, w, off = s
+    for c0 in range(0, nb, blk):
+        nc = min(blk, nb - c0)
+        av, bv, wv = a[:nc], b[:nc], w[:nc]
+        np.take(regs, ii[c0:c0 + nc], axis=0, out=av)
+        np.take(regs, kk[c0:c0 + nc], axis=0, out=bv)
+        np.maximum(av, bv, out=av)
+        wv[...] = av
+        wv += off[:nc]
         out[c0:c0 + nc] = np.bincount(
-            w.ravel(), minlength=nc * 64)[: nc * 64].reshape(nc, 64)
+            wv.ravel(), minlength=nc * 64)[: nc * 64].reshape(nc, 64)
     return out
 
 
@@ -195,6 +222,12 @@ def pair_union_histograms(regs, ii, kk):
     if regs.dtype == np.uint8 and fastx.available():
         return fastx.pair_union_hist(regs, ii, kk)
     return pair_union_histograms_np(regs, ii, kk)
+
+
+def report(regs, p):
+    """The f64 ERTL-MLE cardinality of one register row (the reference's
+    hll report())."""
+    return ertl_mle_scalar(histogram(regs), p)
 
 
 def union_size(regs_a, regs_b, p):

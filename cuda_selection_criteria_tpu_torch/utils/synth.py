@@ -8,6 +8,10 @@ register max-reduce - the rule of the reference package's bench bank
 u64, so band fingerprints of unrelated genomes practically never collide.
 """
 
+import os
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from ..models.bank import host_cards
@@ -87,6 +91,21 @@ def plant_near_duplicates(regs, aux, rng, n_pairs, bumps=4):
     return picks
 
 
+def planted_file_banks(n, seed=2048):
+    """(regs uint8 (n, 2^14), aux HLLs uint8 (n, 2^8) from the same hashes,
+    SMH uint64 (n, 32)) of n genomes of 256-32768 hashes (log-uniform),
+    with 64 planted near-duplicate pairs: the sketch files of
+    chip_smoke.py phase 4 (N=2048)."""
+    rng = np.random.default_rng(seed)
+    items = np.exp(rng.uniform(np.log(256), np.log(32768), n)).astype(
+        np.int64)
+    regs, hll = synthetic_hll_banks(n, items, (14, 8), rng)
+    aux = synthetic_aux(n, 32, rng)
+    for i in plant_near_duplicates(regs, aux, rng, 64):
+        hll[i + 1] = hll[i]
+    return regs, hll, aux
+
+
 def bench_bank(n, items=BENCH_ITEMS):
     """(regs uint8 (n, 2^14), aux uint64 (n, 32), e float64 (n,)) of the
     reference bench's synthetic bank (bench.py:86-149, build_synthetic_bank),
@@ -155,3 +174,82 @@ def genome_regs(torch, n, p, seed, device, items=GENOME_ITEMS,
         r = torch.ceil(torch.log2(lam.float() / e)).clamp_(0, q + 1)
         out[s:s + rows] = r.to(torch.uint8)
     return out
+
+
+# A synthetic FASTA corpus for the build path (chip_smoke.py phase 7,
+# experiments/hostmem_split.py).
+BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _fasta_gz(records, rng):
+    """gzip (level 1) FASTA bytes of [(name, codes 0..3)]: 80-column lines,
+    a lowercase run per ~50 kbp and an N run per ~100 kbp."""
+    out = []
+    for name, codes in records:
+        seq = BASES[codes]
+        n = seq.size
+        for _ in range(n // 50_000 + 1):
+            s0 = int(rng.integers(0, n))
+            seq[s0:s0 + int(rng.integers(100, 5000))] |= 0x20
+        for _ in range(max(1, n // 100_000)):
+            s0 = int(rng.integers(0, n))
+            seq[s0:s0 + int(rng.integers(1, 100))] = ord("N")
+        full = n // 80
+        body = np.empty((full, 81), np.uint8)
+        body[:, :80] = seq[:full * 80].reshape(full, 80)
+        body[:, 80] = ord("\n")
+        out += [b">" + name + b"\n", body.tobytes()]
+        if n % 80:
+            out += [seq[full * 80:].tobytes(), b"\n"]
+    co = zlib.compressobj(1, zlib.DEFLATED, 31)
+    return co.compress(b"".join(out)) + co.flush()
+
+
+def write_fasta_corpus(d, seed, n_base=96, len_range=(5e5, 6e6)):
+    """A bacterial-scale corpus under d, made from `seed`: n_base genomes
+    of log-uniform chromosome length in len_range plus 0-3 plasmids of
+    20-200 kbp; 16 copies of random base genomes at SNP rate 0.001
+    (J ~ 0.94 at k=31) and 8 at 0.02 (J ~ 0.37); 4 FASTQ files of one
+    40-60 base read (fewer k-mers than 32 SMH buckets). Returns (files,
+    near pairs, far pairs, bases), pairs as (base, copy) file indices."""
+    rng = np.random.default_rng(seed)
+    lens = np.exp(rng.uniform(*np.log(len_range), n_base)).astype(np.int64)
+    genomes = []
+    for n in lens:
+        recs = [rng.integers(0, 4, int(n), dtype=np.uint8)]
+        recs += [rng.integers(0, 4, int(rng.integers(20_000, 200_001)),
+                              dtype=np.uint8)
+                 for _ in range(int(rng.integers(0, 4)))]
+        genomes.append(recs)
+    near, far = [], []
+    for j, b in enumerate(rng.choice(n_base, 24, replace=False)):
+        rate = 0.001 if j < 16 else 0.02
+        recs = []
+        for r in genomes[b]:
+            r = r.copy()
+            hit = np.nonzero(rng.random(r.size) < rate)[0]
+            r[hit] = (r[hit] + rng.integers(1, 4, hit.size,
+                                            dtype=np.uint8)) % 4
+            recs.append(r)
+        (near if j < 16 else far).append((int(b), len(genomes)))
+        genomes.append(recs)
+    files = [os.path.join(d, f"g{i:03d}.fna.gz") for i in range(len(genomes))]
+
+    def write(i):
+        recs = [(b"chr%d" % i, genomes[i][0])] + [
+            (b"plasmid%d_%d" % (i, k), r)
+            for k, r in enumerate(genomes[i][1:], 1)]
+        with open(files[i], "wb") as fh:
+            fh.write(_fasta_gz(recs, np.random.default_rng([seed, i])))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(len(genomes))))
+    for q in range(4):
+        read = BASES[rng.integers(0, 4, int(rng.integers(40, 61)))]
+        path = os.path.join(d, f"reads{q}.fq")
+        with open(path, "wb") as fh:
+            fh.write(b"@read%d\n%s\n+\n%s\n" % (q, read.tobytes(),
+                                                 b"@" * read.size))
+        files.append(path)
+    bases = sum(r.size for recs in genomes for r in recs)
+    return files, near, far, bases
