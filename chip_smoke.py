@@ -10,7 +10,9 @@ Phases (any failure exits non-zero, without the final result line):
   1. device   - card name and power limit, torch / CUDA / nvcc versions
   2. build    - nvcc builds every csrc/*.cu for sm_90a, all at once, and
                 experiments/mle_split.cu and experiments/hist_split.cu (the
-                MLE's and the row histograms' timing probes) meanwhile; the
+                MLE's and the row histograms' timing probes) and
+                experiments/reference_kernel.cu (the reference's own
+                kernel_CBsmh, a measured baseline) meanwhile; the
                 ptxas log must show no spill (the MLE and row-histogram
                 kernels' registers and shared memory printed) and no
                 serialized wgmma;
@@ -254,7 +256,17 @@ Phases (any failure exits non-zero, without the final result line):
                 at p=14, ti = tj = 1024 on 64 tiles of the bench triangle
                 bit-equal to its plain version, timed beside it, its bound
                 and torch._int_mm; three kernel_tuning configurations;
-                scale_sweep at N=4096
+                scale_sweep at N=4096; then the reference's own kernel
+                (experiments/reference_kernel.py): at N=2048 on phase 4's
+                bank the same lines and bit-equal sims as its plain
+                version with the aux as drawn, with every aux row equal
+                (every pair through hll_union_card) and on a prefix of
+                1,000,003 pairs at tau -1, the union launch timed beside
+                the plain version and its bound; on the N=16384 bench bank
+                ref_gated_pairs_per_sec (the whole triangle, the gate
+                first), ref_union_pairs_per_sec (a prefix of at least 1 s
+                a launch, every aux row equal), card_baseline and the
+                share; its own record in the kernels line
  13. hist     - the row-histogram kernel's ablation
                 (experiments/hist_split.py): the SASS instructions a byte
                 of each variant's row loop (cuobjdump), the CTAs an SM, and
@@ -277,7 +289,8 @@ bounds, library times, K2's p=14 record, the MLE's other shapes, the
 row histograms' dense rows and ablation, and
 the launches of phase 8's dense engine (the MLE), of phase 9's ring and
 tile-sharded runs, of phase 10, of phase 11 and of phase 12's bench in
-records of their own) and the result line
+records of their own; the reference kernel's record last, with the
+launches of phase 12's rates run) and the result line
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -3172,7 +3185,124 @@ def phase_bench(torch, mods, dev, card):
     for row in scale_sweep.rows(SWEEP_SIZES, device=dev):
         print(f"  [{card}] scale_sweep " + json.dumps(row), flush=True)
         check(row["pairs_per_sec"] > 0, "scale_sweep row without a rate")
-    return launches, k2
+    t0 = time.perf_counter()
+    ref = phase_reference(torch, mods["reference_kernel"], synth,
+                          mods["host_cards"], bank, dev, card)
+    print(f"  the reference kernel's step took {time.perf_counter() - t0:.1f}"
+          " s")
+    return launches, k2, ref
+
+
+REF_N = 2048  # the reference kernel's comparison bank: phase 4's
+REF_PREFIX = 1_000_003  # a prefix of its pair list that ends inside a CTA
+
+
+def ref_union_bound(pairs, n, m, results):
+    """(ms, "operations" or "bytes"): the least time of kernel_CBsmh's work
+    on an N=n bank whose every listed pair reaches the union: each
+    register of each union one byte max and one zero test on the INT32
+    lanes and one f64 add at the FP64 rate (the gate's few compares left
+    out), against the rows, buckets, cards and pairs read once and the
+    results written once at HBM_BYTES_PER_S."""
+    from cuda_selection_criteria_tpu_torch.utils import hopper
+    regs = pairs * (1 << 14)
+    ops_secs = max(2 * regs / hopper.INT32_OPS_PER_S,
+                   regs / hopper.FP64_OPS_PER_S)
+    nbytes = n * ((1 << 14) + 8 * m + 8) + 8 * pairs + 12 * results
+    return bound(ops_secs, nbytes / hopper.HBM_BYTES_PER_S)
+
+
+def ref_vs_plain(torch, reference_kernel, regs, aux, cards, tau, dev, label,
+                 n_pairs=None):
+    """The reference kernel against its plain version on one bank: the
+    same sorted lines and bit-equal f32 sims, or the run fails. Returns
+    (the lines' count, max |sim difference|)."""
+    got = reference_kernel.reference_pairs(regs, aux, cards, tau, dev,
+                                           n_pairs)
+    want = reference_kernel.plain_lines(regs, aux, cards, tau, dev, n_pairs)
+    check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]),
+          f"reference kernel {label}: lines differ from plain")
+    err = float(np.abs(got[2] - want[2]).max()) if len(got[2]) else 0.0
+    check(np.array_equal(got[2], want[2]),
+          f"reference kernel {label}: sims differ from plain by {err}")
+    print(f"  reference kernel {label}: {len(got[0])} lines equal to plain, "
+          "sims bit-equal")
+    return len(got[0]), err
+
+
+def phase_reference(torch, reference_kernel, synth, host_cards, bank, dev,
+                    card):
+    """Phase 12, step 2: the reference's own GPU kernel (experiments/
+    reference_kernel.cu: kernel_CBsmh with hll_union_card, a measured
+    baseline). At N=2048 on phase 4's bank (synth.planted_file_banks) it
+    must give its plain version's lines with bit-equal sims, with the aux
+    as drawn and with every aux row equal (every pair reaches the union),
+    and on a prefix of REF_PREFIX pairs at tau -1 (every J kept); the
+    union mode's launch timed beside the plain version and its bound. Then
+    reference_kernel.rates on the N=16384 bench bank (bank: regs, aux, e):
+    the gated whole triangle and a union prefix of at least 1 s a launch,
+    beside utils/hopper.card_baseline; no whole union triangle here (the
+    experiment's own run times it). Returns the kernels line's record."""
+    regs, _, aux = synth.planted_file_banks(REF_N)
+    cards = host_cards(regs, 14)
+    check(regs.max() <= 39, "phase 4's bank has a register above 39: the "
+          "kernel's sums would not be exact")
+    aux_eq = np.broadcast_to(aux[:1], aux.shape)
+    found, err1 = ref_vs_plain(torch, reference_kernel, regs, aux, cards,
+                               0.9, dev, f"N={REF_N} aux as drawn")
+    check(found >= 64, "the reference kernel missed planted pairs")
+    _, err2 = ref_vs_plain(torch, reference_kernel, regs, aux_eq, cards, 0.9,
+                           dev, f"N={REF_N} every aux row equal")
+    kept, err3 = ref_vs_plain(torch, reference_kernel, regs, aux_eq, cards,
+                              -1.0, dev, f"N={REF_N} every aux row equal, "
+                              f"tau -1, first {REF_PREFIX} pairs", REF_PREFIX)
+    check(kept == REF_PREFIX, "the reference kernel dropped a finite J")
+
+    pairs = REF_N * (REF_N - 1) // 2
+    prep = reference_kernel.prepare(regs, aux_eq, cards, 0.9, dev)
+    ms = reference_kernel.launch_ms(prep, 0, pairs, 3)
+    results = int(prep.count.item())
+    t0 = time.perf_counter()
+    plain = reference_kernel.reference_pairs_plain(
+        prep.d_regs, prep.d_aux, prep.d_cards, 0.9, prep.n_rows,
+        prep.n_bands, prep.d_pairs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(len(plain[0]) == results, "the reference kernel's count differs "
+          "from its plain version's")
+    del prep, plain
+    bound_ms, bound_by = ref_union_bound(pairs, REF_N, aux.shape[1], results)
+    print(f"  [{card}] reference kernel N={REF_N}, every pair through the "
+          f"union ({pairs} pairs, {results} results): {ms:.3f} ms a launch "
+          f"vs plain {plain_ms:.3f} ms; bound {bound_ms:.3f} ms "
+          f"({bound_by}), share {bound_ms / ms:.4f}", flush=True)
+    torch.cuda.empty_cache()
+
+    regs16, aux16, e16 = bank
+    reference_kernel.launch.launches = 0
+    t0 = time.perf_counter()
+    rates = reference_kernel.rates(regs16, aux16, e16.astype(np.float64),
+                                   0.9, dev, max_triangle_secs=0.0)
+    launches = reference_kernel.launch.launches
+    print("  " + json.dumps(rates), flush=True)
+    print(f"  [{card}] reference kernel N={len(regs16)}: ref_union_pairs_"
+          f"per_sec {rates['ref_union_pairs_per_sec']:.6g} (first "
+          f"{rates['ref_union_prefix_pairs']} pairs, "
+          f"{rates['ref_union_prefix_launch_ms']:.1f} ms a launch), "
+          f"ref_gated_pairs_per_sec {rates['ref_gated_pairs_per_sec']:.6g} "
+          f"({rates['ref_gated_launch_ms']:.3f} ms a triangle); card_baseline "
+          f"{rates['card_baseline']:.6g} pairs/s, share "
+          f"{rates['ref_union_share_of_baseline']:.4f}; {launches} launches "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    check(rates["ref_union_prefix_launch_ms"] >= 1000.0,
+          "the union prefix's launch took under 1 s")
+    check(rates["ref_gated_pairs_per_sec"] > 0
+          and rates["ref_union_pairs_per_sec"] > 0, "a rate is missing")
+    check(launches > 0, "the rates run never launched the reference kernel")
+    return dict(max_abs_err=max(err1, err2, err3), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, launches=launches,
+                rates_16k=rates)
 
 
 def phase_hist_split(torch, hist_split, lib, path, regs_16k, dev, card):
@@ -3228,7 +3358,7 @@ def main():
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
     from cuda_selection_criteria_tpu_torch.experiments import (
-        hist_split, hostmem_split, mle_split)
+        hist_split, hostmem_split, mle_split, reference_kernel)
     from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import (_build, criteria,
                                                       estimators, pairwise,
@@ -3256,10 +3386,11 @@ def main():
     print(nvcc.strip().splitlines()[-1])
 
     print("== phase 2: build", flush=True)
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         host_lib = pool.submit(fastx.info)  # g++ builds while nvcc does
         split_build = pool.submit(mle_split.build)
         hist_build = pool.submit(hist_split.build)
+        ref_build = pool.submit(reference_kernel.build)
         for name, (path, build_secs, log) in _build.build().items():
             print(log.strip())
             print(f"built {os.path.relpath(path, HERE)} in {build_secs:.2f} s")
@@ -3275,6 +3406,7 @@ def main():
         info = host_lib.result()
         split_path, split_secs, split_log = split_build.result()
         hist_path, hist_secs, hist_log = hist_build.result()
+        ref_path, ref_secs, ref_log = ref_build.result()
     print(f"built {os.path.relpath(split_path, HERE)} (the MLE's timing "
           f"probes) in {split_secs:.2f} s")
     print(f"built {os.path.relpath(hist_path, HERE)} (the row histograms' "
@@ -3283,6 +3415,14 @@ def main():
               "0 bytes spill stores, 0 bytes spill loads" not in ln]
     check(not spills, f"hist_split: ptxas spills registers: {spills}")
     hist_lib = hist_split.load(hist_path)
+    print(f"built {os.path.relpath(ref_path, HERE)} (the reference's "
+          f"kernel_CBsmh, a measured baseline) in {ref_secs:.2f} s")
+    for ln in mle_split.ptxas_lines(ref_log):
+        print(f"  reference_kernel ptxas {ln}")
+    spills = [ln for ln in ref_log.splitlines() if "spill" in ln and
+              "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    check(not spills, f"reference_kernel: ptxas spills registers: {spills}")
+    reference_kernel.library()
     split = (mle_split.load(split_path),
              mle_split.div_instructions(split_path))
     print(f"  SASS instructions a division (fast path): {split[1]}")
@@ -3650,8 +3790,9 @@ def main():
     print("== phase 12: the bench protocol (bench, kernel_tuning, "
           "scale_sweep)", flush=True)
     t12 = time.perf_counter()
-    mods.update(synth=synth, hopper=hopper)
-    bench_launches, k2_p14 = phase_bench(torch, mods, dev, card)
+    mods.update(synth=synth, hopper=hopper, reference_kernel=reference_kernel,
+                host_cards=models.bank.host_cards)
+    bench_launches, k2_p14, ref = phase_bench(torch, mods, dev, card)
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
     print("== phase 13: the row-histogram ablation (hist_split)", flush=True)
@@ -3739,10 +3880,21 @@ def main():
             l5=dict(launches=l5["regpack_unpack"]),
             scale=dict(packed_131k, launches=scale["regpack_unpack"]),
             bench=dict(launches=bench_launches["regpack_unpack"]))}
+    # the reference's own kernel: a measured baseline, not a port of a
+    # TPU kernel; its launches are phase 12's rates run
+    ref_record = dict(
+        name="reference_cbsmh", route="cuda", role="baseline (experiment)",
+        route_detail="the reference's kernel_CBsmh with hll_union_card as "
+        "the reference wrote it: one thread a pair, the smh_a gate, byte "
+        "loads, f64 ORIGINAL union, atomicAdd append",
+        source=f"{PKG}/experiments/reference_kernel.cu",
+        replaces="none: the reference's GPU kernel "
+        "(src/selection_kernels.cu:63-117), not a TPU kernel", **ref)
     print(json.dumps({"kernels": [dict(
         name=name, route="cuda", route_detail=detail, source=src,
         replaces=replaces, launches=launches[name], **measured[name])
-        for name, (src, replaces, detail) in KERNELS.items()]}))
+        for name, (src, replaces, detail) in KERNELS.items()]
+        + [ref_record]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

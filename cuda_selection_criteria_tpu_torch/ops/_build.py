@@ -143,13 +143,15 @@ def build(names=None):
 
 
 def build_probe(src, kernel, stem):
-    """(library path, build seconds, nvcc log) of an experiment's timing
-    probes: the .cu `src`, which #includes csrc/<kernel>.cu, built with
-    the kernels' flags into BUILD_DIR/lib<stem>_<hash>.so (the hash of
-    both sources); seconds 0.0 and an empty log where it existed. Raises
+    """(library path, build seconds, nvcc log) of an experiment's .cu
+    `src`, built with the kernels' flags into
+    BUILD_DIR/lib<stem>_<hash>.so; seconds 0.0 and an empty log where it
+    existed. `kernel` names the csrc/<kernel>.cu that `src` #includes (a
+    timing probe), and the hash is of both sources; kernel=None builds a
+    standalone source that includes none, hashed alone. Raises
     RuntimeError when nvcc fails."""
     h = hashlib.sha1()
-    for path in (src, source(kernel)):
+    for path in (src,) if kernel is None else (src, source(kernel)):
         with open(path, "rb") as fh:
             h.update(fh.read())
     out = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:12]}.so")

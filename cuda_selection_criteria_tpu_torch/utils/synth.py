@@ -106,15 +106,15 @@ def planted_file_banks(n, seed=2048):
     return regs, hll, aux
 
 
-def bench_bank(n, items=BENCH_ITEMS):
+def bench_bank(n, items=BENCH_ITEMS, seed=BENCH_SEED):
     """(regs uint8 (n, 2^14), aux uint64 (n, 32), e float64 (n,)) of the
     reference bench's synthetic bank (bench.py:86-149, build_synthetic_bank),
     draw for draw: default_rng(0xBE7C), the registers of 1024 genomes at a
     time, the SMH buckets drawn after every register row, and
     e = trunc(models.bank.host_cards) of the registers. Equal to the bench's
     bank for n below 1024 or a multiple of it (the only sizes it builds);
-    no file cache."""
-    rng = np.random.default_rng(BENCH_SEED)
+    no file cache. Another seed draws another bank of the same law."""
+    rng = np.random.default_rng(seed)
     regs = synthetic_regs(n, items, BENCH_P, rng)
     aux = synthetic_aux(n, BENCH_M, rng)
     e = np.trunc(host_cards(regs, BENCH_P))

@@ -2,7 +2,8 @@
 scratch and the plan's row map, K2 weighted_cdf_sum, the gate prune's
 gate_counts, value_presence, the plan's row_hist, the ERTL-MLE
 ertl_mle, the plan's band fingerprints band_fp, the packed upload's
-regpack_unpack) and their card paths
+regpack_unpack) and their card paths, and the reference's own kernel
+(experiments/reference_kernel.cu, a measured baseline)
 against their plain versions,
 bit-equal (TF32 off for the plain
 versions' f32 matmuls, which then sum exact integers); the sketch build's
@@ -19,6 +20,7 @@ the machine with the card, which has no JAX:
 """
 
 import filecmp
+import functools
 import gzip
 import os
 
@@ -29,6 +31,7 @@ import torch
 import band_fp_cases
 import gate_cases
 
+from cuda_selection_criteria_tpu_torch.experiments import reference_kernel
 from cuda_selection_criteria_tpu_torch.models import SketchBank
 from cuda_selection_criteria_tpu_torch.models import bank as tbank
 from cuda_selection_criteria_tpu_torch.models.bank import host_cards
@@ -1709,3 +1712,55 @@ def test_packed_upload_equals_raw_on_cuda(cuda, ordered):
     assert packed_plan.upload_stats["pack_bits"] == plan[2]
     assert torch.equal(packed_plan.d_bank, raw_plan.d_bank)
     assert packed_plan.values == raw_plan.values
+
+
+@functools.lru_cache(maxsize=1)
+def _reference_bank():
+    """chip_smoke.py phase 4's sketch bank (synth.planted_file_banks(2048):
+    64 planted near-duplicates) with its host cards."""
+    regs, _, aux = synth.planted_file_banks(2048)
+    return regs, aux, host_cards(regs, 14)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aux_mode,tau,n_pairs", [
+    ("drawn", 0.9, None),        # the reference's run: the gate first
+    ("equal", 0.9, None),        # every pair takes hll_union_card
+    ("equal", -1.0, 1_000_003),  # every J kept; not a multiple of a CTA
+    ("drawn", 0.9, 777_777),
+])
+def test_reference_kernel_matches_plain(cuda, aux_mode, tau, n_pairs):
+    """kernel_CBsmh gives its plain version's sorted lines with bit-equal
+    f32 sims at N=2048, with the aux as drawn and with every aux row equal
+    (then every pair reaches the union), over the whole pair list and over
+    prefixes that end inside a CTA. Bit-equal because each union's largest
+    register is at most 39: the kernel's sum of 2^-r in register order and
+    the plain version's sum by value are then both exact, and both take
+    CUDA's f64 division and log."""
+    regs, aux, cards = _reference_bank()
+    if aux_mode == "equal":
+        aux = np.broadcast_to(aux[:1], aux.shape)
+    assert regs.max() <= 39
+    before = reference_kernel.launch.launches
+    got = reference_kernel.reference_pairs(regs, aux, cards, tau, cuda,
+                                           n_pairs)
+    assert reference_kernel.launch.launches == before + 1
+    want = reference_kernel.plain_lines(regs, aux, cards, tau, cuda, n_pairs)
+    assert len(got[0]) >= (64 if n_pairs is None else 1)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    if tau < 0:
+        assert len(got[0]) == n_pairs
+
+
+@pytest.mark.cuda
+def test_reference_kernel_raises_past_its_capacity(cuda):
+    """A count above the output's capacity raises at the fetch: the kernel
+    counts the results it cannot store, and none is dropped in silence."""
+    regs, aux, cards = _reference_bank()
+    aux = np.broadcast_to(aux[:1], aux.shape)
+    prep = reference_kernel.prepare(regs[:64], aux[:64], cards[:64], -1.0,
+                                    cuda, capacity=10)
+    reference_kernel.launch(prep)
+    with pytest.raises(RuntimeError, match="2016 results counted"):
+        reference_kernel.fetch(prep)
