@@ -9,8 +9,6 @@ reference bench's bank size.
 Phases (any failure exits non-zero, without the final result line):
   1. device   - card name and power limit, torch / CUDA / nvcc versions
   2. build    - nvcc builds every csrc/*.cu for sm_90a, all at once, and
-                experiments/mle_split.cu and experiments/hist_split.cu (the
-                MLE's and the row histograms' timing probes) and
                 experiments/reference_kernel.cu (the reference's own
                 kernel_CBsmh, a measured baseline) meanwhile; the
                 ptxas log must show no spill (the MLE and row-histogram
@@ -86,17 +84,14 @@ Phases (any failure exits non-zero, without the final result line):
                 rows: not a multiple of its 128-row CTA), its f64 estimates
                 0 ulp from hostref.ertl_mle_batch off the log1p branch,
                 cards_from_hists bit-equal to the host MLE with its host
-                rows; then timed (the launch alone, 20 issued back to
-                back from C by experiments/mle_split.cu's library, and
-                the wrapper) beside its plain version and its bound on
-                the 16k bank's histograms, on 524,288 rows (those
-                histograms 32 times), on 524,288 rows of real-sized
-                genomes (synth.genome_hists) and on one dense tile's
-                512 x 512 unions at p=14 (f32 and f64) and p_aux=8, each
-                with the ablation's line (experiments/mle_split.py: the
-                serial-staging design it replaced, each design's staging
-                alone and loop alone, the other layouts tried, identical
-                rows, rows sorted by step count). The
+                rows; then the wrapper timed in two turns beside its
+                plain version and its bound (experiments/mle_split.
+                work_bound) on the 16k bank's histograms, on 524,288 rows
+                (those histograms 32 times), on 524,288 rows of
+                real-sized genomes (synth.genome_hists) and on one dense
+                tile's 512 x 512 unions at p=14 (f32 and f64) and
+                p_aux=8 (the launch alone and the ablation's variants:
+                experiments/mle_split.py). The
                 band-fingerprint kernel (band_fingerprints: the smh plan's
                 d_fp from its unsorted aux bank through its row map) vs its
                 plain version and band_fingerprints_np of the host-sorted,
@@ -216,7 +211,7 @@ Phases (any failure exits non-zero, without the final result line):
                 (run_time_experiment, both arms, m 64 and 512, blocks 256
                 and 512) on phase 7's corpus, every row present; the
                 confirm stage's rates (confirm_throughput) on the phase 5
-                bank with 2^19 pairs: host and device-assisted at
+                bank with 2^18 pairs: host and device-assisted at
                 tau=-100, the reject bound off and on at 0.9, outputs equal
  11. scale    - the at-scale validation harnesses
                 (cuda_selection_criteria_tpu_torch/experiments):
@@ -240,9 +235,8 @@ Phases (any failure exits non-zero, without the final result line):
                 them and their bounds, the
                 presence kernel beside one torch.bincount of its uint8
                 bytes (the row histograms' bincount of row * 64 + reg
-                would take a 16 GiB int64 index, not timed), and the
-                row-histogram ablation's line on it (phase 13's
-                hist_split.shape_record);
+                would take a 16 GiB int64 index, not timed; the
+                ablation's variants: experiments/hist_split.py);
                 validate_ring_scale.run
                 on the same bank on one strip and on two strips of the
                 card (K1's strip entry), pairs equal
@@ -267,26 +261,28 @@ Phases (any failure exits non-zero, without the final result line):
                 first), ref_union_pairs_per_sec (a prefix of at least 1 s
                 a launch, every aux row equal), card_baseline and the
                 share; its own record in the kernels line
- 13. hist     - the row-histogram kernel's ablation
-                (experiments/hist_split.py): the SASS instructions a byte
-                of each variant's row loop (cuobjdump), the CTAs an SM, and
-                on 2^17 rows of real-sized genomes' registers (2 GiB), their
-                first 16,384 rows (beside one torch.bincount of row * 64 +
-                reg), 2^17 rows of one value and the phase 3 bench bank:
-                the kernel, the mask-walk design it replaced, the other
-                layouts tried, the kernel without its end-of-row sums and
-                its loads alone, each launch alone in two turns beside the
-                wrapper and the bound, every variant that computes the
-                histograms bit-equal to the plain version
+ 14. cli      - the selection CLI from sketch files with a real
+                cardinality spread (experiments/validate_cli_scale.py at
+                N=16384, --sub 4096): 16,384 real-sized genomes (2^20 to
+                2^24 hashes, log-uniform, so CB prunes) with 256 planted
+                pairs of J 0.80-1.00, written as .hll / .smh32 files;
+                `python -m ...cli.selection -l <list> -t 8 -a 256 -h 0.9
+                -c smh_a` in a fresh interpreter; the load by the native
+                readers, byte-equal to the draw; cli.main in this process
+                (its K1, gate, row-histogram, MLE and fingerprint launches
+                counted); every printed line, every planted pair and
+                100,000 random pairs held to the exact host cascade; the
+                CLI on a 4096-genome sub-collection equal to
+                select_pairs_host; no module of JAX loaded
 
 main calls utils/hostmem.enable_arena_reuse() before it imports torch
 (as the CLIs do); before the card's name and power limit it prints that
 call's result with the host's glibc version, THP mode and cores.
 
 The last two lines are a JSON record of the kernels (launches on the main
-paths of phases 5 to 7, the packed path of phase 5 among them, times,
-bounds, library times, K2's p=14 record, the MLE's other shapes, the
-row histograms' dense rows and ablation, and
+paths of phases 5 to 7 and 14, the packed path of phase 5 among them,
+times, bounds, library times, K2's p=14 record, the MLE's other shapes,
+phase 14's launches in records of their own too, and
 the launches of phase 8's dense engine (the MLE), of phase 9's ring and
 tile-sharded runs, of phase 10, of phase 11 and of phase 12's bench in
 records of their own; the reference kernel's record last, with the
@@ -1461,55 +1457,48 @@ def phase_mle_edges(torch, estimators, models, hostref, synth, dev, card):
     return worst
 
 
-def mle_config(torch, estimators, counts, p, dtype, card, label, branch,
-               split):
+def mle_config(torch, estimators, counts, p, dtype, card, label, branch):
     """The MLE kernel on the card tensor `counts` (the histograms a caller
     holds) against its plain version (bit-equal, through the wrapper),
-    then the ablation's line (experiments/mle_split.shape_record with the
-    library and the division counts of `split`: every variant timed, each
-    variant that computes the estimates checked bit-equal), the wrapper and
-    the plain version timed, beside the bound: the operations these rows'
-    loops need (the plain version's work counter) at the card's FP64 or
-    FP32 rate outside the tensor cores, against the q + 2 bins of each row
-    read once and the estimates (and with branch the flags) written once.
-    ms is the launch alone (20 launches issued back to back from C, no
-    Python between them). branch: with the log1p flags (the cards' call)
-    or without (the dense engine's). Library: none (no PyTorch call
-    computes this MLE). Returns the record."""
+    then the wrapper timed in two turns (20 calls each) and the plain
+    version, beside the bound (experiments/mle_split.work_bound: the
+    operations these rows' loops need, the plain version's work counter,
+    at the card's FP64 or FP32 rate outside the tensor cores, against the
+    q + 2 bins of each row read once and the estimates, and with branch
+    the flags, written once). branch: with the log1p flags (the cards'
+    call) or without (the dense engine's). Library: none (no PyTorch call
+    computes this MLE). The launch alone and the ablation's variants are
+    experiments/mle_split.py's. Returns the record."""
     from cuda_selection_criteria_tpu_torch.experiments import mle_split
 
     err, _, _ = mle_vs_plain(torch, estimators, counts, p, dtype)
     check(err == 0, f"ertl_mle {label}: kernel != plain")
-    rec = mle_split.shape_record(split[0], label, counts, p, dtype, branch,
-                                 card, split[1])
-    check(all(rec["equal"].values()), f"ertl_mle {label}: a variant that "
-          f"computes the estimates differs from plain: {rec['equal']}")
+    rows = counts.reshape(-1, counts.shape[-1])
+    bound = mle_split.work_bound(rows, p, dtype, branch)
 
     def kernel():
         return estimators.ertl_mle(counts, p, dtype=dtype, branch=branch)
 
-    wrapper_ms = cuda_ms(torch, kernel, 20)
+    ms = cuda_ms(torch, kernel, 20)
     plain_ms = cuda_ms(torch, lambda: estimators._ertl_mle_plain(
         counts, p, dtype=dtype), 2)
-    ms, ms2 = rec["ms"]["kernel"], rec["ms"]["kernel_again"]
-    print(f"  [{card}] ertl_mle {label} ({rec['rows']} rows, p={p}, "
-          f"{rec['in_dtype']} in, {rec['dtype']}"
-          f"{', flags' if branch else ''}): {ms:.4f} / {ms2:.4f} ms (two "
-          f"turns, the launch alone), wrapper {wrapper_ms:.4f} ms vs plain "
-          f"{plain_ms:.3f} ms; bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']}: {rec['ops']} operations, "
-          f"{rec['secant_steps']} secant steps, {rec['update_steps']} "
-          f"inner updates), share of the bound {rec['bound_ms'] / ms:.3f}; "
-          "library none")
-    return dict(max_abs_err=err, ms=ms, ms2=ms2, wrapper_ms=wrapper_ms,
-                plain_ms=plain_ms, bound_ms=rec["bound_ms"],
-                bound_by=rec["bound_by"], library_ms=None, rows=rec["rows"],
-                ops=rec["ops"], ops_div=rec["ops_div"],
-                secant_steps=rec["secant_steps"], ablation_ms=rec["ms"])
+    ms2 = cuda_ms(torch, kernel, 20)
+    print(f"  [{card}] ertl_mle {label} ({rows.shape[0]} rows, p={p}, "
+          f"{str(counts.dtype)[6:]} in, {str(dtype)[6:]}"
+          f"{', flags' if branch else ''}): wrapper {ms:.4f} / {ms2:.4f} ms "
+          f"(two turns) vs plain {plain_ms:.3f} ms; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}: {bound['ops']} "
+          f"operations, {bound['secant_steps']} secant steps, "
+          f"{bound['update_steps']} inner updates), share of the bound "
+          f"{bound['bound_ms'] / ms:.3f}; library none")
+    return dict(max_abs_err=err, ms=ms, ms2=ms2, plain_ms=plain_ms,
+                bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                library_ms=None, rows=rows.shape[0], ops=bound["ops"],
+                secant_steps=bound["secant_steps"])
 
 
 def phase_mle(torch, estimators, pairwise, models, hostref, synth, hist,
-              regs, aux, p_aux, dev, card, split):
+              regs, aux, p_aux, dev, card):
     """The MLE kernel in phase 3: its edges (phase_mle_edges), then timed
     at the shapes its callers give it: the cards' call (f64 with flags) on
     the N=16384 bench bank's row histograms `hist`, on 524,288 rows (those
@@ -1518,33 +1507,32 @@ def phase_mle(torch, estimators, pairwise, models, hostref, synth, hist,
     (synth.genome_hists: 2^20 to 2^24 hashes, no zero register, longer
     secant loops), and the dense engine's calls (its default f32 on the
     card, and f64) on one 512 x 512 tile's union histograms of the sorted
-    bench bank `regs` at p=14 and of its aux HLLs `aux` at p_aux. split:
-    (mle_split's library, its division counts). Returns (largest error,
-    the 524,288-row record with the others beside it)."""
+    bench bank `regs` at p=14 and of its aux HLLs `aux` at p_aux. Returns
+    (largest error, the 524,288-row record with the others beside it)."""
     err = phase_mle_edges(torch, estimators, models, hostref, synth, dev,
                           card)
     rec = mle_config(torch, estimators, hist.repeat(32, 1), 14,
                      torch.float64, card, "524,288 rows (the 16k bank's "
-                     "histograms 32 times)", True, split)
+                     "histograms 32 times)", True)
     rec["n16k"] = mle_config(torch, estimators, hist, 14, torch.float64,
-                             card, "N=16384 bench bank", True, split)
+                             card, "N=16384 bench bank", True)
     genomes = torch.from_numpy(synth.genome_hists(
         1 << 19, 14, np.random.default_rng(0x6E0))).to(dev)
     rec["genomes"] = mle_config(torch, estimators, genomes, 14,
                                 torch.float64, card, "524,288 real-genome "
-                                "rows", True, split)
+                                "rows", True)
     del genomes
     unions = pairwise.union_histograms(regs[:512], regs[512:1024], 14)
     rec["tile_f32"] = mle_config(torch, estimators, unions, 14,
                                  torch.float32, card, "one 512 x 512 tile's "
-                                 "unions", False, split)
+                                 "unions", False)
     rec["tile_f64"] = mle_config(torch, estimators, unions, 14,
                                  torch.float64, card, "one 512 x 512 tile's "
-                                 "unions", False, split)
+                                 "unions", False)
     aux_unions = pairwise.union_histograms(aux[:512], aux[512:1024], p_aux)
     rec["aux_tile_f32"] = mle_config(torch, estimators, aux_unions, p_aux,
                                      torch.float32, card, "one 512 x 512 "
-                                     "tile's aux unions", False, split)
+                                     "tile's aux unions", False)
     worst = max(err, *(r["max_abs_err"] for r in (
         rec, rec["n16k"], rec["genomes"], rec["tile_f32"], rec["tile_f64"],
         rec["aux_tile_f32"])))
@@ -2724,7 +2712,7 @@ def phase_l5(torch, mods, names4, lst4, ref4, lst7, bank, picks, dev, card):
     the scalar host engine) and selection -c baseline -h 0.01 on all of
     them against the pooled oracle; 10b the timing sweep on phase 7's
     corpus, both arms; 10c the confirm stage's rates on the phase 5 bank
-    with 2^19 pairs, the default and the reject protocol. Returns
+    with 2^18 pairs, the default and the reject protocol. Returns
     {kernel: launches} of the phase."""
     from cuda_selection_criteria_tpu_torch.experiments import (
         compare_engines, confirm_throughput, run_time_experiment)
@@ -2954,14 +2942,6 @@ def phase_scale(torch, mods, dev, card):
                                f"N={SCALE_N} bank")
     rows_2g, hist = row_hist_config(torch, screen, d_regs, card,
                                     f"N={SCALE_N} bank", library=False)
-    # the row-histogram ablation's line on this bank (phase 13 runs the
-    # others)
-    split = mods["hist_split"].shape_record(mods["hist_lib"],
-                                            f"N={SCALE_N} bench bank",
-                                            d_regs, card)
-    check(all(split["equal"].values()), "hist_split on the N="
-          f"{SCALE_N} bank: a variant differs from plain: {split['equal']}")
-    rows_2g["ablation"] = split
     # the cards of the card's histograms through the MLE kernel, bit-equal
     # to the host MLE of the same histograms; the harness's bank holds them
     # truncated (synth.bench_bank)
@@ -3305,37 +3285,53 @@ def phase_reference(torch, reference_kernel, synth, host_cards, bank, dev,
                 rates_16k=rates)
 
 
-def phase_hist_split(torch, hist_split, lib, path, regs_16k, dev, card):
-    """Phase 13: the row-histogram kernel's ablation
-    (experiments/hist_split.py: the kernel, the mask-walk design it
-    replaced, the other layouts tried, the kernel without its end-of-row
-    sums, its loads alone; each variant's launch alone in two turns, the
-    wrapper, the bound, every variant that computes the histograms
-    bit-equal to the plain version) on 2^17 rows of real-sized genomes'
-    registers (2 GiB), their first 16,384 rows (beside one torch.bincount
-    of row * 64 + reg), 2^17 rows of one value and the N=16384 bench bank
-    (regs_16k, host); phase 11 adds the N=131072 bench bank's line. Prints
-    the SASS instructions of each variant's row loop a byte (path: the
-    library). Returns the dense rows' record with the others beside
-    it."""
-    print(f"  SASS of each row loop: "
-          f"{json.dumps(hist_split.sass_counts(path))}")
-    print(f"  CTAs an SM: {json.dumps(hist_split.occupancy(lib))}")
-    recs = {}
-    for label, regs, library in hist_split.shapes(dev, 0, bench_2g=False,
-                                                  regs_16k=regs_16k):
-        recs[label] = hist_split.shape_record(lib, label, regs, card,
-                                              library=library)
-        check(all(recs[label]["equal"].values()), f"hist_split {label}: a "
-              f"variant differs from plain: {recs[label]['equal']}")
-        del regs
-    torch.cuda.empty_cache()
-    dense, dense16k, one, bench = recs.values()
-    rec = {key: dense[key] for key in ("ms", "ms2", "wrapper_ms", "bound_ms",
-                                        "share")}
-    rec.update(library_ms_16k_rows=dense16k["library_ms"],
-               one_value=one["ms"], bench_16k=bench["ms"])
-    return rec
+# Phase 14's sizes: a genome a row of real size (2^20 to 2^24 hashes), so CB
+# prunes; the sub-collection held to the scalar select_pairs_host (its
+# cost grows as N^2).
+CLI_SCALE_N = 16384
+CLI_SCALE_SUB = 4096
+
+
+def phase_cli_scale(validate_cli_scale, screened, card):
+    """Phase 14: experiments/validate_cli_scale.py at CLI_SCALE_N genomes
+    with a cardinality spread and 256 planted pairs, its files in a
+    temporary folder: the CLI in a fresh interpreter, the load by the
+    native readers, cli.main in this process with its launches counted
+    (the harness sets the counts to 0 just before it and reads them just
+    after), every line held to the exact host cascade, the sub-collection
+    of CLI_SCALE_SUB genomes equal to select_pairs_host. Returns
+    {kernel: launches} of that run."""
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            rec = validate_cli_scale.main([
+                "--n", str(CLI_SCALE_N), "--sub", str(CLI_SCALE_SUB),
+                "--workdir", os.path.join(tmp, "cli_scale")])
+        except validate_cli_scale.CheckFailed as exc:
+            check(False, f"validate_cli_scale: {exc}")
+    got = rec["launches"]
+    print(f"  [{card}] selection -c smh_a N={rec['n']} from sketch files: "
+          f"the user's wall {rec['cli_wall_secs']:.2f} s (fresh "
+          f"interpreter), load {sum(rec['load_secs'].values()):.3f} s, "
+          f"plan {rec['plan_secs']:.3f} s (upload {rec['upload_secs']:.3f}, "
+          f"cards {rec['cards_secs']:.4f}, cards_host_rows "
+          f"{rec['cards_host_rows']}), prune {rec['prune_secs']:.3f} s, "
+          f"screen {rec['screen_secs']:.3f} s, confirm "
+          f"{rec['confirm_secs']:.3f} s; tiles {rec['tiles_scheduled']} "
+          f"scheduled / {rec['tiles_live']} live, {rec['lines']} lines, "
+          f"planted recall {rec['planted_recall']}; launches {got}; the "
+          f"CLI process's peak resident set {rec['child_rss_peak']}")
+    check(rec["planted_recall"] == 1.0 and rec["lines"] > 0,
+          "phase 14 recovered too few planted pairs")
+    blocks = -(-CLI_SCALE_N // screened.auto_tile(CLI_SCALE_N))
+    check(rec["tiles_scheduled"] < blocks * (blocks + 1) // 2,
+          "phase 14: CB pruned no tile")
+    for key, name in (("K1", "screen_fused"), ("G", "gate_counts"),
+                      ("H", "row_hist"), ("M", "ertl_mle"),
+                      ("F", "band_fingerprints")):
+        check(got[key] > 0, f"phase 14's run never launched {name}")
+    return {"screen_fused": got["K1"], "gate_counts": got["G"],
+            "row_hist": got["H"], "ertl_mle": got["M"],
+            "band_fingerprints": got["F"]}
 
 
 def main():
@@ -3358,7 +3354,7 @@ def main():
     from cuda_selection_criteria_tpu_torch import models
     from cuda_selection_criteria_tpu_torch.cli import selection as cli
     from cuda_selection_criteria_tpu_torch.experiments import (
-        hist_split, hostmem_split, mle_split, reference_kernel)
+        hostmem_split, mle_split, reference_kernel, validate_cli_scale)
     from cuda_selection_criteria_tpu_torch.native import fastx
     from cuda_selection_criteria_tpu_torch.ops import (_build, criteria,
                                                       estimators, pairwise,
@@ -3386,10 +3382,8 @@ def main():
     print(nvcc.strip().splitlines()[-1])
 
     print("== phase 2: build", flush=True)
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(2) as pool:
         host_lib = pool.submit(fastx.info)  # g++ builds while nvcc does
-        split_build = pool.submit(mle_split.build)
-        hist_build = pool.submit(hist_split.build)
         ref_build = pool.submit(reference_kernel.build)
         for name, (path, build_secs, log) in _build.build().items():
             print(log.strip())
@@ -3404,17 +3398,7 @@ def main():
                     print(f"  {name} ptxas {ln}")
             _build.library(name)
         info = host_lib.result()
-        split_path, split_secs, split_log = split_build.result()
-        hist_path, hist_secs, hist_log = hist_build.result()
         ref_path, ref_secs, ref_log = ref_build.result()
-    print(f"built {os.path.relpath(split_path, HERE)} (the MLE's timing "
-          f"probes) in {split_secs:.2f} s")
-    print(f"built {os.path.relpath(hist_path, HERE)} (the row histograms' "
-          f"timing probes) in {hist_secs:.2f} s")
-    spills = [ln for ln in hist_log.splitlines() if "spill" in ln and
-              "0 bytes spill stores, 0 bytes spill loads" not in ln]
-    check(not spills, f"hist_split: ptxas spills registers: {spills}")
-    hist_lib = hist_split.load(hist_path)
     print(f"built {os.path.relpath(ref_path, HERE)} (the reference's "
           f"kernel_CBsmh, a measured baseline) in {ref_secs:.2f} s")
     for ln in mle_split.ptxas_lines(ref_log):
@@ -3423,9 +3407,6 @@ def main():
               "0 bytes spill stores, 0 bytes spill loads" not in ln]
     check(not spills, f"reference_kernel: ptxas spills registers: {spills}")
     reference_kernel.library()
-    split = (mle_split.load(split_path),
-             mle_split.div_instructions(split_path))
-    print(f"  SASS instructions a division (fast path): {split[1]}")
     print(info["log"].strip())
     check(info["error"] is None, f"libfastx did not build: {info['error']}")
     gxx = subprocess.run([_build.GXX, "--version"], capture_output=True,
@@ -3524,7 +3505,7 @@ def main():
         torch, estimators, pairwise, models, hostref, synth, hist,
         torch.from_numpy(bank.regs[bank.sorted_by_cardinality()[:1024]])
         .to(dev), torch.from_numpy(hbank.aux[h_order]).to(dev),
-        hbank.aux_param, dev, card, split)
+        hbank.aux_param, dev, card)
     del hist
     fp_err = phase_band_fp_edges(torch, screened, dev)
     band_fp = band_fp_config(torch, screen, screened, dev, card)
@@ -3781,8 +3762,7 @@ def main():
                 validate_screened=validate_screened,
                 validate_hllaux=validate_hllaux)
     mods.update(mle_rows=models.bank.mle_rows,
-                cards_from_hists=models.bank.cards_from_hists,
-                hist_split=hist_split, hist_lib=hist_lib)
+                cards_from_hists=models.bank.cards_from_hists)
     scale, presence, rows_2g, packed_131k = phase_scale(torch, mods, dev,
                                                          card)
     print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
@@ -3795,11 +3775,13 @@ def main():
     bench_launches, k2_p14, ref = phase_bench(torch, mods, dev, card)
     print(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
-    print("== phase 13: the row-histogram ablation (hist_split)", flush=True)
-    t13 = time.perf_counter()
-    rows_dense = phase_hist_split(torch, hist_split, hist_lib, hist_path,
-                                  bank.regs, dev, card)
-    print(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+    print("== phase 14: the selection CLI from sketch files with a "
+          "cardinality spread (validate_cli_scale)", flush=True)
+    t14 = time.perf_counter()
+    cli_scale = phase_cli_scale(validate_cli_scale, screened, card)
+    for name, n in cli_scale.items():
+        launches[name] += n
+    print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     facts = hostmem_split.host_facts()
@@ -3810,7 +3792,8 @@ def main():
     # K1's headline numbers are the dense launch's; the gated launch's and
     # the strip variant's (with its launches in the phase 9 ring runs) ride
     # beside them; K2's are the p_aux=8 launch's, its p=14 launch (phase
-    # 12) beside them. `launches` counts the main paths of phases 5 to 7;
+    # 12) beside them. `launches` counts the main paths of phases 5 to 7
+    # and 14 (phase 14's also in its own cli_scale record);
     # the phase 9 engines', phase 10's, phase 11's and phase 12's bench
     # launches stand in their own records.
     measured = {
@@ -3853,7 +3836,6 @@ def main():
             rows_16k, max_abs_err=max(rows_err, rows_16k["max_abs_err"],
                                       rows_2g["max_abs_err"]),
             scale=dict(rows_2g, launches=scale["row_hist"]),
-            dense=rows_dense,
             ring=dict(launches=md["ring"]["row_hist"]),
             sharded=dict(launches=md["sharded"]["row_hist"]),
             l5=dict(launches=l5["row_hist"]),
@@ -3880,6 +3862,8 @@ def main():
             l5=dict(launches=l5["regpack_unpack"]),
             scale=dict(packed_131k, launches=scale["regpack_unpack"]),
             bench=dict(launches=bench_launches["regpack_unpack"]))}
+    for name, n in cli_scale.items():
+        measured[name]["cli_scale"] = dict(launches=n)
     # the reference's own kernel: a measured baseline, not a port of a
     # TPU kernel; its launches are phase 12's rates run
     ref_record = dict(

@@ -21,6 +21,10 @@ and the at-scale validation harnesses:
                          built by the device build ops, exactly equal to
                          the scalar host reference
   validate_hllaux      - hll_a and hll_an on its aux-HLL twin (K2)
+  validate_cli_scale   - the selection CLI in a fresh interpreter on the
+                         sketch files of N real-sized genomes (596,859 by
+                         default: GTDB R220), every line held to the exact
+                         host cascade (one JSON record)
   confirm_thread_sweep - the host confirm loop's pairs/s against threads
                          (confirm_threads.csv)
 

@@ -174,6 +174,7 @@ def shape_record(lib, label, counts, p, dtype, branch, card, divs,
     rows = counts.reshape(n, counts.shape[-1])
     work = {}
     want = estimators._ertl_mle_plain(rows, p, dtype=dtype, work=work)
+    bound = work_bound(rows, p, dtype, branch, work, divs)
     want_flags = estimators.log1p_branch(rows, p, dtype)
     est = torch.empty(n, dtype=dtype, device=rows.device)
     flags = (torch.empty(n, dtype=torch.bool, device=rows.device) if branch
@@ -215,6 +216,38 @@ def shape_record(lib, label, counts, p, dtype, branch, card, divs,
     del by_steps
     ms["kernel_again"] = _ms(torch, _launcher(lib, "kernel", rows, p, dtype,
                                               est, flags, row), reps)
+    bound_ms = bound["bound_ms"]
+    rec = dict(shape=label, rows=n, p=p, dtype=str(dtype)[6:],
+               in_dtype=str(rows.dtype)[6:], row_stride=rows.stride(0),
+               flags=branch, card=card, equal=equal, ms=ms, **bound,
+               share={v: bound_ms / t for v, t in ms.items()})
+    out(f"  [{card}] mle_split {label} ({n} rows, p={p}, "
+        f"{rec['in_dtype']} in, {rec['dtype']}"
+        f"{', flags' if branch else ''}; {work['secant_steps']} secant "
+        f"steps, {work['update_steps']} inner updates): "
+        + ", ".join(f"{v} {t:.4f}" for v, t in ms.items())
+        + f" ms; bound {bound_ms:.4f} ms ({rec['bound_by']}; bytes "
+        f"{rec['bytes_ms']:.4f}, operations {rec['ops_ms']:.4f}"
+        + ("" if rec["ops_div"] is None else
+           f", with each division at its {rec['div_instructions']} SASS "
+           f"instructions {rec['ops_div_ms']:.4f}")
+        + f" ms); kernel share {bound_ms / ms['kernel']:.3f}; bit-equal to "
+        f"plain: {equal}")
+    return rec
+
+
+def work_bound(rows, p, dtype, branch, work=None, divs=None):
+    """The bound of the MLE over the (n, >= q + 2) histograms `rows`: the
+    larger of the operations these rows' loops need (the plain version's
+    work counter; `work` if it has run already) at the card's FP64 or FP32
+    rate outside the tensor cores and the q + 2 bins of each row read once
+    with the estimates (and with branch the flags) written once at
+    HBM_BYTES_PER_S; beside it, with `divs` (div_instructions), the
+    operations with each division at its SASS instructions."""
+    if work is None:
+        work = {}
+        estimators._ertl_mle_plain(rows, p, dtype=dtype, work=work)
+    n = rows.shape[0]
     f64 = dtype == torch.float64
     rate = hopper.FP64_OPS_PER_S if f64 else hopper.FP32_OPS_PER_S
     nbytes = (n * (66 - p) * rows.element_size() + n * (8 if f64 else 4)
@@ -224,32 +257,14 @@ def shape_record(lib, label, counts, p, dtype, branch, card, divs,
     n_div = work["rows"] + 3 * work["secant_steps"] + work["update_steps"]
     per_div = None if divs is None else divs["f64" if f64 else "f32"]
     ops_div = None if per_div is None else work["ops"] + n_div * (per_div - 1)
-    bound_ms = max(bytes_ms, ops_ms)
-    rec = dict(shape=label, rows=n, p=p, dtype=str(dtype)[6:],
-               in_dtype=str(rows.dtype)[6:], row_stride=rows.stride(0),
-               flags=branch, card=card, equal=equal, ms=ms,
-               bound_ms=bound_ms,
-               bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-               bytes=nbytes, bytes_ms=bytes_ms, ops=work["ops"],
-               ops_ms=ops_ms, divisions=n_div, div_instructions=per_div,
-               ops_div=ops_div,
-               ops_div_ms=None if ops_div is None else ops_div / rate * 1e3,
-               secant_steps=work["secant_steps"],
-               update_steps=work["update_steps"],
-               share={v: bound_ms / t for v, t in ms.items()})
-    out(f"  [{card}] mle_split {label} ({n} rows, p={p}, "
-        f"{rec['in_dtype']} in, {rec['dtype']}"
-        f"{', flags' if branch else ''}; {work['secant_steps']} secant "
-        f"steps, {work['update_steps']} inner updates): "
-        + ", ".join(f"{v} {t:.4f}" for v, t in ms.items())
-        + f" ms; bound {bound_ms:.4f} ms ({rec['bound_by']}; bytes "
-        f"{bytes_ms:.4f}, operations {ops_ms:.4f}"
-        + ("" if ops_div is None else
-           f", with each division at its {per_div} SASS instructions "
-           f"{rec['ops_div_ms']:.4f}")
-        + f" ms); kernel share {bound_ms / ms['kernel']:.3f}; bit-equal to "
-        f"plain: {equal}")
-    return rec
+    return dict(bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, bytes_ms=bytes_ms, ops=work["ops"],
+                ops_ms=ops_ms, divisions=n_div, div_instructions=per_div,
+                ops_div=ops_div,
+                ops_div_ms=None if ops_div is None else ops_div / rate * 1e3,
+                secant_steps=work["secant_steps"],
+                update_steps=work["update_steps"])
 
 
 def default_shapes(dev, seed, cell=None, out=print):

@@ -176,6 +176,81 @@ def genome_regs(torch, n, p, seed, device, items=GENOME_ITEMS,
     return out
 
 
+# Rows a seed child draws in genome_file_bank: each chunk has its own
+# stream, so the bytes do not depend on the thread count.
+GENOME_CHUNK = 4096
+# Planted pairs' Jaccard targets: margins on both sides of tau = 0.9.
+PLANT_J = (0.80, 1.00)
+
+
+def draw_regs(lam, m, q, rng):
+    """uint8 (len(lam), m) registers, each drawn from register_law(lam) by
+    inversion as genome_regs draws them: R = ceil(log2(lam / E)) for E ~
+    Exp(1) in f32, clamped to [0, q + 1]. The ceil comes from frexp of the
+    correctly rounded quotient (x = f 2^k, f in [0.5, 1): ceil(log2 x) is
+    k, or k - 1 where f = 0.5), so no libm log decides a register; an E
+    of 0 (x = inf) gives q + 1."""
+    x = rng.standard_exponential((len(lam), m), dtype=np.float32)
+    with np.errstate(divide="ignore"):
+        np.divide(np.asarray(lam, np.float32)[:, None], x, out=x)
+    f, k = np.frexp(x)
+    k -= f == 0.5
+    np.putmask(k, x == np.inf, q + 1)
+    np.clip(k, 0, q + 1, out=k)
+    return k.astype(np.uint8)
+
+
+def genome_file_bank(n, seed, planted=256, threads=8, p=14, m=32,
+                     items=GENOME_ITEMS):
+    """(regs uint8 (n, 2^p), SMH uint64 (n, m), pairs int64 (planted, 2),
+    targets float64 (planted,)) of n real-sized genomes with `planted`
+    near-duplicate pairs: the bank of experiments/validate_cli_scale.py.
+
+    Row chunks of GENOME_CHUNK draw on `threads` threads, each from its own
+    np.random.SeedSequence(seed).spawn child, so the same seed gives the
+    same bytes whatever the thread count. A genome's cardinality is
+    log-uniform in `items`, its registers draw_regs of it, its buckets
+    synthetic_aux's law. Then, from the last child, each planted pair (a,
+    b) of distinct rows takes a target J uniform in PLANT_J and a
+    cardinality c log-uniform in `items`: a shared part of s = 2cJ / (1 +
+    J) hashes and two private parts of s (1 - J) / (2J) each, drawn apart;
+    a and b take the register-wise max of the shared part and their own
+    private part (true Jaccard J), and each of b's buckets is a's with
+    probability J, drawn anew otherwise."""
+    q, regs_m = 64 - p, 1 << p
+    lo, hi = np.log(items[0]), np.log(items[1])
+    n_chunks = -(-n // GENOME_CHUNK)
+    kids = np.random.SeedSequence(seed).spawn(n_chunks + 1)
+    regs = np.empty((n, regs_m), np.uint8)
+    aux = np.empty((n, m), np.uint64)
+
+    def draw(c):
+        rng = np.random.default_rng(kids[c])
+        s0 = c * GENOME_CHUNK
+        rows = min(GENOME_CHUNK, n - s0)
+        card = np.exp(rng.uniform(lo, hi, rows))
+        regs[s0:s0 + rows] = draw_regs(card / regs_m, regs_m, q, rng)
+        aux[s0:s0 + rows] = synthetic_aux(rows, m, rng)
+
+    with ThreadPoolExecutor(max(1, threads)) as pool:
+        list(pool.map(draw, range(n_chunks)))
+    rng = np.random.default_rng(kids[-1])
+    pairs = rng.choice(n, size=2 * planted, replace=False).reshape(
+        2, planted).T.astype(np.int64)
+    targets = rng.uniform(*PLANT_J, planted)
+    card = np.exp(rng.uniform(lo, hi, planted))
+    shared = 2.0 * card * targets / (1.0 + targets)
+    private = shared * (1.0 - targets) / (2.0 * targets)
+    base = draw_regs(shared / regs_m, regs_m, q, rng)
+    for side in (0, 1):
+        regs[pairs[:, side]] = np.maximum(
+            base, draw_regs(private / regs_m, regs_m, q, rng))
+    a, b = pairs[:, 0], pairs[:, 1]
+    keep = rng.random((planted, m)) < targets[:, None]
+    aux[b] = np.where(keep, aux[a], synthetic_aux(planted, m, rng))
+    return regs, aux, pairs, targets
+
+
 # A synthetic FASTA corpus for the build path (chip_smoke.py phase 7,
 # experiments/hostmem_split.py).
 BASES = np.frombuffer(b"ACGT", np.uint8)

@@ -27,8 +27,8 @@ CLIS = ("selection", "build_sketch", "time_smh")
 EXPERIMENTS = ("bench", "compare_engines", "confirm_thread_sweep",
                "confirm_throughput", "hist_split", "kernel_tuning",
                "mle_split", "run_time_experiment", "scale_sweep",
-               "unpack_split", "validate_131k_scale", "validate_hllaux",
-               "validate_ring_scale", "validate_screened")
+               "unpack_split", "validate_131k_scale", "validate_cli_scale",
+               "validate_hllaux", "validate_ring_scale", "validate_screened")
 TIMEOUT = 60
 
 # a recorder in place of enable_arena_reuse (monkeypatch), calling through
@@ -108,7 +108,7 @@ print(json.dumps({{"rc": rc, "calls": calls,
 
 
 def test_experiment_and_smoke_mains_call_it_first():
-    """Each of the 14 experiments' main calls it before it parses its
+    """Each of the 15 experiments' main calls it before it parses its
     arguments (--help exits in the parser), and chip_smoke.main before
     it finds no card (it returns 1 here)."""
     out = run(RECORDER + f"""
